@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``flypylib_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py              # build, check, drive the main path
-    python3 chip_smoke.py --profile    # also trace detect with torch.profiler
+    python3 chip_smoke.py --profile    # also trace detects with torch.profiler
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -11,22 +11,39 @@ prints no result line):
 2. Build: every ``flypylib_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` into
    ``build/kernels/``; the compiler's register/spill report is printed.
 3. K1 (``conv3d_bias_relu``) against its plain PyTorch version on the card,
-   at the main path's shapes (the baseline's four body layers at
-   ``default_tiling``'s tile and batch for a 256^3 volume) and one
-   ``vgg_like`` layer (64 -> 96 channels, dilation 4), in f32 and bf16,
-   with the median times of both.
-4. Main path: first, on a 48^3 volume in 24-wide tiles, the logits behind
+   at the main path's shapes (the baseline's four body layers and the plain
+   U-Net's ten convs at ``default_tiling``'s tile and batch for a 256^3
+   volume) and one ``vgg_like`` layer (64 -> 96 channels, dilation 4), in
+   f32 and bf16, with the median times of both.
+4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
+   versions at the packed U-Net's 256^3 covering tile: on the operands its
+   forward hands them, launch by launch (each stage and the logits on the
+   kernel's own input); and, timed, in the four forms ``tail_impl``
+   selects ("pallas", "pallas_fold", "pallas2", "pallas_fold2") on those
+   shapes with unit-scale activations.  In f32 and bf16.
+5. The baseline path: on a 48^3 volume in 24-wide tiles, the logits behind
    the card's probability map must match the CPU's (the plain versions,
-   same weights) in f32 and bf16.
-   Then ``FplNetwork("baseline", device="cuda", seed=0)`` at bf16 on a
-   256^3 uint8 blob volume runs ``infer``, ``detect(method="nms")`` and
-   ``detect(method="components")``.  K1's launch count must rise by exactly
-   four per tile batch and forward, and both detection lists must equal the
-   host (numpy/scipy) reference on the same probability map.  Times follow.
+   same weights) in f32 and bf16.  Then ``FplNetwork("baseline",
+   device="cuda", seed=0)`` at bf16 on a 256^3 uint8 blob volume runs
+   ``infer``, ``detect(method="nms")`` and ``detect(method="components")``.
+   K1's launch count must rise by exactly four per tile batch and forward,
+   and both detection lists must equal the host (numpy/scipy) reference on
+   the same probability map.  Times follow, and where one infer's time
+   goes (host pad, upload, forwards, the rest).
+6. The U-Net paths: the logits behind the card's map match the CPU's on a
+   64^3 volume in 24-wide tiles, for the plain U-Net (K1) and the packed
+   engine with the K2 and the K3 tail, in f32 and bf16.  Then, at bf16 on
+   the 256^3 volume, each engine (the K3 tail, the K2 tail, the unfused
+   default, the plain U-Net) runs infer and both detects, with the counts
+   reset before and read after: K3 or K2 once per tile batch and forward,
+   K1 once per conv, tile batch and forward on the plain U-Net, no kernel
+   of the others.  The lists must equal the host reference; times, peak
+   memory and the infer's phases follow.
 
-The line before the last is one JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+Every count of launches is set to 0 just before a path runs and read just
+after it.  The line before the last is one JSON object with each kernel's
+launches, error and times; the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ F32_RTOL = 1e-4  # f32: max |kernel - plain| <= F32_RTOL * max |plain|
 # accumulate in f32 in different orders, so a value near 0 may round to
 # either side of it)
 BF16_FLOOR = 2.0**-8
+TAIL_CHAIN_TOL = 2e-2  # K2/K3 chains with logits, bf16 (see tail_check)
 SMALL = 48       # volume of the card-vs-CPU map check
 SMALL_TILING = (24, 3)  # tile_out, batch: 8 tiles in 3 batches, the last
                         # padded, so stitching is inside the check
@@ -65,6 +83,18 @@ SMALL_TILING = (24, 3)  # tile_out, batch: 8 tiles in 3 batches, the last
 # layer one ulp high 0.43-0.53, and f32 convs on TF32 0.023 (PERF.md).
 LOGIT_TOL_F32 = 1e-3
 LOGIT_TOL_BF16 = 0.3
+UNET_SMALL = 64  # volume of the U-Net card-vs-CPU map check
+UNET_TILING = (24, 3)  # 27 tiles in 9 batches: stitching is inside the check
+# card vs CPU, U-Net logits: max |logit difference|.  On an H100 the sound
+# path read 5.4e-05-1.09e-04 (f32) and 0.102-0.144 (bf16) over three
+# volumes and the three engines; one kernel output broken in memory (a tap
+# dropped, a channel or an x column zeroed) read 5.5 or more in either
+# dtype, and every stage-0 (or conv 8) output one bf16 ulp high 0.336
+# (PERF.md).
+UNET_LOGIT_TOL_F32 = 1e-3
+UNET_LOGIT_TOL_BF16 = 0.25
+# the 256^3 U-Net engines: tail_impl, or "plain" for packed=False
+UNET_ENGINES = ("pallas2", "pallas", "xla", "plain")
 NMS_WINDOW = 5   # FplNetwork.detect's default window
 CONF_TOL = 1e-6
 CENTROID_TOL = 1e-5
@@ -137,6 +167,36 @@ def conv_check(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
     return float(err.max()), ok
 
 
+def tail_check(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
+               pre: torch.Tensor | None = None) -> tuple[float, bool]:
+    """(max |got - ref|, whether it is within the tolerance) for K2 / K3
+    against the plain version, the model being in ``dtype``.
+
+    - f32: max |err| <= F32_RTOL * max |ref|, as :func:`conv_check`.
+    - bf16, one stage (``pre``: the plain version's conv sum rounded to
+      bf16, before the bias): within one ulp at each of the stage's two
+      rounding points, ulp(|pre|) + ulp(|out|), each magnitude floored at
+      BF16_FLOOR times its maximum as in :func:`conv_check`.  One ulp of
+      the output alone, K1's limit, is too tight here: where the bias
+      cancels the conv sum, a one-ulp flip of the sum is many ulps of the
+      output.
+    - bf16 chains with logits (f32 out): rtol = atol = TAIL_CHAIN_TOL, the
+      JAX package's own test's for this kernel."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    scale = float(r.abs().max())
+    if dtype == torch.float32:
+        return float(err.max()), float(err.max()) <= F32_RTOL * scale
+    if pre is None:
+        ok = bool((err <= TAIL_CHAIN_TOL * (1 + r.abs())).all())
+        return float(err.max()), ok
+    p = pre.float().abs()
+    bound = bf16_ulp(torch.clamp(p, min=BF16_FLOOR * float(p.max())))
+    mag = torch.maximum(r.abs(), g.abs())
+    bound += bf16_ulp(torch.clamp(mag, min=BF16_FLOOR * scale))
+    return float(err.max()), bool((err <= bound).all())
+
+
 def median_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     """Median CUDA-event time of ``fn()`` over ``iters`` runs, after warm-up."""
     for _ in range(warmup):
@@ -167,10 +227,12 @@ def median_s(fn, iters: int = 3) -> float:
 
 def conv_cases():
     """(label, B, input size, Ci, Co, dilation) of K1 on the main path:
-    the baseline's four body layers, and vgg_like's 64 -> 96, d=4 layer, at
-    ``default_tiling``'s tile and batch for a VOLUME^3 volume."""
+    the baseline's four body layers, vgg_like's 64 -> 96, d=4 layer and the
+    plain U-Net's ten convs, at ``default_tiling``'s tile and batch for a
+    VOLUME^3 volume.  The U-Net's extents (pooled, cropped) are recorded by
+    a hook on each conv in one forward of a zero tile on the card."""
     from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
-    from flypylib_tpu_torch.models.zoo import baseline_model, vgg_like
+    from flypylib_tpu_torch.models.zoo import baseline_model, unet, vgg_like
 
     cases = []
     for spec, layers in ((baseline_model(), (0, 1, 2, 3)), (vgg_like(), (6,))):
@@ -182,6 +244,28 @@ def conv_cases():
                 cases.append((f"{spec.name} layer {i}", batch, s, ci, co,
                               conv.dilation))
             s -= 2 * conv.dilation
+    spec = unet(seed=0)
+    module = spec.module.to("cuda").eval()
+    tile_out, batch = default_tiling(spec, (VOLUME,) * 3)
+    tin = TiledInference(spec, tile_out, batch).tile_in
+    seen = []
+    hooks = [conv.register_forward_pre_hook(
+        lambda m, inp: seen.append((m, tuple(inp[0].shape))))
+        for conv in module.convs]
+    try:
+        with torch.no_grad():
+            module(torch.zeros((batch, tin, tin, tin, 1), dtype=torch.uint8,
+                               device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    require(len(seen) == len(module.convs), f"unet: {len(seen)} convs ran")
+    for i, (conv, (b, s, sy, sx, ci)) in enumerate(seen):
+        require(s == sy == sx and conv is module.convs[i], "unet conv walk")
+        cases.append((f"unet conv {i}", b, s, ci, conv.weight.shape[4],
+                      conv.dilation))
+    del module
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -196,6 +280,7 @@ def check_kernels(card_str: str) -> dict:
           "float32_matmul_precision='highest'")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16_main = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for label, B, S, Ci, Co, d in conv_cases():
         for dtype in (torch.float32, torch.bfloat16):
             shape = (B, S, S, S, Ci)
@@ -227,9 +312,198 @@ def check_kernels(card_str: str) -> dict:
                 bf16_main["ms"] += ms
                 bf16_main["plain_ms"] += plain
                 bf16_main["max_abs_err"] = max(bf16_main["max_abs_err"], err)
+            if label.startswith("unet"):
+                unet_sum[dtype][0] += ms
+                unet_sum[dtype][1] += plain
             del x, w, b, got, ref
+    for dtype, (ms, plain) in unet_sum.items():
+        print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
     torch.cuda.empty_cache()
     return bf16_main
+
+
+def tail_inputs(dtype: torch.dtype) -> tuple[dict, dict, int]:
+    """What reaches K2 and K3 on the main path: the packed U-Net (seed 0
+    weights) runs one 256^3 covering tile of a blob volume once per kernel,
+    and the arguments its tail hands ``packed_tail`` ("pallas") and
+    ``packed_tail2`` ("pallas2") are kept.  Returns them as captured, the
+    same with the activations replaced by post-ReLU unit normals of the
+    same shapes (K1's inputs, the scale the chain tolerance is set for: the
+    forward's own stage outputs reach ~140, where one bf16 ulp is 1), and
+    the tile's input extent."""
+    from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
+    from flypylib_tpu_torch.models.zoo import unet
+    from flypylib_tpu_torch.ops import packed_unet
+
+    seen = {}
+    spec = unet(seed=0, dtype=dtype)
+    for impl, name in (("pallas", "packed_tail"), ("pallas2", "packed_tail2")):
+        pspec = packed_unet.packed_unet_spec(spec, tail_impl=impl)
+        module = pspec.module.to("cuda").eval()
+        tin = TiledInference(pspec, *default_tiling(pspec, (VOLUME,) * 3)).tile_in
+        x = torch.from_numpy(make_volume_u8(tin, N_BLOBS, seed=2)).cuda()
+        wrapper = getattr(packed_unet, name)
+
+        def keep(*args, _name=name, _wrapper=wrapper):
+            seen[_name] = args
+            return _wrapper(*args)
+
+        setattr(packed_unet, name, keep)
+        try:
+            with torch.no_grad():
+                module(x[None, ..., None])
+        finally:
+            setattr(packed_unet, name, wrapper)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def unit(t):
+        return torch.relu(torch.randn(t.shape, generator=gen, device="cuda")
+                          ).to(t.dtype)
+
+    xin, stages, lg = seen["packed_tail"]
+    sc, xu, stage0, stages2, lg2 = seen["packed_tail2"]
+    unit_seen = {"packed_tail": (unit(xin), stages, lg),
+                 "packed_tail2": (unit(sc), unit(xu), stage0, stages2, lg2)}
+    torch.cuda.synchronize()
+    return seen, unit_seen, tin
+
+
+def check_tail_stagewise(seen: dict, dtype: torch.dtype, tin: int,
+                         card_str: str) -> None:
+    """K2 and K3 on the operands the forward really hands them, launch by
+    launch: every stage and the logits get the kernel's own output of the
+    step before as input on both sides, so each is held to a single step's
+    bound (:func:`tail_check` with the plain conv sum for a stage; for the
+    logits, an f32 sum of exact products in another order, F32_RTOL times
+    the largest sum of |products|).  The whole chain's gap on these
+    operands is printed too: in bf16 it carries every stage's one-ulp
+    flips forward, so it has no bound of its own."""
+    from flypylib_tpu_torch.ops.conv import conv3d_f32, matmul_f32
+    from flypylib_tpu_torch.ops.tail import (logits_reference, packed_tail,
+                                             packed_tail2, tail2_reference,
+                                             tail_reference)
+
+    xin, stages, lg = seen["packed_tail"]
+    sc, xu, stage0, stages2, lg2 = seen["packed_tail2"]
+    wa, wb, _ = stage0
+    chains = {
+        # kernel: (stage 0 on the card, its plain version, its rounded conv
+        #          sum, the stages after it, logits, whole chain on both)
+        "K2": (lambda: packed_tail(xin, stages[:1]),
+               lambda: tail_reference(xin, stages[:1]),
+               lambda: conv3d_f32(xin, stages[0][0].to(dtype)).to(dtype),
+               stages[1:], lg, lambda: packed_tail(xin, stages, lg),
+               lambda: tail_reference(xin, stages, lg)),
+        "K3": (lambda: packed_tail2(sc, xu, stage0),
+               lambda: tail2_reference(sc, xu, stage0),
+               lambda: (conv3d_f32(sc, wa.to(dtype))
+                        + conv3d_f32(xu, wb.to(dtype))).to(dtype),
+               stages2, lg2, lambda: packed_tail2(sc, xu, stage0, stages2, lg2),
+               lambda: tail2_reference(sc, xu, stage0, stages2, lg2)),
+    }
+    dt = str(dtype).replace("torch.", "")
+    for kname, (k0, p0, pre0, rest, logit_ops, whole_k, whole_p) in chains.items():
+        steps = [("stage 0", k0, p0, pre0)]
+        for i, (w, b) in enumerate(rest, 1):
+            steps.append((f"stage {i}",
+                          lambda w=w, b=b: packed_tail(cur, [(w, b)]),
+                          lambda w=w, b=b: tail_reference(cur, [(w, b)]),
+                          lambda w=w: conv3d_f32(cur, w.to(dtype)).to(dtype)))
+        cur = None
+        for step, kern, plain, pre in steps:
+            got, ref = kern(), plain()
+            err, ok = tail_check(got, ref, dtype, pre())
+            print(f"{kname} real operands {step} -> {tuple(got.shape)} {dt} "
+                  f"(tile in {tin}): max|err| {err:.6g} (max|ref| "
+                  f"{float(ref.float().abs().max()):.6g}) "
+                  f"{'ok' if ok else 'FAIL'} [{card_str}]", flush=True)
+            require(ok, f"{kname} {step} {dt} on real operands: outside "
+                        f"tolerance (max|err| {err})")
+            cur = got
+            del ref
+        wl, bl = logit_ops
+        got = packed_tail(cur, [], logit_ops)
+        ref = logits_reference(cur, wl, bl)
+        mags = matmul_f32(cur.abs(), wl.to(dtype).abs())
+        err = float((got - ref).abs().max())
+        ok = err <= F32_RTOL * float(mags.max())
+        print(f"{kname} real operands logits -> {tuple(got.shape)} {dt}: "
+              f"max|err| {err:.6g} (limit {F32_RTOL:g} x max sum|products| "
+              f"{float(mags.max()):.6g}) {'ok' if ok else 'FAIL'} "
+              f"[{card_str}]", flush=True)
+        require(ok, f"{kname} logits {dt} on real operands: outside tolerance "
+                    f"(max|err| {err})")
+        del got, ref, mags, cur
+        got, ref = whole_k(), whole_p()
+        print(f"{kname} real operands whole chain {dt}: max|err| "
+              f"{float((got - ref).abs().max()):.6g} (max|ref| "
+              f"{float(ref.abs().max()):.6g}; reading, no limit) "
+              f"[{card_str}]", flush=True)
+        del got, ref
+    torch.cuda.empty_cache()
+
+
+def check_tail_kernels(card_str: str) -> dict:
+    """K2 and K3 against their plain versions: in the four forms, both
+    dtypes and timed, on the main path's shapes with unit-scale activations;
+    then launch by launch on the real operands (:func:`tail_inputs`,
+    :func:`check_tail_stagewise`).  Returns the bf16 readings of the full
+    tails ("pallas" for K2, "pallas2" for K3)."""
+    from flypylib_tpu_torch.ops.conv import conv3d_f32
+    from flypylib_tpu_torch.ops.tail import (packed_tail, packed_tail2,
+                                             tail2_reference, tail_reference)
+
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        real, seen, tin = tail_inputs(dtype)
+        check_tail_stagewise(real, dtype, tin, card_str)
+        del real
+        xin, stages, lg = seen["packed_tail"]
+        sc, xu, stage0, stages2, lg2 = seen["packed_tail2"]
+        wa, wb = stage0[0], stage0[1]
+        forms = {
+            # form: (kernel, wrapper call, plain call, the stage's rounded
+            #        conv sum before the bias, for a single stage)
+            "pallas": ("K2", lambda: packed_tail(xin, stages, lg),
+                       lambda: tail_reference(xin, stages, lg), None),
+            "pallas_fold": ("K2", lambda: packed_tail(xin, stages[:1]),
+                            lambda: tail_reference(xin, stages[:1]),
+                            lambda: conv3d_f32(xin, stages[0][0]).to(dtype)),
+            "pallas2": ("K3", lambda: packed_tail2(sc, xu, stage0, stages2, lg2),
+                        lambda: tail2_reference(sc, xu, stage0, stages2, lg2),
+                        None),
+            "pallas_fold2": ("K3", lambda: packed_tail2(sc, xu, stage0),
+                             lambda: tail2_reference(sc, xu, stage0),
+                             lambda: (conv3d_f32(sc, wa) + conv3d_f32(xu, wb))
+                             .to(dtype)),
+        }
+        dt = str(dtype).replace("torch.", "")
+        for form, (kname, kern, plain, pre) in forms.items():
+            got = kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            require(got.shape == ref.shape and got.dtype == ref.dtype,
+                    f"{kname} {form} {dt}: {tuple(got.shape)} {got.dtype} vs "
+                    f"{tuple(ref.shape)} {ref.dtype}")
+            err, ok = tail_check(got, ref, dtype, pre() if pre else None)
+            ms = median_ms(kern, warmup=1, iters=5)
+            plain_ms = median_ms(plain, warmup=1, iters=5)
+            ins = (f"x{tuple(xin.shape)}" if kname == "K2" else
+                   f"xa{tuple(sc.shape)} xb{tuple(xu.shape)}")
+            print(f"{kname} tail_impl={form!r} {ins} -> {tuple(got.shape)} "
+                  f"{dt} (tile in {tin}): max|err| {err:.6g} (max|ref| "
+                  f"{float(ref.float().abs().max()):.6g}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms [{card_str}]", flush=True)
+            require(ok, f"{kname} {form} {dt}: outside tolerance (max|err| {err})")
+            if dtype == torch.bfloat16 and form in ("pallas", "pallas2"):
+                main[kname] = {"ms": ms, "plain_ms": plain_ms,
+                               "max_abs_err": err}
+            del got, ref
+        del seen, xin, stages, lg, sc, xu, stage0, stages2, lg2
+        torch.cuda.empty_cache()
+    return main
 
 
 def logits(prob: np.ndarray) -> np.ndarray:
@@ -239,33 +513,74 @@ def logits(prob: np.ndarray) -> np.ndarray:
         return np.log(p) - np.log1p(-p)
 
 
-def check_small_map(port, card_str: str) -> None:
+def check_map(card_str: str, label: str, make_net, vol: np.ndarray, tiling,
+              limits) -> None:
     """The logits behind the card's probability map against the CPU's (the
-    plain versions) on a SMALL^3 volume, with the same weights, at f32 and
-    at bf16."""
-    vol = make_volume_u8(SMALL, 2, seed=1)
-    for dtype, tol in ((torch.float32, LOGIT_TOL_F32),
-                       (torch.bfloat16, LOGIT_TOL_BF16)):
-        gpu = port.FplNetwork("baseline", device="cuda", seed=0, dtype=dtype)
-        cpu = port.FplNetwork("baseline", device="cpu", seed=0, dtype=dtype)
-        cpu.spec.module.load_state_dict(gpu.spec.module.state_dict())
-        pg = gpu.infer(vol, *SMALL_TILING)
-        pc = cpu.infer(vol, *SMALL_TILING)
+    plain versions) on ``vol`` in ``tiling`` (tile_out, batch), with the
+    same weights, for each ``(dtype, limit)``; ``make_net(device, dtype)``
+    builds the network."""
+    for dtype, tol in limits:
+        gpu = make_net("cuda", dtype)
+        cpu = make_net("cpu", dtype)
+        cpu.module.load_state_dict(gpu.module.state_dict())
+        pg = gpu.infer(vol, *tiling)
+        pc = cpu.infer(vol, *tiling)
         lg, lc = logits(pg), logits(pc)
         dt = str(dtype).replace("torch.", "")
+        size = "x".join(map(str, vol.shape))
         require(pg.shape == vol.shape and bool(np.isfinite(lg).all())
                 and bool(np.isfinite(lc).all()),
-                f"{SMALL}^3 {dt} map: shape {pg.shape}; every p in (0, 1): "
-                f"card {bool(np.isfinite(lg).all())}, "
+                f"{label} {size} {dt} map: shape {pg.shape}; every p in "
+                f"(0, 1): card {bool(np.isfinite(lg).all())}, "
                 f"CPU {bool(np.isfinite(lc).all())}")
         err = float(np.abs(lg - lc).max())
-        print(f"{SMALL}^3 map, tiles {SMALL_TILING[0]} in batches of "
-              f"{SMALL_TILING[1]}, card vs CPU plain versions, {dt}: "
-              f"max|dlogit| {err:.6g} (limit {tol:g}; max|logit| "
+        print(f"{label} {size} map, tiles {tiling[0]} in batches of "
+              f"{tiling[1]}, card vs CPU plain versions, {dt}: max|dlogit| "
+              f"{err:.6g} (limit {tol:g}; max|logit| "
               f"{float(np.abs(lc).max()):.6g}), max|dprob| "
               f"{float(np.abs(pg - pc).max()):.6g} [{card_str}]", flush=True)
-        require(err <= tol, f"{SMALL}^3 {dt} logits differ from the CPU's by "
-                            f"{err} (limit {tol})")
+        require(err <= tol, f"{label} {size} {dt} logits differ from the "
+                            f"CPU's by {err} (limit {tol})")
+        del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def check_small_map(port, card_str: str) -> None:
+    """The baseline's map at SMALL^3 against the CPU's, in f32 and bf16."""
+    check_map(card_str, "baseline",
+              lambda dev, dt: port.FplNetwork("baseline", device=dev, seed=0,
+                                              dtype=dt),
+              make_volume_u8(SMALL, 2, seed=1), SMALL_TILING,
+              ((torch.float32, LOGIT_TOL_F32), (torch.bfloat16, LOGIT_TOL_BF16)))
+
+
+def unet_net(port, engine: str, device, dtype=torch.bfloat16):
+    """``FplNetwork`` on the full-width U-Net (weights from seed 0):
+    ``engine`` is a ``tail_impl`` of the packed engine, or "plain" for
+    ``packed=False``."""
+    from flypylib_tpu_torch.models.zoo import unet
+    from flypylib_tpu_torch.ops.packed_unet import packed_unet_spec
+
+    if engine == "plain":
+        return port.FplNetwork("unet", device=device, seed=0, dtype=dtype,
+                               packed=False)
+    if engine == "xla":  # the default engine
+        return port.FplNetwork("unet", device=device, seed=0, dtype=dtype)
+    return port.FplNetwork(
+        packed_unet_spec(unet(seed=0, dtype=dtype), tail_impl=engine),
+        device=device)
+
+
+def check_unet_maps(port, card_str: str) -> None:
+    """The U-Net's map at UNET_SMALL^3 against the CPU's, for the plain
+    U-Net (K1) and the packed engine with the K2 and the K3 tail."""
+    limits = ((torch.float32, UNET_LOGIT_TOL_F32),
+              (torch.bfloat16, UNET_LOGIT_TOL_BF16))
+    vol = make_volume_u8(UNET_SMALL, 2, seed=1)
+    for engine in ("plain", "pallas", "pallas2"):
+        check_map(card_str, f"unet {engine}",
+                  lambda dev, dt, e=engine: unet_net(port, e, dev, dt), vol,
+                  UNET_TILING, limits)
 
 
 def same_list(got, ref, loc_tol: float, what: str) -> None:
@@ -281,16 +596,30 @@ def same_list(got, ref, loc_tol: float, what: str) -> None:
     require(dconf <= CONF_TOL, f"{what}: conf differs by {dconf}")
 
 
+def kernel_wrappers() -> dict:
+    """The port's kernel wrappers, each with its ``launches`` count."""
+    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+    from flypylib_tpu_torch.ops.tail import packed_tail, packed_tail2
+
+    return {"conv3d_bias_relu": conv3d_bias_relu, "packed_tail": packed_tail,
+            "packed_tail2": packed_tail2}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
     """Drive ``infer`` and both ``detect`` methods once, checking the lists
-    against the host reference on the same map; returns the counts."""
-    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+    against the host reference on the same map; returns the launch counts
+    (every count set to 0 just before, read just after, and after infer)."""
     from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
 
     n_batches = net.tiled_inference(vol.shape).n_batches(vol.shape)
-    conv3d_bias_relu.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
     prob = net.infer(vol, keep_on_device=True)
-    after_infer = conv3d_bias_relu.launches
+    after_infer = launch_counts()
     require(tuple(prob.shape) == vol.shape and prob.dtype == torch.float32,
             f"prob map {tuple(prob.shape)} {prob.dtype}")
     require(bool(torch.isfinite(prob).all()), "prob map is not finite")
@@ -299,7 +628,7 @@ def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
                 .values[-1])
     dets_nms = net.detect(vol, threshold=thr, method="nms")
     dets_cc = net.detect(vol, threshold=thr, method="components")
-    launches = conv3d_bias_relu.launches
+    launches = launch_counts()
 
     host = prob.cpu().numpy()
     same_list(dets_nms, nms_host(host, window=NMS_WINDOW, threshold=thr), 0.0,
@@ -312,7 +641,20 @@ def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
             "above_threshold": int((prob >= thr).sum())}
 
 
-def time_main_path(net, vol: np.ndarray, thr: float, card_str: str) -> dict:
+def require_launches(res: dict, per_forward: dict, what: str) -> None:
+    """Each kernel launched ``per_forward[name]`` times per forward (0 when
+    absent): once in infer, three times over infer and both detects."""
+    want = {name: per_forward.get(name, 0) for name in res["launches"]}
+    require(res["launches_infer"] == want,
+            f"{what}: infer launched {res['launches_infer']}, expected {want}")
+    want3 = {name: 3 * n for name, n in want.items()}
+    require(res["launches"] == want3,
+            f"{what}: infer + 2 detects launched {res['launches']}, "
+            f"expected {want3}")
+
+
+def time_main_path(net, vol: np.ndarray, thr: float, card_str: str,
+                   label: str = "main path") -> dict:
     prob = net.infer(vol, keep_on_device=True)  # warm
     mvox = vol.size / 1e6
     torch.cuda.reset_peak_memory_stats()
@@ -327,20 +669,53 @@ def time_main_path(net, vol: np.ndarray, thr: float, card_str: str) -> dict:
     }
     peak = torch.cuda.max_memory_allocated() / 2**30
     for k, s in t.items():
-        print(f"main path {k}: {s * 1e3:.2f} ms"
+        print(f"{label} {k}: {s * 1e3:.2f} ms"
               + (f", {mvox / s:.3f} Mvox/s" if k != "nms" and
                  k != "components" else "")
               + f" ({VOLUME}^3, bf16) [{card_str}]")
-    print(f"main path peak device memory {peak:.3f} GiB [{card_str}]")
+    print(f"{label} peak device memory {peak:.3f} GiB [{card_str}]")
     return t
 
 
-def profile_detect(net, vol: np.ndarray, thr: float, card_str: str) -> None:
+def infer_phases(net, vol: np.ndarray, card_str: str, label: str) -> None:
+    """Where one ``infer`` spends its host-clock time, without a profiler:
+    the host pad (as ``TiledInference.infer`` pads), the upload, every
+    tile batch's forward (CUDA events; one batch timed, times the number of
+    batches) and the rest (tile slicing, sigmoid, stitching, host launch
+    time not hidden behind the card).  Medians, each phase timed alone."""
+    ti = net.tiled_inference(vol.shape)
+    _, out_shape = ti.plan(vol.shape)
+    c, tin, B = ti.ctx, ti.tile_in, ti.tile_batch
+
+    def pad():
+        p = np.pad(vol, c, mode="reflect") if c else vol
+        return np.pad(p, [(0, o - s) for s, o in zip(vol.shape, out_shape)])
+
+    padded = pad()
+    t_pad = median_s(pad) * 1e3
+    t_up = median_s(lambda: torch.from_numpy(padded).to("cuda")) * 1e3
+    src = torch.from_numpy(padded).to("cuda")
+    tiles = torch.stack([src[:tin, :tin, :tin]] * B)[..., None]
+    module = ti.spec.module
+    with torch.no_grad():
+        t_fwd = median_ms(lambda: module(tiles), warmup=1, iters=5)
+    n = ti.n_batches(vol.shape)
+    t_inf = median_s(lambda: net.infer(vol, keep_on_device=True), iters=5) * 1e3
+    rest = t_inf - t_pad - t_up - n * t_fwd
+    print(f"{label} infer phases ({VOLUME}^3, tile in {tin}, {n} x batch "
+          f"{B}): infer {t_inf:.2f} ms = host pad {t_pad:.2f} + upload "
+          f"{t_up:.2f} + forwards {n} x {t_fwd:.2f} + rest {rest:.2f} "
+          f"[{card_str}]", flush=True)
+    del src, tiles
+
+
+def profile_detect(net, vol: np.ndarray, thr: float, card_str: str,
+                   methods=("nms", "components"), label: str = "") -> None:
     """Device time by kernel over one detect per method (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for method in ("nms", "components"):
+    for method in methods:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=acts) as prof:
@@ -351,7 +726,7 @@ def profile_detect(net, vol: np.ndarray, thr: float, card_str: str) -> None:
         dev_us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                      for e in events)
-        print(f"profile detect({method}): device busy {dev_us / 1e3:.2f} ms "
+        print(f"profile {label}detect({method}): device busy {dev_us / 1e3:.2f} ms "
               f"of {wall * 1e3:.2f} ms wall (profiled) [{card_str}]")
         print(events.table(sort_by="self_cuda_time_total", row_limit=25),
               flush=True)
@@ -385,39 +760,84 @@ def main(argv=None) -> int:
     # 3. K1 against its plain version
     k1 = check_kernels(card_str)
 
-    # 4. main path: the map against the CPU's at a small size, then 256^3
+    # 4. K2 and K3 against their plain versions
+    tails = check_tail_kernels(card_str)
+
+    # 5. the baseline path: the map against the CPU's at a small size, then
+    #    256^3
     check_small_map(port, card_str)
     net = port.FplNetwork("baseline", device="cuda", seed=0)
     require(net.spec.module.dtype == torch.bfloat16, "baseline is not bf16")
     vol = make_volume_u8(VOLUME, N_BLOBS, seed=0)
     res = run_main_path(net, vol)
-    per_forward = 4 * res["n_batches"]
-    require(res["launches_infer"] == per_forward,
-            f"infer launched K1 {res['launches_infer']} times, expected "
-            f"{per_forward} (4 layers x {res['n_batches']} tile batches)")
-    require(res["launches"] == 3 * per_forward,
-            f"infer + 2 detects launched K1 {res['launches']} times, "
-            f"expected {3 * per_forward}")
-    print(f"main path: {res['n_batches']} tile batches, K1 launches "
-          f"{res['launches']} (= 3 forwards x 4 layers x {res['n_batches']}); "
-          f"threshold {res['threshold']:.9g} ({res['above_threshold']} voxels "
-          f"above); nms {res['n_nms']} detections, components {res['n_cc']}; "
-          "both equal the host reference", flush=True)
+    require_launches(res, {"conv3d_bias_relu": 4 * res["n_batches"]},
+                     "baseline")
+    print(f"main path: {res['n_batches']} tile batches, launches "
+          f"{res['launches']} (K1 = 3 forwards x 4 layers x "
+          f"{res['n_batches']}); threshold {res['threshold']:.9g} "
+          f"({res['above_threshold']} voxels above); nms {res['n_nms']} "
+          f"detections, components {res['n_cc']}; both equal the host "
+          "reference", flush=True)
     time_main_path(net, vol, res["threshold"], card_str)
+    infer_phases(net, vol, card_str, "main path")
     if args.profile:
         profile_detect(net, vol, res["threshold"], card_str)
+    del net
+    torch.cuda.empty_cache()
+
+    # 6. the U-Net paths: maps against the CPU's at a small size, then 256^3
+    check_unet_maps(port, card_str)
+    unet_runs = {}
+    for engine in UNET_ENGINES:
+        net = unet_net(port, engine, "cuda")
+        require(net.module.dtype == torch.bfloat16, "unet is not bf16")
+        r = run_main_path(net, vol)
+        n = r["n_batches"]
+        per_forward = {"plain": {"conv3d_bias_relu": len(net.module.convs) * n},
+                       "pallas": {"packed_tail": n},
+                       "pallas2": {"packed_tail2": n}}.get(engine, {})
+        require_launches(r, per_forward, f"unet {engine}")
+        print(f"unet {engine} ({net.infer_spec.name}, tile in "
+              f"{net.tiled_inference(vol.shape).tile_in}): {n} tile batches, "
+              f"launches {r['launches']}; threshold {r['threshold']:.9g} "
+              f"({r['above_threshold']} voxels above); nms {r['n_nms']} "
+              f"detections, components {r['n_cc']}; both equal the host "
+              "reference", flush=True)
+        time_main_path(net, vol, r["threshold"], card_str, f"unet {engine}")
+        infer_phases(net, vol, card_str, f"unet {engine}")
+        if args.profile and engine == "pallas2":
+            profile_detect(net, vol, r["threshold"], card_str, ("nms",),
+                           "unet pallas2 ")
+        unet_runs[engine] = r
+        del net
+        torch.cuda.empty_cache()
 
     kernels = [{
         "name": "conv3d_bias_relu",
         "route": "cuda",
         "source": "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu",
         "replaces": "flypylib_tpu/ops/pallas_conv.py:155",
-        "launches": res["launches"],
+        "launches": res["launches"]["conv3d_bias_relu"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
-        "at": "baseline layers 0-3 summed, bf16, one tile batch",
+        "at": "baseline layers 0-3 summed, bf16, one tile batch; launches "
+              "from the baseline path",
     }]
+    for kname, name, line, engine in (
+            ("K2", "packed_tail", 221, "pallas"),
+            ("K3", "packed_tail2", 470, "pallas2")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "flypylib_tpu_torch/csrc/packed_tail.cu",
+            "replaces": f"flypylib_tpu/ops/pallas_tail.py:{line}",
+            "launches": unet_runs[engine]["launches"][name],
+            **tails[kname],
+            "at": f"tail_impl={engine!r} (2 stages + logits), bf16, one "
+                  f"{VOLUME}^3 covering tile; launches from the U-Net "
+                  f"{engine} path",
+        })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flypylib_tpu_torch.models.zoo import ModelSpec
+from flypylib_tpu_torch.models.zoo import ModelSpec, UNetValid
+from flypylib_tpu_torch.ops.packed_unet import PackedUNet
 from flypylib_tpu_torch.utils import ceil_div, to3d
 
 
@@ -119,22 +120,39 @@ def infer_volume(spec: ModelSpec, volume: np.ndarray, tile_out: int = 64,
 
 def tiling_regime(spec: ModelSpec) -> str:
     """``"cover"`` (pooling topologies want one big tile) or ``"grid"``
-    (conv stacks want batched small tiles).  Every model of the port's zoo
-    is a conv stack; ``spec.metadata["tiling"]`` overrides."""
-    return spec.metadata.get("tiling", "grid")
+    (conv stacks want batched small tiles), from the module topology;
+    ``spec.metadata["tiling"]`` overrides."""
+    regime = spec.metadata.get("tiling")
+    if regime is not None:
+        return regime
+    return "cover" if isinstance(spec.module, (UNetValid, PackedUNet)) else "grid"
 
 
-def default_tiling(spec: ModelSpec, vol_shape) -> tuple[int, int]:
-    """Default ``(tile_out, tile_batch)`` for a conv stack, the reference's
-    ``"grid"`` choice unchanged (it was tuned on the TPU and has not been
-    re-measured on a GPU): 64-wide tiles, batch up to 8 bounded by the grid
-    size.  The ``"cover"`` regime belongs to pooling topologies, which the
-    port does not have yet, so it raises."""
-    if tiling_regime(spec) != "grid":
-        raise NotImplementedError(
-            f"{spec.name}: only the 'grid' tiling regime is ported"
-        )
+def default_tiling(spec: ModelSpec, vol_shape,
+                   max_tile_in: int = 428) -> tuple[int, int]:
+    """Default ``(tile_out, tile_batch)`` for a volume: the reference's
+    choice, unchanged, so that the port tiles exactly as the JAX package.
+
+    - ``"cover"`` (the U-Net, plain or packed): one covering tile, batch 1,
+      whenever its input is at most ``max_tile_in``; larger volumes get the
+      largest valid tile under the cap, batch 1.
+    - ``"grid"`` (conv stacks): 64-wide tiles, batch up to 8 bounded by
+      the grid size.
+
+    Both were chosen on a TPU: ``max_tile_in=428`` is the tile input at
+    which the reference's U-Net forward still compiled on a 16 GB TPU v5e.
+    Neither has been re-measured on a GPU."""
     dims = to3d(vol_shape)
+    ctx = spec.context
+    if tiling_regime(spec) == "cover":
+        ext = max(dims)
+        if spec.valid_size(ext + 2 * ctx) <= max_tile_in:
+            return ext, 1
+        # largest valid tile input under the cap
+        tin = max_tile_in
+        while tin > spec.min_size and not spec.is_valid_size(tin):
+            tin -= 1
+        return max(tin - 2 * ctx, spec.size_multiple), 1
     tile = 64
     n_tiles = 1
     for d in dims:

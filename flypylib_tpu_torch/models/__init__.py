@@ -1,8 +1,10 @@
 from flypylib_tpu_torch.models.zoo import (
     ModelSpec,
     ConvStack,
+    UNetValid,
     baseline_model,
     vgg_like,
+    unet,
     params_from_flax,
     MODEL_ZOO,
 )
@@ -10,8 +12,10 @@ from flypylib_tpu_torch.models.zoo import (
 __all__ = [
     "ModelSpec",
     "ConvStack",
+    "UNetValid",
     "baseline_model",
     "vgg_like",
+    "unet",
     "params_from_flax",
     "MODEL_ZOO",
 ]

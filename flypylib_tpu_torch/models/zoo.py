@@ -1,22 +1,24 @@
 """3D CNN model zoo for voxel-wise synapse detection, in PyTorch.
 
-Counterpart of ``flypylib_tpu/models/zoo.py`` for the plain valid-conv
-stacks: the baseline and the deeper VGG-like variant.  Each zoo entry
-returns a ``ModelSpec`` carrying the module and its receptive-field
-``context`` (voxels lost per face to valid convolution), which drives the
-tiling math.
+Counterpart of ``flypylib_tpu/models/zoo.py``: the plain valid-conv
+stacks (the baseline and the deeper VGG-like variant) and the valid-conv
+U-Net.  Each zoo entry returns a ``ModelSpec`` carrying the module and its
+geometry: the receptive-field ``context`` (voxels lost per face to valid
+convolution) and, for the U-Net, the input sizes its pooling admits, which
+drive the tiling math.
 
 Layout and numerics follow the reference: activations are NDHWC, conv
 weights DHWIO ``(3, 3, 3, Ci, Co)``, compute in ``dtype`` (bf16 by default),
-logits in f32.  The body layers run ``ops.conv.conv3d_bias_relu`` (K1);
-the 1x1x1 head and logits are matmuls over the channel axis, which the
-reference also leaves outside any Pallas kernel.
+logits in f32.  Every 3^3 conv runs ``ops.conv.conv3d_bias_relu`` (K1); the
+1x1x1 head and logits and the U-Net's ConvTranspose are matmuls over the
+channel axis, which the reference also leaves outside any Pallas kernel.
 
 Models return logits; apply ``torch.sigmoid`` for probabilities.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+from flypylib_tpu_torch.ops.conv import conv3d_bias_relu, matmul_f32
+from flypylib_tpu_torch.ops.packed_conv import convT_packed_weight, unpack_volume
 
 # stddev correction of a normal truncated to +-2 sigma (Flax/JAX
 # variance_scaling "truncated_normal")
@@ -88,7 +91,8 @@ class Conv3BiasReLU(nn.Module):
 
 
 class Pointwise(nn.Module):
-    """1x1x1 conv as a matmul over the channel axis, computed in ``dtype``."""
+    """1x1x1 conv as a matmul over the channel axis, computed in ``dtype``
+    (in f32 with TF32 off)."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -96,8 +100,27 @@ class Pointwise(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if dtype == torch.float32:
+            return matmul_f32(x, self.weight) + self.bias.float()
         return (torch.matmul(x.to(dtype), self.weight.to(dtype))
                 + self.bias.to(dtype))
+
+
+class ConvTranspose2(nn.Module):
+    """Kernel-2 stride-2 ConvTranspose in ``dtype``, with Flax's
+    orientation ``out[2r+p] = x[r] @ K[1-p]``: one matmul against the
+    parity-packed kernel, summed in f32 and rounded to ``dtype`` once, plus
+    the ``dtype`` bias, then unpacked."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(2, 2, 2, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        k = convT_packed_weight(self.weight.to(dtype))
+        y = matmul_f32(x.to(dtype), k).to(dtype) + self.bias.to(dtype).repeat(8)
+        return unpack_volume(y)
 
 
 class ConvStack(nn.Module):
@@ -148,29 +171,184 @@ class ConvStack(nn.Module):
         return self.logits(x, torch.float32)
 
 
+def _max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2^3 max-pool with stride 2 over NDHWC, flooring odd extents (Flax's
+    ``nn.max_pool`` with VALID padding)."""
+    b, d, h, w, c = x.shape
+    x = x[:, : d - d % 2, : h - h % 2, : w - w % 2]
+    return x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4, 6))
+
+
+class UNetValid(nn.Module):
+    """3D U-Net with VALID convolutions and crop-and-concat skips (the
+    reference's ``UNetValid``).
+
+    Every conv is valid and each skip is center-cropped to the upsampled
+    decoder size, so the output is an exact center crop of the input and
+    tiled inference stays bitwise exact.  Input sizes must satisfy a
+    divisibility constraint (see :func:`unet`).
+
+    Parameters follow Flax's creation order: ``convs[i]`` is ``Conv_i``
+    (encoder, bottleneck, decoder), ``convts[j]`` is ``ConvTranspose_j``
+    (deepest first) and ``logits`` is the last ``Conv``."""
+
+    def __init__(
+        self,
+        base_features: int = 24,
+        levels: int = 2,
+        convs_per_stage: int = 2,
+        dtype: torch.dtype = torch.bfloat16,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.base_features = base_features
+        self.levels = levels
+        self.convs_per_stage = convs_per_stage
+        self.dtype = dtype
+        convs, convts = [], []
+        ci, f = 1, base_features
+        for _ in range(levels + 1):  # the encoder levels, then the bottleneck
+            for _ in range(convs_per_stage):
+                convs.append(Conv3BiasReLU(ci, f, 1))
+                ci = f
+            f *= 2
+        f //= 2
+        for _ in range(levels):
+            f //= 2
+            convts.append(ConvTranspose2(ci, f))
+            ci = 2 * f  # [skip, up]
+            for _ in range(convs_per_stage):
+                convs.append(Conv3BiasReLU(ci, f, 1))
+                ci = f
+        self.convs = nn.ModuleList(convs)
+        self.convts = nn.ModuleList(convts)
+        self.logits = Pointwise(ci, 1)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Flax's defaults: lecun_normal kernels, zero biases."""
+        for conv in self.convs:
+            lecun_normal_(conv.weight, 27 * conv.weight.shape[3], generator)
+            conv.bias.zero_()
+        for up in self.convts:
+            lecun_normal_(up.weight, 8 * up.weight.shape[3], generator)
+            up.bias.zero_()
+        lecun_normal_(self.logits.weight, self.logits.weight.shape[0], generator)
+        self.logits.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        cps = self.convs_per_stage
+        convs = iter(self.convs)
+        skips = []
+        for _ in range(self.levels):
+            for _ in range(cps):
+                x = next(convs)(x)
+            skips.append(x)
+            x = _max_pool2(x)
+        for _ in range(cps):
+            x = next(convs)(x)
+        for up, skip in zip(self.convts, reversed(skips)):
+            x = up(x, self.dtype)
+            c = [(skip.shape[i] - x.shape[i]) // 2 for i in (1, 2, 3)]
+            skip_c = skip[:, c[0]: c[0] + x.shape[1], c[1]: c[1] + x.shape[2],
+                          c[2]: c[2] + x.shape[3]]
+            x = torch.cat([skip_c, x], dim=-1)
+            for _ in range(cps):
+                x = next(convs)(x)
+        return self.logits(x, torch.float32)
+
+
 def params_from_flax(variables) -> dict[str, torch.Tensor]:
-    """The JAX package's ``ConvStack`` params (``Conv_0..Conv_{n+1}`` with
-    DHWIO ``kernel`` and ``bias``, as numpy or jax arrays, with or without
-    the ``{"params": ...}`` wrapper) as a ``ConvStack`` state dict."""
+    """The JAX package's params as the port's state dict: a ``ConvStack``
+    tree (``Conv_0..Conv_{n+1}``) or a ``UNetValid`` tree (``Conv_0..Conv_n``
+    and ``ConvTranspose_0..``), with DHWIO ``kernel`` and ``bias``, as numpy
+    or jax arrays, with or without the ``{"params": ...}`` wrapper."""
     params = variables.get("params", variables)
-    names = sorted((k for k in params if k.startswith("Conv_")),
-                   key=lambda k: int(k.split("_")[1]))
+
+    def numbered(prefix):
+        return sorted((k for k in params if k.startswith(prefix + "_")),
+                      key=lambda k: int(k.split("_")[-1]))
+
+    names, ups = numbered("Conv"), numbered("ConvTranspose")
     if len(names) < 3:
         raise ValueError(f"expected Conv_0..Conv_n (n >= 2), got {names}")
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    def pointwise(prefix, name):
+        k = np.asarray(params[name]["kernel"])
+        return {f"{prefix}.weight": t(k.reshape(k.shape[-2], k.shape[-1])),
+                f"{prefix}.bias": t(params[name]["bias"])}
+
     sd = {}
-    body, head, logits = names[:-2], names[-2], names[-1]
+    if ups:  # UNetValid: every Conv but the last is a 3^3 conv
+        body, tail = names[:-1], [("logits", names[-1])]
+        for j, name in enumerate(ups):
+            sd[f"convts.{j}.weight"] = t(params[name]["kernel"])
+            sd[f"convts.{j}.bias"] = t(params[name]["bias"])
+    else:
+        body, tail = names[:-2], [("head", names[-2]), ("logits", names[-1])]
     for i, name in enumerate(body):
         sd[f"convs.{i}.weight"] = t(params[name]["kernel"])
         sd[f"convs.{i}.bias"] = t(params[name]["bias"])
-    for prefix, name in (("head", head), ("logits", logits)):
-        k = np.asarray(params[name]["kernel"])
-        sd[f"{prefix}.weight"] = t(k.reshape(k.shape[-2], k.shape[-1]))
-        sd[f"{prefix}.bias"] = t(params[name]["bias"])
+    for prefix, name in tail:
+        sd.update(pointwise(prefix, name))
     return sd
+
+
+def _probe_geometry(out_size: Callable[[int], int | None], lo: int = 8,
+                   hi: int = 120) -> tuple[int, int, int, int]:
+    """``(context, size_multiple, size_offset, min_size)`` from the output
+    extent ``out_size(s)`` of each input extent ``s`` in ``[lo, hi)`` (None
+    where the model refuses ``s``): the reference's ``_probe_geometry``,
+    fed by a shape walk instead of ``jax.eval_shape``."""
+    valid = []
+    for s in range(lo, hi):
+        o = out_size(s)
+        if o is not None and o > 0 and (s - o) % 2 == 0:
+            valid.append((s, o))
+    if not valid:
+        raise ValueError("no valid input size found while probing model geometry")
+    # keep only sizes realizing the minimal (true) context: odd sizes through
+    # floor-pooling can lose extra voxels
+    ctx = min((s - o) // 2 for s, o in valid)
+    sizes = [s for s, o in valid if (s - o) // 2 == ctx]
+    mult = 1 if len(sizes) < 2 else int(np.gcd.reduce(np.diff(sizes)))
+    return ctx, mult, sizes[0] % mult if mult > 1 else 0, sizes[0]
+
+
+def _unet_out_size(s: int, levels: int, convs_per_stage: int) -> int | None:
+    """Output extent of ``UNetValid`` for input extent ``s``, or None where
+    the module fails (a size reaches 0, or a skip is smaller than the
+    upsampled tensor it is cropped to)."""
+    skips = []
+    for _ in range(levels):
+        s -= 2 * convs_per_stage
+        if s <= 0:
+            return None
+        skips.append(s)
+        s //= 2
+    s -= 2 * convs_per_stage
+    if s <= 0:
+        return None
+    for skip in reversed(skips):
+        s *= 2
+        if skip < s:
+            return None
+        s -= 2 * convs_per_stage
+        if s <= 0:
+            return None
+    return s
+
+
+@functools.cache
+def _unet_geometry(levels: int, convs_per_stage: int):
+    return _probe_geometry(lambda s: _unet_out_size(s, levels, convs_per_stage))
 
 
 def _conv_stack_spec(name, features, dilations, head_features, dtype, seed):
@@ -220,7 +398,35 @@ def vgg_like(
                             dtype, seed)
 
 
+def unet(base_features: int = 24, levels: int = 2, convs_per_stage: int = 2,
+         dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> ModelSpec:
+    """Valid-conv 3D U-Net (parity: flypylib fplmodels U-Net variant, eval
+    config 4).  Weights are drawn from ``torch.Generator().manual_seed(seed)``."""
+    module = UNetValid(
+        base_features=base_features,
+        levels=levels,
+        convs_per_stage=convs_per_stage,
+        dtype=dtype,
+        generator=torch.Generator().manual_seed(int(seed)),
+    )
+    ctx, mult, off, min_size = _unet_geometry(levels, convs_per_stage)
+    return ModelSpec(
+        name="unet",
+        module=module,
+        context=ctx,
+        size_multiple=mult,
+        size_offset=off,
+        min_size=min_size,
+        metadata={
+            "base_features": base_features,
+            "levels": levels,
+            "convs_per_stage": convs_per_stage,
+        },
+    )
+
+
 MODEL_ZOO: dict[str, Callable[..., ModelSpec]] = {
     "baseline": baseline_model,
     "vgg_like": vgg_like,
+    "unet": unet,
 }

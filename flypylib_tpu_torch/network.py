@@ -3,8 +3,9 @@
 Counterpart of ``flypylib_tpu/network.py`` for the inference verbs:
 ``infer``, ``nms``, ``components`` and ``detect``, with the reference's
 defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
-threshold 0.5, and ``default_tiling``).  Construction takes a zoo name
-(``FplNetwork("baseline")``), a zoo callable or a ready ``ModelSpec``.
+threshold 0.5, ``default_tiling`` and ``packed="auto"``).  Construction
+takes a zoo name (``FplNetwork("unet")``), a zoo callable or a ready
+``ModelSpec`` (a packed U-Net spec included).
 
 The device is explicit.  ``device="cuda"`` without a usable GPU raises; the
 network never moves itself to the CPU.  On ``device="cpu"`` every kernel
@@ -18,16 +19,28 @@ import torch
 
 from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
 from flypylib_tpu_torch.io.synapses import Tbars
-from flypylib_tpu_torch.models.zoo import MODEL_ZOO, ModelSpec, params_from_flax
+from flypylib_tpu_torch.models.zoo import (
+    MODEL_ZOO,
+    ConvStack,
+    ModelSpec,
+    params_from_flax,
+)
 from flypylib_tpu_torch.ops.components import label_components
 from flypylib_tpu_torch.ops.nms import nms
+from flypylib_tpu_torch.ops.packed_unet import PackedUNet, packed_unet_spec
 
 
 class FplNetwork:
     def __init__(self, model="baseline", seed: int = 0, device="cuda",
-                 **model_kwargs):
+                 packed: bool | str = "auto", **model_kwargs):
         """``model`` is a ``MODEL_ZOO`` name, a zoo callable (called with
-        ``seed`` and ``model_kwargs``) or a ``ModelSpec``."""
+        ``seed`` and ``model_kwargs``) or a ``ModelSpec``.
+
+        ``packed`` selects the space-to-depth inference engine for the
+        infer/detect verbs, as in the reference: ``"auto"`` uses it
+        whenever the model has one (the U-Net), ``True`` requires it,
+        ``False`` runs the plain module.  Both share one set of weights.
+        A spec that is already packed is used as given."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -40,22 +53,41 @@ class FplNetwork:
             spec = model(seed=seed, **model_kwargs)
         else:
             spec = MODEL_ZOO[model](seed=seed, **model_kwargs)
-        spec.module.to(device).eval()
+        infer_spec = spec
+        if packed and not isinstance(spec.module, PackedUNet):
+            pspec = packed_unet_spec(spec)
+            if pspec is None and packed is True:
+                if isinstance(spec.module, ConvStack):
+                    raise NotImplementedError(
+                        f"model {spec.name!r}: the packed ConvStack engine is "
+                        "not ported yet (ROADMAP.md queue 1, item 15)")
+                raise ValueError(f"model {spec.name!r} does not support the "
+                                 "packed inference engine")
+            infer_spec = pspec or spec
+        infer_spec.module.to(device).eval()
         self.spec = spec
+        self.infer_spec = infer_spec
         self.context = spec.context
         self.device = device
         self._tiled: TiledInference | None = None
         self._tiled_key = None
 
     @property
+    def module(self) -> torch.nn.Module:
+        """The plain module that holds the weights (a packed engine shares
+        them)."""
+        m = self.spec.module
+        return m.inner if isinstance(m, PackedUNet) else m
+
+    @property
     def variables(self) -> dict[str, torch.Tensor]:
         """The model's parameters (a state dict)."""
-        return self.spec.module.state_dict()
+        return self.module.state_dict()
 
     def load_flax_params(self, variables):
-        """Load the JAX package's ``ConvStack`` params (see
+        """Load the JAX package's ``ConvStack`` or ``UNetValid`` params (see
         :func:`~flypylib_tpu_torch.models.zoo.params_from_flax`)."""
-        self.spec.module.load_state_dict(params_from_flax(variables))
+        self.module.load_state_dict(params_from_flax(variables))
 
     # -- infer ------------------------------------------------------------
     def tiled_inference(self, vol_shape, tile_out: int | None = None,
@@ -63,13 +95,13 @@ class FplNetwork:
         """The tiling engine :meth:`infer` uses for a volume of ``vol_shape``;
         ``tile_out``/``tile_batch`` default to :func:`default_tiling`."""
         if tile_out is None or tile_batch is None:
-            d_out, d_batch = default_tiling(self.spec, vol_shape)
+            d_out, d_batch = default_tiling(self.infer_spec, vol_shape)
             tile_out = d_out if tile_out is None else tile_out
             tile_batch = d_batch if tile_batch is None else tile_batch
         key = (tile_out, tile_batch)
         if self._tiled is None or self._tiled_key != key:
             self._tiled = TiledInference(
-                self.spec, tile_out=tile_out, tile_batch=tile_batch
+                self.infer_spec, tile_out=tile_out, tile_batch=tile_batch
             )
             self._tiled_key = key
         return self._tiled

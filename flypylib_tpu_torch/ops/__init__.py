@@ -1,6 +1,8 @@
 from flypylib_tpu_torch.ops.conv import conv3d_bias_relu, conv3d_reference
 from flypylib_tpu_torch.ops.nms import nms, nms_device, candidate_mask
 from flypylib_tpu_torch.ops.components import label_components, components_device
+from flypylib_tpu_torch.ops.tail import (packed_tail, packed_tail2, tail_reference,
+                                         tail2_reference)
 
 __all__ = [
     "conv3d_bias_relu",
@@ -10,4 +12,8 @@ __all__ = [
     "candidate_mask",
     "label_components",
     "components_device",
+    "packed_tail",
+    "packed_tail2",
+    "tail_reference",
+    "tail2_reference",
 ]

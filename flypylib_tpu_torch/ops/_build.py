@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together), and the objects are linked into
+one shared library with a plain C interface, at first use, under
 ``build/kernels/`` at the root of the checkout.  The file name carries a
 hash of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded.  No PyTorch header is compiled: the wrappers pass
@@ -25,9 +26,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -36,6 +38,8 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (restype is always int: a cudaError_t)
 _ENTRIES = {
     "fpl_conv3d_bias_relu": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
+    "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
 }
 
 
@@ -68,25 +72,40 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the sources unless the library is already built.
 
-    Returns ``(path, seconds spent compiling)``; the compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
-    beside the library as ``<name>.log``."""
+    Returns ``(path, seconds spent compiling and linking)``; the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills per kernel) is
+    kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out, 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]  # waits for every compile
+    log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode != 0 else []
     seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out, seconds
 

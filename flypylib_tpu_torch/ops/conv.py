@@ -10,9 +10,15 @@ tensor the kernel cannot take raises.
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
 is applied, and the result is rounded to ``x.dtype`` once.
+
+The f32 products that every plain version shares live here too:
+:func:`conv3d_f32` and :func:`matmul_f32`, with TF32 off on the card
+(:func:`no_tf32`) and oneDNN off for convolutions on the CPU.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +47,54 @@ def _out_shape(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+@contextlib.contextmanager
+def no_tf32(device: torch.device):
+    """On a CUDA device, cuDNN's and cuBLAS's TF32, which rounds f32 inputs
+    to 10 mantissa bits (cuDNN's is on by default), is off for the block."""
+    if device.type != "cuda":
+        yield
+        return
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def conv3d_f32(x: torch.Tensor, w: torch.Tensor,
+               dilation: int = 1) -> torch.Tensor:
+    """Valid conv of NDHWC ``x`` with DHWIO ``w``, both cast to f32 (exact
+    from bf16), summed in f32: an NDHWC f32 tensor.
+
+    On the CPU the conv runs with oneDNN off: oneDNN picks its summation
+    order by batch and extent, so a tile and the whole volume would round
+    differently, while PyTorch's own CPU convolution sums every output voxel
+    in one order (tiled == monolithic, bitwise).  The flag is process-wide,
+    so this path is not thread-safe: a CPU conv on another thread meanwhile
+    also runs without oneDNN.  On CUDA, TF32 is off (:func:`no_tf32`)."""
+    xf = x.float().permute(0, 4, 1, 2, 3)                      # NCDHW
+    wf = w.float().permute(4, 3, 0, 1, 2)                      # OIDHW
+    if x.device.type == "cpu":
+        # None leaves oneDNN's other settings as they are
+        with torch.backends.mkldnn.flags(enabled=False, deterministic=None,
+                                         allow_tf32=None, fp32_precision=None):
+            y = F.conv3d(xf, wf, dilation=int(dilation))
+    else:
+        with no_tf32(x.device):
+            y = F.conv3d(xf, wf, dilation=int(dilation))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` over the last axis with both cast to f32 (exact from bf16)
+    and summed in f32, TF32 off on CUDA: a (..., K) @ w (K, N) -> (..., N)."""
+    with no_tf32(a.device):
+        return torch.matmul(a.float(), w.float())
+
+
 def conv3d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      dilation: int = 1) -> torch.Tensor:
     """Plain PyTorch version: f32 ``F.conv3d`` + f32 bias + ReLU, one
@@ -50,24 +104,9 @@ def conv3d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (B, D-2d, H-2d, W-2d, Co) in ``x.dtype``."""
     _out_shape(x, w, b, dilation)
     dt = x.dtype
-    xf = x.float().permute(0, 4, 1, 2, 3)                      # NCDHW
-    wf = w.to(dt).float().permute(4, 3, 0, 1, 2)               # OIDHW
-    bf = b.to(dt).float()
-    if x.device.type == "cpu":
-        # oneDNN picks its summation order by batch and extent, so a tile
-        # and the whole volume would round differently; PyTorch's own CPU
-        # convolution sums every output voxel in one order (tiled ==
-        # monolithic, bitwise).  The flag is process-wide, so this path is
-        # not thread-safe: a CPU conv on another thread meanwhile also
-        # runs without oneDNN.
-        # None leaves oneDNN's other settings as they are
-        with torch.backends.mkldnn.flags(enabled=False, deterministic=None,
-                                         allow_tf32=None, fp32_precision=None):
-            y = F.conv3d(xf, wf, dilation=int(dilation))
-    else:
-        y = F.conv3d(xf, wf, dilation=int(dilation))
-    y = torch.relu(y + bf[:, None, None, None])
-    return y.permute(0, 2, 3, 4, 1).to(dt).contiguous()
+    y = conv3d_f32(x, w.to(dt), dilation)
+    y = torch.relu(y + b.to(dt).float())
+    return y.to(dt).contiguous()
 
 
 def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

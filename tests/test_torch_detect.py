@@ -185,15 +185,32 @@ def test_tiled_equals_monolithic_bitwise(rng, dtype):
 
 def test_default_tiling_is_the_reference_choice():
     from flypylib_tpu.infer.tiled import default_tiling as j_default_tiling
+    from flypylib_tpu.infer.tiled import tiling_regime as j_tiling_regime
     from flypylib_tpu.models.zoo import MODEL_ZOO as J_ZOO
+    from flypylib_tpu.ops.packed_unet import packed_unet_spec as j_packed
+    from flypylib_tpu_torch.infer.tiled import tiling_regime
+    from flypylib_tpu_torch.ops.packed_unet import packed_unet_spec
 
-    for name in ("baseline", "vgg_like"):
-        t, j = tpt.models.MODEL_ZOO[name](), J_ZOO[name]()
-        for shape in [(24,) * 3, (64,) * 3, (100, 70, 30), (256,) * 3,
-                      (1024,) * 3]:
+    pairs = [(tpt.models.MODEL_ZOO[n](), J_ZOO[n]())
+             for n in ("baseline", "vgg_like", "unet")]
+    pairs.append((packed_unet_spec(pairs[-1][0]), j_packed(pairs[-1][1])))
+    for t, j in pairs:
+        # the U-Net's (24, 2, 2) geometry, plain and packed, as JAX probes it
+        for attr in ("name", "context", "size_multiple", "size_offset",
+                     "min_size", "metadata"):
+            assert getattr(t, attr) == getattr(j, attr), attr
+        assert tiling_regime(t) == j_tiling_regime(j)
+        for shape in [(24,) * 3, (48,) * 3, (64,) * 3, (100, 70, 30),
+                      (256,) * 3, (1024,) * 3]:
             assert default_tiling(t, shape) == j_default_tiling(j, shape)
     tiled = TiledInference(tpt.models.baseline_model(), 64, 8)
     assert tiled.tile_in == 76 and tiled.n_batches((256,) * 3) == 8
+    # the U-Net covers 256^3 in one tile; 1024^3 is above the 428 cap
+    unet, packed = pairs[2][0], pairs[3][0]
+    assert default_tiling(unet, (256,) * 3) == (256, 1)
+    assert TiledInference(unet, 256, 1).tile_in == 296
+    assert TiledInference(packed, 256, 1).tile_in == 300
+    assert default_tiling(packed, (1024,) * 3) == (428 - 40, 1)
 
 
 def test_network_matches_jax_end_to_end(rng):
@@ -223,7 +240,7 @@ def test_network_matches_jax_end_to_end(rng):
 
 
 def test_verbs_keep_the_reference_defaults():
-    for verb in ("infer", "nms", "components", "detect"):
+    for verb in ("__init__", "infer", "nms", "components", "detect"):
         mine = inspect.signature(getattr(tpt.FplNetwork, verb)).parameters
         ref = inspect.signature(getattr(JaxNetwork, verb)).parameters
         for name, p in mine.items():
@@ -231,6 +248,8 @@ def test_verbs_keep_the_reference_defaults():
                 assert p.default == ref[name].default, (verb, name)
     assert inspect.signature(tpt.FplNetwork.detect).parameters[
         "window"].default == 5
+    assert inspect.signature(tpt.FplNetwork).parameters[
+        "packed"].default == "auto"
 
 
 def test_network_verbs_and_rejections(rng):
@@ -261,8 +280,8 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     net = _small_net(torch.bfloat16)
     vol = chip_smoke.make_volume_u8(32, 3, seed=0)
     res = chip_smoke.run_main_path(net, vol, n_cand=100)
-    # the CPU runs the plain version, which counts no launch
-    assert res["launches"] == 0 and res["n_batches"] == 1
+    # the CPU runs the plain versions, which count no launch
+    assert not any(res["launches"].values()) and res["n_batches"] == 1
     assert res["above_threshold"] >= 100 and res["n_nms"] > 0
 
 

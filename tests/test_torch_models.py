@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from flypylib_tpu.models import zoo as jzoo
+from flypylib_tpu.ops.packed_unet import packed_unet_spec as j_packed_unet_spec
 from flypylib_tpu_torch.models import zoo as tzoo
+from flypylib_tpu_torch.ops.packed_unet import (
+    packed_unet_spec as t_packed_unet_spec,
+)
 
 torch.set_num_threads(1)
 
@@ -63,16 +67,32 @@ def test_uint8_input_is_its_raw_values(rng, dtype):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["baseline", "vgg_like"])
+GEOMETRY = {
+    "baseline": ("baseline", {}),
+    "vgg_like": ("vgg_like", {}),
+    # unet() itself (24, 2, 2) is held in test_torch_detect.py's tiling test
+    "unet-4-2-2": ("unet", dict(base_features=4)),
+    "unet-4-1-1": ("unet", dict(base_features=4, levels=1, convs_per_stage=1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY))
 def test_geometry_matches_reference(name):
-    jspec = jzoo.MODEL_ZOO[name]()
-    tspec = tzoo.MODEL_ZOO[name]()
-    for attr in ("name", "context", "size_multiple", "size_offset",
-                 "min_size", "metadata"):
-        assert getattr(tspec, attr) == getattr(jspec, attr), attr
-    for s in range(0, 80):
-        assert tspec.valid_size(s) == jspec.valid_size(s)
-        assert tspec.is_valid_size(s) == jspec.is_valid_size(s)
+    """The geometry facts equal the reference's; for the U-Net, whose JAX
+    geometry comes from ``jax.eval_shape`` at every candidate size (~15 s
+    a spec on a CPU), for the plain and the packed spec."""
+    zoo_name, kw = GEOMETRY[name]
+    pairs = [(tzoo.MODEL_ZOO[zoo_name](**kw), jzoo.MODEL_ZOO[zoo_name](**kw))]
+    if zoo_name == "unet":
+        pairs.append((t_packed_unet_spec(pairs[0][0]),
+                      j_packed_unet_spec(pairs[0][1])))
+    for tspec, jspec in pairs:
+        for attr in ("name", "context", "size_multiple", "size_offset",
+                     "min_size", "metadata"):
+            assert getattr(tspec, attr) == getattr(jspec, attr), attr
+        for s in range(0, 80):
+            assert tspec.valid_size(s) == jspec.valid_size(s)
+            assert tspec.is_valid_size(s) == jspec.is_valid_size(s)
 
 
 @pytest.mark.parametrize("name", ["baseline", "vgg_like"])
