@@ -14,23 +14,37 @@ prints no result line):
    at the main path's shapes (the baseline's four body layers and the plain
    U-Net's ten convs at ``default_tiling``'s tile and batch for a 256^3
    volume) and one ``vgg_like`` layer (64 -> 96 channels, dilation 4), in
-   f32 and bf16, with the median times of both.
+   f32 and bf16, with the median times of both and of one cuDNN call.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
    versions at the packed U-Net's 256^3 covering tile: on the operands its
    forward hands them, launch by launch (each stage and the logits on the
    kernel's own input); and, timed, in the four forms ``tail_impl``
    selects ("pallas", "pallas_fold", "pallas2", "pallas_fold2") on those
    shapes with unit-scale activations.  In f32 and bf16.
-5. The baseline path: on a 48^3 volume in 24-wide tiles, the logits behind
-   the card's probability map must match the CPU's (the plain versions,
-   same weights) in f32 and bf16.  Then ``FplNetwork("baseline",
-   device="cuda", seed=0)`` at bf16 on a 256^3 uint8 blob volume runs
-   ``infer``, ``detect(method="nms")`` and ``detect(method="components")``.
-   K1's launch count must rise by exactly four per tile batch and forward,
-   and both detection lists must equal the host (numpy/scipy) reference on
-   the same probability map.  Times follow, and where one infer's time
-   goes (host pad, upload, forwards, the rest).
-6. The U-Net paths: the logits behind the card's map match the CPU's on a
+5. K5 (``parity_split_kernel``) against its plain version, bit for bit, at
+   the packed baseline's and ``vgg_like``'s stage-A -> stage-B boundary
+   (one tile batch), in f32 and bf16, timed beside the plain version and
+   one PyTorch ``permute(...).contiguous()``.
+6. K4 (``wino_conv3d_bias_relu``) against its plain version on the packed
+   baseline's stage-B operands (one tile batch of the 256^3 volume, seed-0
+   weights), in f32 and bf16, timed beside the plain version, K1 and one
+   cuDNN call.  Two broken outputs (a tap dropped, a channel zeroed) must
+   fail the same check.
+7. The plain baseline path (``packed=False``, K1): on a 48^3 volume in
+   24-wide tiles, the logits behind the card's probability map must match
+   the CPU's (the plain versions, same weights) in f32 and bf16.  Then
+   ``FplNetwork("baseline", device="cuda", seed=0, packed=False)`` at bf16
+   on a 256^3 uint8 blob volume runs ``infer``, ``detect(method="nms")``
+   and ``detect(method="components")``.  K1's launch count must rise by
+   exactly four per tile batch and forward, and both detection lists must
+   equal the host (numpy/scipy) reference on the same probability map.
+   Times follow, and where one infer's time goes (host pad, upload,
+   forwards, the rest).
+8. The packed ConvStack paths, the default engine: the 48^3 map check for
+   ``FplNetwork("baseline")``, then ``baseline`` and ``vgg_like`` at bf16 on
+   the 256^3 volume as in 7, K5 launched once per tile batch and forward
+   and no other kernel.
+9. The U-Net paths: the logits behind the card's map match the CPU's on a
    64^3 volume in 24-wide tiles, for the plain U-Net (K1) and the packed
    engine with the K2 and the K3 tail, in f32 and bf16.  Then, at bf16 on
    the 256^3 volume, each engine (the K3 tail, the K2 tail, the unfused
@@ -41,9 +55,11 @@ prints no result line):
    memory and the infer's phases follow.
 
 Every count of launches is set to 0 just before a path runs and read just
-after it.  The line before the last is one JSON object with each kernel's
-launches, error and times; the last line is ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+after it.  The line before the last but one is one JSON object with each
+kernel's launches, error, times and bound (the least time the card could
+take: bytes over 3.35 TB/s or operations over the dtype's dense peak, 989
+TFLOP/s bf16 or 67 f32, the H100 SXM's figures); then the card; the last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -95,6 +111,23 @@ UNET_LOGIT_TOL_F32 = 1e-3
 UNET_LOGIT_TOL_BF16 = 0.25
 # the 256^3 U-Net engines: tail_impl, or "plain" for packed=False
 UNET_ENGINES = ("pallas2", "pallas", "xla", "plain")
+# the packed baseline's map check, card vs CPU, max |logit difference|.
+# scripts/probe_packed_limits.py on an H100, volume seeds 1-3: sound
+# 4.8e-05-5.7e-05 (f32) and 0.103-0.160 (bf16); K5's output broken in
+# memory (a channel or an x column zeroed) 1.72 or more in either dtype;
+# every output of stage B's first conv one bf16 ulp high 0.378-0.407
+# (PERF.md).
+PACKED_LOGIT_TOL_F32 = 1e-3
+PACKED_LOGIT_TOL_BF16 = 0.25
+# K4 in bf16 against its plain version (same rounding points, f32 sums in
+# other orders): at most WINO_BF16_ULPS bf16 ulps of max(|ref|, BF16_FLOOR
+# max|ref|) per element.  On an H100 at the stage-B operands the sound
+# reading was 1 ulp, a dropped tap 3.3e4 ulps or more and a zeroed channel
+# 212 or more; check_wino_kernel asserts both broken outputs fail it.
+WINO_BF16_ULPS = 2.0
+WINO_F32_TOL = 1e-4  # f32: |err| <= tol + tol |ref|, the JAX test's
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, H100 SXM
 NMS_WINDOW = 5   # FplNetwork.detect's default window
 CONF_TOL = 1e-6
 CENTROID_TOL = 1e-5
@@ -118,6 +151,9 @@ def card() -> str:
 
 def import_port():
     """Import the port from this checkout, and only from it."""
+    require((ROOT / "flypylib_tpu_torch" / "__init__.py").is_file(),
+            f"no flypylib_tpu_torch package beside chip_smoke.py in {ROOT}: "
+            "run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import flypylib_tpu_torch
 
@@ -165,6 +201,48 @@ def conv_check(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
         mag = torch.clamp(r.abs(), min=BF16_FLOOR * scale)
         ok = bool((err <= bf16_ulp(mag)).all())
     return float(err.max()), ok
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| in bf16 ulps of max(|ref|, BF16_FLOOR max|ref|)."""
+    g, r = got.float(), ref.float()
+    mag = torch.clamp(r.abs(), min=BF16_FLOOR * float(r.abs().max()))
+    return float(((g - r).abs() / bf16_ulp(mag)).max())
+
+
+def wino_check(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, bool]:
+    """(max |got - ref|, whether it is within K4's tolerance): f32 |err| <=
+    WINO_F32_TOL (1 + |ref|) elementwise; bf16 at most WINO_BF16_ULPS ulps."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if got.dtype == torch.float32:
+        ok = bool((err <= WINO_F32_TOL * (1 + r.abs())).all())
+    else:
+        ok = bf16_ulps(got, ref) <= WINO_BF16_ULPS
+    return float(err.max()), ok
+
+
+def bound(flops: float, nbytes: float,
+          dtype: torch.dtype = torch.bfloat16) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the dtype's peak."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cudnn_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               dilation: int = 1) -> torch.Tensor:
+    """One cuDNN call computing K1's conv and bias in ``x.dtype`` on the
+    NDHWC (channels-last) operand: the library yardstick, not the port."""
+    dt = x.dtype
+    return torch.nn.functional.conv3d(
+        x.permute(0, 4, 1, 2, 3), w.to(dt).permute(4, 3, 0, 1, 2), b.to(dt),
+        dilation=dilation)
 
 
 def tail_check(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype,
@@ -279,7 +357,8 @@ def check_kernels(card_str: str) -> dict:
     print("plain version: cudnn.allow_tf32=False, "
           "float32_matmul_precision='highest'")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16_main = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    bf16_main = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                 "library_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0}
     unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for label, B, S, Ci, Co, d in conv_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -301,17 +380,25 @@ def check_kernels(card_str: str) -> dict:
             err, ok = conv_check(got, ref)
             ms = median_ms(lambda: conv3d_bias_relu(x, w, b, d))
             plain = median_ms(lambda: conv3d_reference(x, w, b, d))
+            lib = median_ms(lambda: cudnn_conv(x, w, b, d))
+            flops = 2 * 27 * Ci * got.numel()
+            bnd, by = bound(flops, nbytes(x, w, b, got), dtype)
             dt = str(dtype).replace("torch.", "")
             print(f"K1 {label} x{tuple(x.shape)} -> {tuple(got.shape)} d={d} "
                   f"{dt}: max|err| {err:.6g} (max|ref| "
                   f"{float(ref.float().abs().max()):.6g}) "
                   f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms [{card_str}]", flush=True)
+                  f"{plain:.4f} ms, cuDNN {lib:.4f} ms, bound {bnd:.4f} ms "
+                  f"({by}) [{card_str}]", flush=True)
             require(ok, f"K1 {label} {dt}: outside tolerance (max|err| {err})")
             if dtype == torch.bfloat16 and label.startswith("baseline"):
                 bf16_main["ms"] += ms
                 bf16_main["plain_ms"] += plain
                 bf16_main["max_abs_err"] = max(bf16_main["max_abs_err"], err)
+                bf16_main["library_ms"] += lib
+                bf16_main["bound_ms"] += bnd
+                if by == "operations":
+                    bf16_main["op_ms"] += bnd
             if label.startswith("unet"):
                 unet_sum[dtype][0] += ms
                 unet_sum[dtype][1] += plain
@@ -320,6 +407,10 @@ def check_kernels(card_str: str) -> dict:
         print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
     torch.cuda.empty_cache()
+    # the summed bound is bounded by what bounds the larger share of it
+    op_ms = bf16_main.pop("op_ms")
+    bf16_main["bound_by"] = ("operations" if 2 * op_ms >= bf16_main["bound_ms"]
+                             else "bytes")
     return bf16_main
 
 
@@ -444,6 +535,23 @@ def check_tail_stagewise(seen: dict, dtype: torch.dtype, tin: int,
     torch.cuda.empty_cache()
 
 
+def tail_bound(operands, out: torch.Tensor, stage_weights,
+               wl: torch.Tensor) -> tuple[float, str]:
+    """:func:`bound` of a K2 / K3 chain: each 2^3 stage's products (stage i
+    of ``stage_weights`` lists its weights, K3's stage 0 two of them) and
+    the logits', with the operands, weights and output moved once."""
+    x = operands[0]
+    bsz, d, h, w, _ = x.shape
+    flops, moved = 0, nbytes(*operands, out)
+    for i, ws in enumerate(stage_weights, 1):
+        n = bsz * (d - i) * (h - i) * (w - i)  # the stage's output voxels
+        for wt in ws:
+            flops += 2 * n * wt.numel()
+            moved += wt.numel() * x.element_size()
+    flops += 2 * (out.numel() // out.shape[-1]) * wl.numel()
+    return bound(flops, moved, x.dtype)
+
+
 def check_tail_kernels(card_str: str) -> dict:
     """K2 and K3 against their plain versions: in the four forms, both
     dtypes and timed, on the main path's shapes with unit-scale activations;
@@ -498,10 +606,173 @@ def check_tail_kernels(card_str: str) -> dict:
                   f"{plain_ms:.4f} ms [{card_str}]", flush=True)
             require(ok, f"{kname} {form} {dt}: outside tolerance (max|err| {err})")
             if dtype == torch.bfloat16 and form in ("pallas", "pallas2"):
+                if kname == "K2":
+                    bnd, by = tail_bound((xin,), got, [[w] for w, _ in stages],
+                                         lg[0])
+                else:
+                    bnd, by = tail_bound((sc, xu), got, [[wa, wb]] + [
+                        [w] for w, _ in stages2], lg2[0])
+                print(f"{kname} tail_impl={form!r} bound {bnd:.4f} ms ({by}); "
+                      f"no single PyTorch call computes it [{card_str}]")
                 main[kname] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": err}
+                               "max_abs_err": err, "bound_ms": bnd,
+                               "bound_by": by, "library_ms": None}
             del got, ref
         del seen, xin, stages, lg, sc, xu, stage0, stages2, lg2
+        torch.cuda.empty_cache()
+    return main
+
+
+SPLIT_CASES = (  # K5's input at the stage-A -> stage-B boundary, one batch
+    ("baseline", (8, 36, 36, 36, 256)),  # tile in 76: 37^3 cells -> 36^3
+    ("vgg_like", (8, 44, 44, 44, 384)),  # tile in 94: 47^3 cells -> 44^3
+)
+
+
+def check_split_kernel(card_str: str) -> dict:
+    """K5 against its plain version, bit for bit, at SPLIT_CASES in f32 and
+    bf16, timed beside the plain version and one ``permute().contiguous()``.
+    Returns the bf16 baseline reading."""
+    from flypylib_tpu_torch.ops.split import (parity_split_kernel,
+                                              parity_split_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main = {}
+    for label, shape in SPLIT_CASES:
+        b, d, h, w, c8 = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = parity_split_kernel(x)
+            ref = parity_split_reference(x)
+            torch.cuda.synchronize()
+            same = got.shape == ref.shape and bool(torch.equal(got, ref))
+            ms = median_ms(lambda: parity_split_kernel(x))
+            plain = median_ms(lambda: parity_split_reference(x))
+            lib = median_ms(lambda: x.view(b, d, h, w, 8, c8 // 8)
+                            .permute(0, 4, 1, 2, 3, 5).contiguous())
+            bnd, by = bound(0, nbytes(x, got))
+            dt = str(dtype).replace("torch.", "")
+            print(f"K5 {label} x{shape} -> {tuple(got.shape)} {dt}: "
+                  f"{'bit-exact' if same else 'DIFFERS'}; kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, permute().contiguous() {lib:.4f} ms, "
+                  f"bound {bnd:.4f} ms ({by}) [{card_str}]", flush=True)
+            require(same, f"K5 {label} {dt}: differs from its plain version")
+            if label == "baseline" and dtype == torch.bfloat16:
+                main = {"ms": ms, "plain_ms": plain, "max_abs_err": 0.0,
+                        "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+            del x, got, ref
+    torch.cuda.empty_cache()
+    return main
+
+
+def first_tile_batch(spec, vol: np.ndarray, device="cuda") -> torch.Tensor:
+    """The first tile batch ``TiledInference`` hands the module for ``vol``
+    at ``default_tiling``: (B, tile_in, tile_in, tile_in, 1) uint8."""
+    from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
+
+    ti = TiledInference(spec, *default_tiling(spec, vol.shape))
+    corners, out_shape = ti.plan(vol.shape)
+    c, t = ti.ctx, ti.tile_in
+    padded = np.pad(vol, c, mode="reflect")
+    padded = np.pad(padded, [(0, o - s) for s, o in zip(vol.shape, out_shape)])
+    src = torch.from_numpy(padded).to(device)
+    return torch.stack([src[z:z + t, y:y + t, x:x + t]
+                        for z, y, x in corners[:ti.tile_batch]])[..., None]
+
+
+def wino_operands(vol: np.ndarray, dtype: torch.dtype, device="cuda"):
+    """K4's operands on the packed baseline's path: the stage-B convs'
+    inputs in one tile batch of ``vol`` (the seed-0 model in ``dtype``),
+    ``[(label, x, conv), ...]`` for layers 2 (x: (8 B, 36^3, 32) at tile in
+    76) and 3."""
+    from flypylib_tpu_torch.models.zoo import baseline_model
+    from flypylib_tpu_torch.ops.packed_conv import _conv, packed_spec
+
+    pspec = packed_spec(baseline_model(seed=0, dtype=dtype))
+    module = pspec.module.to(device).eval()
+    c2, c3 = module.inner.convs[2], module.inner.convs[3]
+    with torch.no_grad():
+        xa = module.apply_stage_a(first_tile_batch(pspec, vol, device))
+        xb = torch.relu(_conv(xa, c2.weight.to(dtype)) + c2.bias.to(dtype))
+    return [("layer 2", xa, c2), ("layer 3", xb, c3)]
+
+
+def wino_readings(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> dict:
+    """K4 on ``x`` with transform-domain weights ``u`` and bias ``b``
+    against its plain version: the sound reading and two broken outputs
+    (tap 21 dropped from U; channel 0 zeroed), each as (max |err|, bf16
+    ulps or None, within tolerance)."""
+    from flypylib_tpu_torch.ops.wino_conv import (wino_conv3d_bias_relu,
+                                                  wino_reference)
+
+    got = wino_conv3d_bias_relu(x, u, b)
+    ref = wino_reference(x, u, b)
+    u_drop = u.clone()
+    u_drop[21] = 0  # the tap (A, B, C) = (1, 1, 1)
+    zeroed = got.clone()
+    zeroed[..., 0] = 0
+    out = {}
+    for name, g in (("sound", got), ("tap dropped",
+                                     wino_conv3d_bias_relu(x, u_drop, b)),
+                    ("channel zeroed", zeroed)):
+        require(g.shape == ref.shape and g.dtype == ref.dtype,
+                f"K4: {tuple(g.shape)} {g.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+        err, ok = wino_check(g, ref)
+        ulps = bf16_ulps(g, ref) if x.dtype == torch.bfloat16 else None
+        out[name] = (err, ulps, ok)
+    out["max_ref"] = float(ref.float().abs().max())
+    return out
+
+
+def check_wino_kernel(card_str: str, vol: np.ndarray) -> dict:
+    """K4 against its plain version on the packed baseline's stage-B
+    operands (:func:`wino_operands`), f32 and bf16: sound within the
+    tolerance, both broken outputs outside it; timed beside the plain
+    version, K1 and one cuDNN call.  Returns the bf16 layer-3 reading."""
+    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+    from flypylib_tpu_torch.ops.wino_conv import (wino_conv3d_bias_relu,
+                                                  wino_reference,
+                                                  wino_transform_weights)
+
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        for label, x, conv in wino_operands(vol, dtype):
+            w, b = conv.weight.detach(), conv.bias.detach()
+            u = wino_transform_weights(w)
+            r = wino_readings(x, u, b)
+            ms = median_ms(lambda: wino_conv3d_bias_relu(x, u, b))
+            plain = median_ms(lambda: wino_reference(x, u, b), warmup=1,
+                              iters=3)
+            k1 = median_ms(lambda: conv3d_bias_relu(x, w, b, 1))
+            lib = median_ms(lambda: cudnn_conv(x, w, b))
+            n, d, h, wd, ci = x.shape
+            co = w.shape[4]
+            out_numel = n * (d - 2) * (h - 2) * (wd - 2) * co
+            flops = 2 * out_numel * ci * 8  # 64 products per 8 voxels
+            bnd, by = bound(flops, nbytes(x, w.to(dtype), b.to(dtype))
+                            + out_numel * x.element_size(), dtype)
+            readings = "; ".join(
+                f"{k} max|err| {e:.6g}"
+                + (f" = {ul:.3g} ulps" if ul is not None else "")
+                + (" ok" if ok else " FAIL")
+                for k, (e, ul, ok) in ((k, r[k]) for k in
+                                       ("sound", "tap dropped",
+                                        "channel zeroed")))
+            print(f"K4 baseline {label} x{tuple(x.shape)} -> Co {co} {dt}: "
+                  f"{readings} (max|ref| {r['max_ref']:.6g}); kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, K1 {k1:.4f} ms, cuDNN "
+                  f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{card_str}]",
+                  flush=True)
+            require(r["sound"][2], f"K4 {label} {dt}: outside tolerance "
+                                   f"({r['sound']})")
+            require(not r["tap dropped"][2] and not r["channel zeroed"][2],
+                    f"K4 {label} {dt}: the check passes a broken output")
+            if dtype == torch.bfloat16 and label == "layer 3":
+                main = {"ms": ms, "plain_ms": plain,
+                        "max_abs_err": r["sound"][0], "library_ms": lib,
+                        "bound_ms": bnd, "bound_by": by, "k1_ms": k1}
+            del x
         torch.cuda.empty_cache()
     return main
 
@@ -545,13 +816,16 @@ def check_map(card_str: str, label: str, make_net, vol: np.ndarray, tiling,
     torch.cuda.empty_cache()
 
 
-def check_small_map(port, card_str: str) -> None:
-    """The baseline's map at SMALL^3 against the CPU's, in f32 and bf16."""
-    check_map(card_str, "baseline",
-              lambda dev, dt: port.FplNetwork("baseline", device=dev, seed=0,
-                                              dtype=dt),
-              make_volume_u8(SMALL, 2, seed=1), SMALL_TILING,
+def check_small_map(port, card_str: str, packed: bool = False) -> None:
+    """The baseline's map at SMALL^3 against the CPU's, in f32 and bf16: the
+    plain stack (K1), or with ``packed`` the packed engine (K5)."""
+    limits = (((torch.float32, PACKED_LOGIT_TOL_F32),
+               (torch.bfloat16, PACKED_LOGIT_TOL_BF16)) if packed else
               ((torch.float32, LOGIT_TOL_F32), (torch.bfloat16, LOGIT_TOL_BF16)))
+    check_map(card_str, "packed baseline" if packed else "baseline",
+              lambda dev, dt: port.FplNetwork("baseline", device=dev, seed=0,
+                                              dtype=dt, packed=packed),
+              make_volume_u8(SMALL, 2, seed=1), SMALL_TILING, limits)
 
 
 def unet_net(port, engine: str, device, dtype=torch.bfloat16):
@@ -599,10 +873,14 @@ def same_list(got, ref, loc_tol: float, what: str) -> None:
 def kernel_wrappers() -> dict:
     """The port's kernel wrappers, each with its ``launches`` count."""
     from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+    from flypylib_tpu_torch.ops.split import parity_split_kernel
     from flypylib_tpu_torch.ops.tail import packed_tail, packed_tail2
+    from flypylib_tpu_torch.ops.wino_conv import wino_conv3d_bias_relu
 
     return {"conv3d_bias_relu": conv3d_bias_relu, "packed_tail": packed_tail,
-            "packed_tail2": packed_tail2}
+            "packed_tail2": packed_tail2,
+            "parity_split_kernel": parity_split_kernel,
+            "wino_conv3d_bias_relu": wino_conv3d_bias_relu}
 
 
 def launch_counts() -> dict:
@@ -763,12 +1041,19 @@ def main(argv=None) -> int:
     # 4. K2 and K3 against their plain versions
     tails = check_tail_kernels(card_str)
 
-    # 5. the baseline path: the map against the CPU's at a small size, then
-    #    256^3
-    check_small_map(port, card_str)
-    net = port.FplNetwork("baseline", device="cuda", seed=0)
-    require(net.spec.module.dtype == torch.bfloat16, "baseline is not bf16")
+    # 5. K5 against its plain version
+    k5 = check_split_kernel(card_str)
+
+    # 6. K4 against its plain version, K1 and cuDNN at stage-B operands
     vol = make_volume_u8(VOLUME, N_BLOBS, seed=0)
+    k4 = check_wino_kernel(card_str, vol)
+
+    # 7. the plain baseline path (K1): the map against the CPU's at a small
+    #    size, then 256^3
+    check_small_map(port, card_str)
+    net = port.FplNetwork("baseline", device="cuda", seed=0, packed=False)
+    require(net.infer_spec is net.spec and net.module.dtype == torch.bfloat16,
+            "the plain baseline is not a bf16 ConvStack")
     res = run_main_path(net, vol)
     require_launches(res, {"conv3d_bias_relu": 4 * res["n_batches"]},
                      "baseline")
@@ -785,7 +1070,34 @@ def main(argv=None) -> int:
     del net
     torch.cuda.empty_cache()
 
-    # 6. the U-Net paths: maps against the CPU's at a small size, then 256^3
+    # 8. the packed ConvStack paths, the default engine: the map against the
+    #    CPU's at a small size, then 256^3 for baseline and vgg_like
+    check_small_map(port, card_str, packed=True)
+    packed_runs = {}
+    for name in ("baseline", "vgg_like"):
+        net = port.FplNetwork(name, device="cuda", seed=0)
+        require(net.infer_spec.name == f"{name}+packed"
+                and net.module.dtype == torch.bfloat16,
+                f"{name}: {net.infer_spec.name} is not the bf16 packed engine")
+        r = run_main_path(net, vol)
+        require_launches(r, {"parity_split_kernel": r["n_batches"]},
+                         f"packed {name}")
+        print(f"packed {name} (tile in {net.tiled_inference(vol.shape).tile_in}"
+              f"): {r['n_batches']} tile batches, launches {r['launches']} "
+              f"(K5 = 3 forwards x {r['n_batches']}); threshold "
+              f"{r['threshold']:.9g} ({r['above_threshold']} voxels above); "
+              f"nms {r['n_nms']} detections, components {r['n_cc']}; both "
+              "equal the host reference", flush=True)
+        time_main_path(net, vol, r["threshold"], card_str, f"packed {name}")
+        infer_phases(net, vol, card_str, f"packed {name}")
+        if args.profile and name == "baseline":
+            profile_detect(net, vol, r["threshold"], card_str, ("nms",),
+                           "packed baseline ")
+        packed_runs[name] = r
+        del net
+        torch.cuda.empty_cache()
+
+    # 9. the U-Net paths: maps against the CPU's at a small size, then 256^3
     check_unet_maps(port, card_str)
     unet_runs = {}
     for engine in UNET_ENGINES:
@@ -818,11 +1130,9 @@ def main(argv=None) -> int:
         "source": "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu",
         "replaces": "flypylib_tpu/ops/pallas_conv.py:155",
         "launches": res["launches"]["conv3d_bias_relu"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
+        **k1,
         "at": "baseline layers 0-3 summed, bf16, one tile batch; launches "
-              "from the baseline path",
+              "from the plain baseline path",
     }]
     for kname, name, line, engine in (
             ("K2", "packed_tail", 221, "pallas"),
@@ -838,6 +1148,26 @@ def main(argv=None) -> int:
                   f"{VOLUME}^3 covering tile; launches from the U-Net "
                   f"{engine} path",
         })
+    kernels.append({
+        "name": "wino_conv3d_bias_relu",
+        "route": "cuda",
+        "source": "flypylib_tpu_torch/csrc/wino_conv.cu",
+        "replaces": "flypylib_tpu/ops/wino_conv.py:240",
+        "launches": packed_runs["baseline"]["launches"]["wino_conv3d_bias_relu"],
+        **{k: v for k, v in k4.items() if k != "k1_ms"},
+        "at": f"packed baseline layer 3, bf16, one tile batch (K1 there "
+              f"{k4['k1_ms']:.4f} ms); no path calls it, as in the reference",
+    })
+    kernels.append({
+        "name": "parity_split_kernel",
+        "route": "cuda",
+        "source": "flypylib_tpu_torch/csrc/parity_split.cu",
+        "replaces": "flypylib_tpu/ops/pallas_split.py:158",
+        "launches": packed_runs["baseline"]["launches"]["parity_split_kernel"],
+        **k5,
+        "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
+              "batch; launches from the packed baseline path",
+    })
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {

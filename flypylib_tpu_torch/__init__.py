@@ -5,11 +5,13 @@ reference).  It imports torch, numpy and scipy, never jax, flax or
 ``flypylib_tpu``.  Modules keep the reference's paths and public names;
 volumes are (z, y, x), activations NDHWC, conv weights DHWIO.
 
-This slice covers ``FplNetwork("baseline" | "vgg_like").infer / nms /
-components / detect``.  The body convolutions run a hand-written CUDA
-kernel for Hopper (``csrc/conv3d_bias_relu.cu``, the port of the Pallas
-kernel ``ops/pallas_conv.py::conv3d_bias_relu``) on a CUDA device, and its
-plain PyTorch version on the CPU.
+It covers ``FplNetwork("baseline" | "vgg_like" | "unet").infer / nms /
+components / detect``, each model through its packed engine by default, as
+in the reference, or plain with ``packed=False``.  Every Pallas kernel of
+the reference has a hand-written CUDA counterpart for Hopper under
+``csrc/`` (K1 ``conv3d_bias_relu``, K2/K3 ``packed_tail``, K4
+``wino_conv``, K5 ``parity_split``), launched on a CUDA device; on the CPU
+each wrapper runs its plain PyTorch version.
 """
 
 from flypylib_tpu_torch.network import FplNetwork

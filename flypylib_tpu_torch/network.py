@@ -3,9 +3,12 @@
 Counterpart of ``flypylib_tpu/network.py`` for the inference verbs:
 ``infer``, ``nms``, ``components`` and ``detect``, with the reference's
 defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
-threshold 0.5, ``default_tiling`` and ``packed="auto"``).  Construction
-takes a zoo name (``FplNetwork("unet")``), a zoo callable or a ready
-``ModelSpec`` (a packed U-Net spec included).
+threshold 0.5, ``default_tiling`` and ``packed="auto"``, which runs every
+model with a packed engine through it: ``PackedConvStack`` for the conv
+stacks, ``PackedUNet`` for the U-Net; ``packed=False`` runs the plain
+module, K1 on every 3^3 conv).  Construction takes a zoo name
+(``FplNetwork("unet")``), a zoo callable or a ready ``ModelSpec`` (a packed
+spec included).
 
 The device is explicit.  ``device="cuda"`` without a usable GPU raises; the
 network never moves itself to the CPU.  On ``device="cpu"`` every kernel
@@ -21,13 +24,15 @@ from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
 from flypylib_tpu_torch.io.synapses import Tbars
 from flypylib_tpu_torch.models.zoo import (
     MODEL_ZOO,
-    ConvStack,
     ModelSpec,
     params_from_flax,
 )
 from flypylib_tpu_torch.ops.components import label_components
 from flypylib_tpu_torch.ops.nms import nms
+from flypylib_tpu_torch.ops.packed_conv import PackedConvStack, packed_spec
 from flypylib_tpu_torch.ops.packed_unet import PackedUNet, packed_unet_spec
+
+_PACKED = (PackedConvStack, PackedUNet)
 
 
 class FplNetwork:
@@ -38,9 +43,10 @@ class FplNetwork:
 
         ``packed`` selects the space-to-depth inference engine for the
         infer/detect verbs, as in the reference: ``"auto"`` uses it
-        whenever the model has one (the U-Net), ``True`` requires it,
-        ``False`` runs the plain module.  Both share one set of weights.
-        A spec that is already packed is used as given."""
+        whenever the model has one (``ConvStack`` and ``UNetValid``),
+        ``True`` requires it, ``False`` runs the plain module.  Both share
+        one set of weights.  A spec that is already packed is used as
+        given."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -54,13 +60,9 @@ class FplNetwork:
         else:
             spec = MODEL_ZOO[model](seed=seed, **model_kwargs)
         infer_spec = spec
-        if packed and not isinstance(spec.module, PackedUNet):
-            pspec = packed_unet_spec(spec)
+        if packed and not isinstance(spec.module, _PACKED):
+            pspec = packed_spec(spec) or packed_unet_spec(spec)
             if pspec is None and packed is True:
-                if isinstance(spec.module, ConvStack):
-                    raise NotImplementedError(
-                        f"model {spec.name!r}: the packed ConvStack engine is "
-                        "not ported yet (ROADMAP.md queue 1, item 15)")
                 raise ValueError(f"model {spec.name!r} does not support the "
                                  "packed inference engine")
             infer_spec = pspec or spec
@@ -77,7 +79,7 @@ class FplNetwork:
         """The plain module that holds the weights (a packed engine shares
         them)."""
         m = self.spec.module
-        return m.inner if isinstance(m, PackedUNet) else m
+        return m.inner if isinstance(m, _PACKED) else m
 
     @property
     def variables(self) -> dict[str, torch.Tensor]:

@@ -40,6 +40,8 @@ _ENTRIES = {
     "fpl_conv3d_bias_relu": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
     "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
+    "fpl_parity_split": [_P, _P] + [_I] * 6 + [_P],
+    "fpl_wino_conv": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 

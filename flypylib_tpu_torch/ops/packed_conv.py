@@ -1,16 +1,28 @@
-"""Space-to-depth packing, in PyTorch: the pieces the packed U-Net needs.
+"""Space-to-depth packed inference engine for ConvStack models, in PyTorch.
 
-Counterpart of ``flypylib_tpu/ops/packed_conv.py`` (``pack_volume``,
-``unpack_volume``, ``_tap_matrix``, ``pack_weight_d1``), plus
-``convT_packed_weight`` of ``ops/packed_unet.py``.  A volume is
-packed 2x2x2 -> 8 channels; a valid 3^3 conv on the full lattice is then a
-valid 2^3 conv on the packed lattice with 8x the channels, whose kernel
-embeds the 27 original taps exactly (the other slots are zeros).
+Counterpart of ``flypylib_tpu/ops/packed_conv.py`` (inference only), plus
+``convT_packed_weight`` of ``ops/packed_unet.py``.  A volume is packed
+2x2x2 -> 8 channels; a valid 3^3 conv on the full lattice is then a valid
+2^3 conv on the packed lattice with 8x the channels, whose kernel embeds the
+27 original taps exactly (the other slots are zeros).  A dilation-d conv
+(d = 2^k >= 2) only connects voxels of equal coordinates mod d, so on the
+packed tensor the 8 parity channel groups are the d = 2 sub-lattices:
+:class:`PackedConvStack` runs a ConvStack's dilation-1 lead layers packed
+("stage A"), relays the parity groups out into the batch
+(:func:`parity_batch`, K5 on the card), and runs the dilated layers as
+dilation-1 convs on the lattices ("stage B"), splitting parities again
+wherever the lattice step is below the dilation.  :func:`packed_spec`
+exports the packed model's stricter size constraints as a drop-in
+``ModelSpec``; the U-Net's engine is ``ops/packed_unet.py``.
 
 The reference spells pack and unpack twice (one 8-D transpose, and the
 per-axis ``_iv`` forms chosen for TPU layouts); both give the same values,
-so the port has one of each.  The reference's custom VJPs belong to
-training and are not ported.
+so the port has one of each.  Left out of the reference: the custom VJPs
+and ``forward_train`` (training), the optimization barriers, the
+split-weight bf16 logits (the port keeps the plain ConvStack's f32
+logits, which the reference's docstring puts ~1e-6 relative from them),
+``stage_b="group"`` (measured and rejected there) and BatchNorm (the
+port's ``ConvStack`` has none).
 """
 
 from __future__ import annotations
@@ -20,6 +32,11 @@ from itertools import product
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flypylib_tpu_torch.ops.conv import conv3d_f32
+from flypylib_tpu_torch.ops.split import parity_split_kernel
 
 _PARITY = list(product(range(2), repeat=3))  # (pz, py, px), px fastest
 
@@ -98,3 +115,179 @@ def convT_packed_weight(k: torch.Tensor) -> torch.Tensor:
     reference's module for it.)"""
     return torch.cat([k[1 - pz, 1 - py, 1 - px] for pz, py, px in _PARITY],
                      dim=-1)
+
+
+def parity_split(x: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) -> (8B, D/2, H/2, W/2, C): batch the 8 parity
+    sub-lattices (new batch = b*8 + ((pz*2+py)*2+px)); dims must be even."""
+    b, d, h, w, c = x.shape
+    if d % 2 or h % 2 or w % 2:
+        raise ValueError(f"parity_split needs even spatial dims, got {tuple(x.shape)}")
+    x = x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(b * 8, d // 2, h // 2, w // 2, c)
+
+
+def parity_merge(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`parity_split`."""
+    b8, d, h, w, c = x.shape
+    x = x.reshape(b8 // 8, 2, 2, 2, d, h, w, c)
+    x = x.permute(0, 4, 1, 5, 2, 6, 3, 7)
+    return x.reshape(b8 // 8, 2 * d, 2 * h, 2 * w, c)
+
+
+def parity_batch(x: torch.Tensor) -> torch.Tensor:
+    """Packed parity-major channels -> parity-batched lattices: (B, d, h, w,
+    8c) -> (8B, d, h, w, c) with new batch b*8 + parity.  The stage-A /
+    stage-B boundary relayout: K5 (:func:`~flypylib_tpu_torch.ops.split.
+    parity_split_kernel`) on a CUDA tensor, its plain version on a CPU one."""
+    return parity_split_kernel(x)
+
+
+def parity_unbatch(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`parity_batch`: (8B, d, h, w, c) -> (B, d, h, w, 8c)."""
+    b8, d, h, w, c = x.shape
+    x = x.reshape(b8 // 8, 8, d, h, w, c).permute(0, 2, 3, 4, 1, 5)
+    return x.reshape(b8 // 8, d, h, w, 8 * c)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Valid conv of NDHWC ``x`` with DHWIO ``w``, summed in f32 and rounded
+    to ``x.dtype`` once (the reference's ``_conv``, an XLA conv in the
+    compute dtype): a bf16 cuDNN conv on the card (f32 accumulators), else
+    :func:`~flypylib_tpu_torch.ops.conv.conv3d_f32` (TF32 off, oneDNN off)."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2))
+        return y.permute(0, 2, 3, 4, 1)
+    return conv3d_f32(x, w.to(x.dtype)).to(x.dtype)
+
+
+def packed_conv_relu(x: torch.Tensor, conv) -> torch.Tensor:
+    """``conv``'s valid 3^3 conv (dilation 1) + bias + ReLU on the packed
+    lattice: the 2^3 conv against ``pack_weight_d1``, rounded to
+    ``x.dtype``, plus the dtype bias on all 8 parity groups, then ReLU."""
+    dt = x.dtype
+    y = _conv(x, pack_weight_d1(conv.weight.to(dt)))
+    return torch.relu(y + conv.bias.to(dt).repeat(8))
+
+
+class PackedConvStack(nn.Module):
+    """Inference module running a ``ConvStack`` in packed layout.
+
+    It holds the inner module (``self.inner``) and reads its parameters at
+    each forward, so the two share one set of weights.  Dilations must be
+    powers of two and non-decreasing.  Each conv is summed in f32 and
+    rounded to the model dtype, then the dtype bias is added and ReLU
+    applied (the reference's ``_conv`` + ``_epilogue``)."""
+
+    def __init__(self, inner):
+        super().__init__()
+        dils = [int(c.dilation) for c in inner.convs]
+        for i, d in enumerate(dils):
+            if d < 1 or d & (d - 1):
+                raise ValueError(f"dilation {d} is not a power of two")
+            if i and d < dils[i - 1]:
+                raise ValueError(f"dilation schedule {dils} must be non-decreasing")
+        self.inner = inner
+        self.dilations = dils
+        self.n_lead = next((i for i, d in enumerate(dils) if d > 1), len(dils))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.inner.dtype
+
+    def apply_stage_a(self, x: torch.Tensor) -> torch.Tensor:
+        """Phase 1: cast, pack, the dilation-1 lead convs on the packed
+        lattice, then :func:`parity_batch`.  Returns the parity-batched
+        stage-B input ``(8B, d, h, w, c)`` (the cast input when the model
+        has no dilation-1 lead)."""
+        dt = self.dtype
+        x = x.to(dt)
+        if not self.n_lead:
+            return x
+        x = pack_volume(x)
+        for conv in self.inner.convs[: self.n_lead]:
+            x = packed_conv_relu(x, conv)
+        return parity_batch(x.contiguous())
+
+    def apply_stage_b(self, x: torch.Tensor) -> torch.Tensor:
+        """Phase 2: the dilated convs as dilation-1 convs on the parity
+        lattices, the head, the f32 logits, and one :func:`parity_merge`
+        per lattice level back to full resolution."""
+        inner = self.inner
+        dt = self.dtype
+        level = 1 if self.n_lead else 0
+        for conv, d in zip(inner.convs[self.n_lead:], self.dilations[self.n_lead:]):
+            while (1 << level) < d:
+                x = parity_split(x)
+                level += 1
+            if (1 << level) != d:
+                raise ValueError(f"dilation {d} below current lattice step {1 << level}")
+            x = torch.relu(_conv(x, conv.weight.to(dt)) + conv.bias.to(dt))
+        x = torch.relu(inner.head(x, dt))
+        x = inner.logits(x, torch.float32)
+        for _ in range(level):
+            x = parity_merge(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, S, 1) -> (B, S - 2 context, ..., 1) f32 logits."""
+        return self.apply_stage_b(self.apply_stage_a(x))
+
+
+def _packed_out_size(s: int, dilations: tuple[int, ...]) -> int | None:
+    """Output extent of :class:`PackedConvStack` for input extent ``s``, or
+    None where the packed forward refuses it (an odd extent at a pack or a
+    parity split, an extent reaching 0)."""
+    n_lead = next((i for i, d in enumerate(dilations) if d > 1), len(dilations))
+    level, c = 0, s
+    if n_lead:
+        if s % 2:
+            return None
+        level, c = 1, s // 2 - n_lead
+    for d in dilations[n_lead:]:
+        while (1 << level) < d:
+            if c <= 0 or c % 2:
+                return None
+            c //= 2
+            level += 1
+        c -= 2
+    return c << level if c > 0 else None
+
+
+@functools.cache
+def _packed_geometry(dilations: tuple[int, ...]):
+    # the reference's probe range for the packed ConvStack (packed_conv.py:525)
+    from flypylib_tpu_torch.models.zoo import _probe_geometry
+
+    return _probe_geometry(lambda s: _packed_out_size(s, dilations), lo=8, hi=140)
+
+
+def packed_spec(spec):
+    """A ``ModelSpec`` running a ``ConvStack`` spec through the packed
+    engine (sharing the inner module's weights, with the packed model's
+    stricter size constraints), or None when the module is not a
+    ``ConvStack`` or its dilation schedule is not supported."""
+    # the zoo imports this module: import it here, not at the top
+    from flypylib_tpu_torch.models.zoo import ConvStack, ModelSpec
+
+    module = spec.module
+    if not isinstance(module, ConvStack):
+        return None
+    try:
+        pm = PackedConvStack(module)
+        ctx, mult, off, min_size = _packed_geometry(tuple(pm.dilations))
+    except ValueError:
+        return None
+    if ctx != spec.context:
+        raise AssertionError(f"packed geometry context {ctx} != model context "
+                             f"{spec.context}")
+    return ModelSpec(
+        name=spec.name + "+packed",
+        module=pm,
+        context=ctx,
+        size_multiple=mult,
+        size_offset=off,
+        min_size=min_size,
+        metadata={**spec.metadata, "packed": True},
+    )

@@ -35,15 +35,16 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from flypylib_tpu_torch.models.zoo import ModelSpec, UNetValid, _probe_geometry
-from flypylib_tpu_torch.ops.conv import conv3d_f32, no_tf32
+from flypylib_tpu_torch.ops.conv import no_tf32
 from flypylib_tpu_torch.ops.packed_conv import (
+    _conv,
     convT_packed_weight,
     pack_volume,
     pack_weight_d1,
+    packed_conv_relu,
     unpack_volume,
 )
 from flypylib_tpu_torch.ops.tail import logits_reference, packed_tail, packed_tail2
@@ -109,16 +110,6 @@ def crop_packed(x: torch.Tensor, starts, sizes) -> torch.Tensor:
     return x.reshape(b, *(sz // 2 for sz in sizes), 8 * c).contiguous()
 
 
-def _conv2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Valid 2^3 conv of NDHWC ``x`` with DHWIO ``w``, summed in f32 and
-    rounded to ``x.dtype`` once: a bf16 cuDNN conv on the card (f32
-    accumulators), else :func:`conv3d_f32` (TF32 off, oneDNN off)."""
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2))
-        return y.permute(0, 2, 3, 4, 1)
-    return conv3d_f32(x, w.to(x.dtype)).to(x.dtype)
-
-
 class PackedUNet(nn.Module):
     """Inference module running a ``UNetValid`` in packed layout.
 
@@ -135,11 +126,6 @@ class PackedUNet(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.inner.dtype
-
-    def _packed_conv_relu(self, x, i):
-        conv = self.inner.convs[i]
-        y = _conv2(x, pack_weight_d1(conv.weight.to(x.dtype)))
-        return torch.relu(y + conv.bias.to(x.dtype).repeat(8))
 
     def _tail_stages(self, i):
         """Packed ``(w, b)`` of the decoder block's convs ``i`` onwards, in
@@ -202,12 +188,12 @@ class PackedUNet(nn.Module):
         skips = []
         for _ in range(inner.levels):
             for _ in range(cps):
-                x = self._packed_conv_relu(x, conv_i)
+                x = packed_conv_relu(x, inner.convs[conv_i])
                 conv_i += 1
             skips.append(x)
             x = pool_pack(x)
         for _ in range(cps):  # bottleneck, one lattice deeper than the skip
-            x = self._packed_conv_relu(x, conv_i)
+            x = packed_conv_relu(x, inner.convs[conv_i])
             conv_i += 1
         x = unpack_volume(x)  # dense at the deepest resolution
 
@@ -238,11 +224,11 @@ class PackedUNet(nn.Module):
             else:
                 # the reference's "split" fold: two convs rounded apart and
                 # summed in the model dtype; the concat never exists
-                y = (_conv2(sc, w_skip) + _conv2(x, w_up_eff)) + b_fold.to(dt)
+                y = (_conv(sc, w_skip) + _conv(x, w_up_eff)) + b_fold.to(dt)
                 x = torch.relu(y)
             conv_i += 1
             for _ in range(cps - 1):
-                x = self._packed_conv_relu(x, conv_i)
+                x = packed_conv_relu(x, inner.convs[conv_i])
                 conv_i += 1
             if lev > 0:
                 x = unpack_volume(x)  # dense input of the next fold

@@ -12,6 +12,15 @@ tensor-core path (16-byte runs when Ci and Co are multiples of 8 and the
 data is 16-byte aligned, single elements otherwise), both tile widths
 (Co <= 32, Co > 32), the Ci = 1 kernel and every dilation the wrapper takes.
 
+K5 (``parity_split_kernel``) is a copy: bitwise equal to its plain
+version, at every unit width the kernel picks (16-byte runs down to 2-byte
+elements).  K4 (``wino_conv3d_bias_relu``) is held against its plain version,
+``wino_reference``, which carries the same rounding points: f32 rtol = atol
+= 1e-4 (the JAX package's own test's), bf16 ``chip_smoke.wino_check``.
+Cases cover both WMMA row tilings (16 and 32 rows), a width whose shared
+memory forces shorter x runs (Ci = Co = 128), the ReLU off, channels off
+the multiples of 16 and several x-chunks per row.
+
 K2 and K3 (``packed_tail``, ``packed_tail2``) are held by
 ``chip_smoke.tail_check``: f32 1e-4 max |ref|; bf16 one ulp at each of a
 stage's two rounding points for single stages, rtol = atol = 2e-2 for
@@ -26,6 +35,9 @@ import torch
 
 import chip_smoke
 from flypylib_tpu_torch.ops import tail
+from flypylib_tpu_torch.ops import wino_conv as wino
+from flypylib_tpu_torch.ops.split import (parity_split_kernel,
+                                          parity_split_reference)
 from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu, conv3d_f32,
                                          conv3d_reference)
 
@@ -197,5 +209,108 @@ def test_packed_unet_kernel_tails_match_the_cpu(cuda, tail_impl):
         got = spec.module.to(cuda)(torch.from_numpy(x).to(cuda))
         torch.cuda.synchronize()
     assert getattr(tail, name).launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (2, 5, 6, 7, 256),    # the main path's c = 32: 16-byte runs
+    (1, 3, 4, 5, 8),      # c = 1: 2- or 4-byte units
+    (3, 2, 3, 9, 24),     # c = 3
+    (2, 4, 4, 4, 384),    # vgg_like's c = 48
+])
+def test_split_kernel_is_the_plain_copy(cuda, shape, dtype):
+    x = torch.randn(shape, device=cuda).to(dtype)
+    before = parity_split_kernel.launches
+    got = parity_split_kernel(x)
+    torch.cuda.synchronize()
+    assert parity_split_kernel.launches == before + 1
+    assert torch.equal(got, parity_split_reference(x))
+
+
+def test_split_kernel_odd_alignment_and_rejections(cuda):
+    # a contiguous bf16 view 2 bytes past a 16-byte boundary: 2-byte units
+    flat = torch.randn(2 * 3 * 4 * 5 * 64 + 1, device=cuda).bfloat16()
+    x = flat[1:].view(2, 3, 4, 5, 64)
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(parity_split_kernel(x), parity_split_reference(x))
+    assert parity_split_kernel(x[:0]).shape == (0, 3, 4, 5, 8)
+    with pytest.raises(TypeError):
+        parity_split_kernel(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        parity_split_kernel(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        parity_split_kernel(torch.zeros((1, 2, 2, 2, 12), device=cuda))
+
+
+WINO_CASES = {
+    # label: (N, D, H, W, Ci, Co)
+    "stage-B-like": (2, 12, 10, 36, 32, 48),   # 17 x-blocks: 32-row tiles
+    "Co-64": (1, 10, 8, 34, 48, 64),          # 16 x-blocks: 16-row tiles
+    "Co-96": (1, 8, 8, 20, 64, 96),           # Co > 64: 16-row tiles
+    "wide": (1, 6, 6, 70, 128, 128),          # shared memory: short x runs
+    "odd-widths": (2, 8, 10, 12, 5, 7),       # Ci, Co off the multiples of 16
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(WINO_CASES))
+def test_wino_kernel_matches_plain(cuda, case, dtype):
+    n, d, h, w, ci, co = WINO_CASES[case]
+    x, wgt, b = _inputs((d, h, w), ci, co, batch=n)
+    x, b = x.to(cuda).to(dtype), b.to(cuda)
+    u = wino.wino_transform_weights(wgt.to(cuda))
+    before = wino.wino_conv3d_bias_relu.launches
+    got = wino.wino_conv3d_bias_relu(x, u, b)
+    torch.cuda.synchronize()
+    assert wino.wino_conv3d_bias_relu.launches == before + 1
+    ref = wino.wino_reference(x, u, b)
+    assert got.shape == ref.shape and got.dtype == dtype
+    err, ok = chip_smoke.wino_check(got, ref)
+    assert ok, f"max |err| {err}"
+
+
+def test_wino_kernel_without_relu_and_rejections(cuda):
+    x, wgt, b = _inputs((8, 8, 8), 8, 16, batch=1)
+    x, b = x.to(cuda) - 0.5, b.to(cuda)
+    u = wino.wino_transform_weights(wgt.to(cuda))
+    got = wino.wino_conv3d_bias_relu(x, u, b, relu=False)
+    assert float(got.min()) < 0
+    err, ok = chip_smoke.wino_check(got, wino.wino_reference(x, u, b, relu=False))
+    assert ok, f"max |err| {err}"
+    assert wino.wino_conv3d_bias_relu(x[:0], u, b).shape == (0, 6, 6, 6, 16)
+    with pytest.raises(ValueError, match="even"):
+        wino.wino_conv3d_bias_relu(x[:, :7], u, b)
+    with pytest.raises(TypeError):
+        wino.wino_conv3d_bias_relu(x.half(), u, b)
+    with pytest.raises(ValueError, match="Ci and Co"):
+        wino.wino_conv3d_bias_relu(x, torch.zeros((64, 8, 129), device=cuda),
+                                   torch.zeros(129, device=cuda))
+    with pytest.raises(ValueError, match="same device"):
+        wino.wino_conv3d_bias_relu(x, u.cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["baseline", "vgg_like"])
+def test_packed_convstack_on_the_card_matches_the_cpu(cuda, name):
+    """The packed ConvStack (f32, narrow widths, batch 2) on the card, K5 at
+    its boundary, against the CPU's plain versions; one K5 launch per
+    forward."""
+    from flypylib_tpu_torch.models.zoo import MODEL_ZOO
+    from flypylib_tpu_torch.ops.packed_conv import packed_spec
+
+    kw = {"baseline": dict(features=(8, 16, 16, 24)),
+          "vgg_like": dict(features=(8, 8, 16, 16, 16, 24, 24))}[name]
+    spec = packed_spec(MODEL_ZOO[name](dtype=torch.float32, **kw))
+    s = spec.valid_size(spec.min_size + 8)
+    x = np.random.default_rng(0).random((2, s, s, s, 1)).astype(np.float32)
+    with torch.no_grad():
+        want = spec.module(torch.from_numpy(x))
+        before = parity_split_kernel.launches
+        got = spec.module.to(cuda)(torch.from_numpy(x).to(cuda))
+        torch.cuda.synchronize()
+    assert parity_split_kernel.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)

@@ -26,10 +26,12 @@ from scipy import ndimage
 import chip_smoke
 import flypylib_tpu_torch as tpt
 from flypylib_tpu.io import synapses as j_syn
+from flypylib_tpu.models.zoo import ModelSpec as j_ModelSpec
 from flypylib_tpu.models.zoo import baseline_model as j_baseline
 from flypylib_tpu.network import FplNetwork as JaxNetwork
 from flypylib_tpu.ops import host_reference as j_host
 from flypylib_tpu.ops.components import label_components as j_label
+from flypylib_tpu.ops.packed_conv import PackedConvStack as j_PackedConvStack
 from flypylib_tpu.utils import core as j_core
 from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
 from flypylib_tpu_torch.io import synapses as t_syn
@@ -38,6 +40,7 @@ from flypylib_tpu_torch.ops import host_reference as t_host
 from flypylib_tpu_torch.ops.components import components_device
 from flypylib_tpu_torch.ops.nms import (mask_valid_region, max_filter,
                                         nms_device)
+from flypylib_tpu_torch.ops.packed_conv import PackedConvStack, packed_spec
 from flypylib_tpu_torch.utils import core as t_core
 from tests.conftest import make_blob_volume
 
@@ -163,8 +166,10 @@ def test_nms_explicit_cap_not_reached_does_not_warn(rng, recwarn):
 
 
 def _small_net(dtype=torch.float32, seed=0):
+    """The plain stack (K1 on every conv); ``tests/test_torch_packed_conv.py``
+    holds the packed engine, the default, to the same invariants."""
     return tpt.FplNetwork(baseline_model(dtype=dtype, seed=seed, **SMALL),
-                          device="cpu")
+                          device="cpu", packed=False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -194,6 +199,8 @@ def test_default_tiling_is_the_reference_choice():
     pairs = [(tpt.models.MODEL_ZOO[n](), J_ZOO[n]())
              for n in ("baseline", "vgg_like", "unet")]
     pairs.append((packed_unet_spec(pairs[-1][0]), j_packed(pairs[-1][1])))
+    # the packed conv stacks, the JAX specs with the port's geometry
+    pairs += [(packed_spec(t), _jax_packed(j)) for t, j in pairs[:2]]
     for t, j in pairs:
         # the U-Net's (24, 2, 2) geometry, plain and packed, as JAX probes it
         for attr in ("name", "context", "size_multiple", "size_offset",
@@ -211,19 +218,43 @@ def test_default_tiling_is_the_reference_choice():
     assert TiledInference(unet, 256, 1).tile_in == 296
     assert TiledInference(packed, 256, 1).tile_in == 300
     assert default_tiling(packed, (1024,) * 3) == (428 - 40, 1)
+    # the packed conv stacks tile as the plain ones: 64 out, batch 8
+    for t, tin in ((pairs[4][0], 76), (pairs[5][0], 94)):
+        assert default_tiling(t, (256,) * 3) == (64, 8)
+        assert TiledInference(t, 64, 8).tile_in == tin
 
 
-def test_network_matches_jax_end_to_end(rng):
+def _jax_packed(spec):
+    """The JAX ``packed_spec(spec)``, with the port's geometry in place of
+    the JAX probe (``tests/test_torch_packed_conv.py`` holds the two equal
+    for the zoo; the probe costs ~10 s a spec here)."""
+    t = tpt.models.MODEL_ZOO[spec.name](**{
+        k: spec.metadata[k] for k in ("features", "dilations")})
+    tp = packed_spec(t)
+    return j_ModelSpec(name=tp.name, module=j_PackedConvStack(spec.module),
+                       context=tp.context, size_multiple=tp.size_multiple,
+                       size_offset=tp.size_offset, min_size=tp.min_size,
+                       metadata={**spec.metadata, "packed": True})
+
+
+@pytest.mark.parametrize("packed", [False, "auto"], ids=["plain", "default"])
+def test_network_matches_jax_end_to_end(rng, packed):
+    """The port's engine against the JAX package's: ``packed=False`` (the
+    plain stack, K1) against JAX ``packed=False``, and the default (the
+    packed engine, K5) against JAX's default."""
     spec = j_baseline(dtype=jnp.float32, **SMALL)
-    jnet = JaxNetwork(spec, packed=False)
+    jnet = JaxNetwork(spec if packed is False else _jax_packed(spec),
+                      packed=False)
     params = jax.tree_util.tree_map(np.array, jnet.variables)
     for layer in params["params"].values():
         layer["bias"] = rng.normal(0, 0.05, layer["bias"].shape).astype(
             np.float32)
     jnet.trainer.state = jnet.trainer.state.replace(params=params["params"])
     net = tpt.FplNetwork("baseline", device="cpu", dtype=torch.float32,
-                         **SMALL)
+                         packed=packed, **SMALL)
     net.load_flax_params(params)
+    assert isinstance(net.infer_spec.module, PackedConvStack) == bool(packed)
+    assert net.infer_spec.name == jnet.infer_spec.name
 
     vol, _ = make_blob_volume((24,) * 3, centers=[(6, 7, 8), (16, 15, 17)],
                               sigma=2.0)

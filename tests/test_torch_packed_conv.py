@@ -1,0 +1,205 @@
+"""The port's packed ConvStack engine (``flypylib_tpu_torch.ops.packed_conv``:
+the parity relayouts, ``PackedConvStack``, ``packed_spec``; and K5's plain
+version in ``ops.split``) against the JAX package on the same params and
+inputs.
+
+Tolerances:
+- the parity relayouts and K5's plain version are copies: bitwise equal;
+- ``PackedConvStack`` vs the JAX ``PackedConvStack.apply`` in f32: rtol
+  1e-4, atol 1e-5 (f32 summation order; the JAX engine's split-weight
+  logits are exact in f32, its ``lo`` half being 0);
+- ``PackedConvStack`` vs the port's plain ``ConvStack`` in f32: 2e-4, the
+  reference's own packed-vs-plain tolerance (``tests/test_packed_conv.py``).
+The JAX Pallas split runs in interpret mode, as the JAX package's own test
+runs it.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import flypylib_tpu_torch as tpt
+from flypylib_tpu.models import zoo as jzoo
+from flypylib_tpu.ops import packed_conv as jpc
+from flypylib_tpu.ops.pallas_split import parity_split_pallas, parity_split_xla
+from flypylib_tpu_torch.models import zoo as tzoo
+from flypylib_tpu_torch.ops import packed_conv as tpc
+from flypylib_tpu_torch.ops import split as tsplit
+
+torch.set_num_threads(1)
+
+MODELS = {
+    # the three model shapes of tests/test_packed_conv.py
+    "baseline": ("baseline", {}),
+    "mixed_d1_d2": ("baseline", dict(features=(6, 8), dilations=(1, 2),
+                                     head_features=12)),
+    "vgg_d124": ("vgg_like", dict(features=(4, 6, 6, 8),
+                                  dilations=(1, 1, 2, 4), head_features=8)),
+}
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_parity_split_and_merge_equal_jax_and_invert(rng):
+    x = rng.normal(size=(2, 8, 6, 4, 3)).astype(np.float32)
+    s = tpc.parity_split(_t(x))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jpc.parity_split(x)))
+    np.testing.assert_array_equal(tpc.parity_merge(s).numpy(), x)
+    np.testing.assert_array_equal(
+        tpc.parity_merge(_t(np.asarray(s))).numpy(),
+        np.asarray(jpc.parity_merge(jnp.asarray(s.numpy()))))
+    with pytest.raises(ValueError, match="even"):
+        tpc.parity_split(torch.zeros((1, 3, 4, 4, 1)))
+
+
+def test_parity_batch_and_unbatch_equal_jax_and_invert(rng):
+    x = rng.normal(size=(3, 5, 4, 6, 16)).astype(np.float32)
+    b = tpc.parity_batch(_t(x))
+    assert b.shape == (24, 5, 4, 6, 2)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jpc.parity_batch(x)))
+    np.testing.assert_array_equal(
+        tpc.parity_unbatch(b).numpy(),
+        np.asarray(jpc._parity_unbatch_impl(jnp.asarray(b.numpy()))))
+    np.testing.assert_array_equal(tpc.parity_unbatch(b).numpy(), x)
+    np.testing.assert_array_equal(tpc.parity_batch(tpc.parity_unbatch(b)), b)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 4, 4, 4, 8), (3, 6, 5, 7, 16),
+                                   (2, 3, 3, 3, 256)])
+def test_split_reference_equals_pallas_and_xla(rng, shape, dtype):
+    """K5's plain version == the Pallas kernel (interpret mode) and the
+    reference's XLA spelling, bitwise (the shapes of test_pallas_split.py)."""
+    x = jnp.asarray(rng.random(shape).astype(np.float32), dtype)
+    xt = _t(np.asarray(x.astype(jnp.float32)))
+    if dtype == jnp.bfloat16:
+        xt = xt.bfloat16()  # exact: the values are bf16 already
+    got = tsplit.parity_split_reference(xt).float().numpy()
+    for want in (parity_split_pallas(x, interpret=True), parity_split_xla(x)):
+        np.testing.assert_array_equal(got, np.asarray(want.astype(jnp.float32)))
+
+
+def test_split_wrapper_runs_the_plain_version_on_the_cpu(rng):
+    x = _t(rng.random((2, 3, 4, 5, 24)).astype(np.float32))
+    before = tsplit.parity_split_kernel.launches
+    assert torch.equal(tsplit.parity_split_kernel(x),
+                       tsplit.parity_split_reference(x))
+    assert tsplit.parity_split_kernel.launches == before
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tsplit.parity_split_kernel(torch.zeros((1, 2, 2, 2, 12)))
+    with pytest.raises(ValueError, match="8c"):
+        tsplit.parity_split_kernel(torch.zeros((2, 2, 2, 16)))
+
+
+def _models(name, rng):
+    """The JAX spec and f32 params (random biases), the port's spec holding
+    the same params, and a valid packed input size."""
+    zoo_name, kw = MODELS[name]
+    jspec = jzoo.MODEL_ZOO[zoo_name](dtype=jnp.float32, **kw)
+    params = jax.tree_util.tree_map(
+        np.array, jspec.init(jax.random.PRNGKey(0), jspec.min_size))["params"]
+    for layer in params.values():
+        layer["bias"] = rng.normal(0, 0.1, layer["bias"].shape).astype(np.float32)
+    tspec = tzoo.MODEL_ZOO[zoo_name](dtype=torch.float32, **kw)
+    tspec.module.load_state_dict(tzoo.params_from_flax({"params": params}))
+    return jspec, params, tspec
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_packed_convstack_matches_jax_and_plain(rng, name):
+    jspec, params, tspec = _models(name, rng)
+    pspec = tpc.packed_spec(tspec)
+    assert isinstance(pspec.module, tpc.PackedConvStack)
+    assert pspec.module.inner is tspec.module and pspec.context == tspec.context
+    s = pspec.valid_size(tspec.min_size + 7)
+    x = rng.normal(size=(2, s, s, s, 1)).astype(np.float32)
+    want = np.asarray(jpc.PackedConvStack(jspec.module).apply(
+        {"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = pspec.module(_t(x))
+        plain = tspec.module(_t(x))
+    assert got.dtype == torch.float32 and got.shape == want.shape == plain.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["baseline", "vgg_like"])
+def test_packed_geometry_equals_jax_probe(name):
+    """The shape walk's geometry == JAX ``packed_spec``'s ``eval_shape``
+    probe (~10 s a spec here; other tests build JAX specs from the port's
+    geometry instead)."""
+    t = tpc.packed_spec(tzoo.MODEL_ZOO[name]())
+    j = jpc.packed_spec(jzoo.MODEL_ZOO[name]())
+    for attr in ("name", "context", "size_multiple", "size_offset",
+                 "min_size", "metadata"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    assert (t.size_multiple, t.size_offset) == {"baseline": (2, 0),
+                                                "vgg_like": (4, 2)}[name]
+
+
+def test_packed_spec_rejects_what_it_cannot_run():
+    assert tpc.packed_spec(tzoo.unet(base_features=2)) is None
+    odd = tzoo.baseline_model(features=(4, 4), dilations=(1, 3))
+    assert tpc.packed_spec(odd) is None
+    falling = tzoo.baseline_model(features=(4, 4), dilations=(2, 1))
+    assert tpc.packed_spec(falling) is None
+    with pytest.raises(ValueError, match="does not support"):
+        tpt.FplNetwork(odd, device="cpu", packed=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_packed_tiled_equals_monolithic_bitwise(rng, dtype):
+    net = tpt.FplNetwork("baseline", device="cpu", dtype=dtype,
+                         features=(4, 6), dilations=(1, 2), head_features=8)
+    assert isinstance(net.infer_spec.module, tpc.PackedConvStack)
+    vol = rng.integers(0, 256, (21, 19, 17), dtype=np.uint8)
+    mono = net.infer(vol, tile_out=32, tile_batch=1)
+    tiled = net.tiled_inference(vol.shape, tile_out=8, tile_batch=3)
+    assert tiled.n_batches(vol.shape) == 9 and tiled.align == 2
+    got = net.infer(vol, tile_out=8, tile_batch=3)
+    assert got.dtype == np.float32 and got.shape == vol.shape
+    np.testing.assert_array_equal(got, mono)
+
+
+def test_stage_a_hands_k5_a_contiguous_operand(monkeypatch):
+    """The CUDA kernel takes only contiguous NDHWC input: on the CPU nothing
+    checks that, so assert it of what the engine hands it, for both zoo
+    stacks, once per forward."""
+    seen = []
+    real = tpc.parity_split_kernel
+
+    def keep(x):
+        seen.append((tuple(x.shape), x.is_contiguous()))
+        return real(x)
+
+    monkeypatch.setattr(tpc, "parity_split_kernel", keep)
+    for name, s in (("baseline", 20), ("vgg_like", 38)):
+        pspec = tpc.packed_spec(tzoo.MODEL_ZOO[name](dtype=torch.float32))
+        with torch.no_grad():
+            out = pspec.module(torch.zeros((2, s, s, s, 1)))
+        assert out.shape == (2, *(s - 2 * pspec.context,) * 3, 1)
+    assert [c for _, c in seen] == [True, True]
+    assert seen[0][0] == (2, 8, 8, 8, 256) and seen[1][0] == (2, 16, 16, 16, 384)
+
+
+def test_chip_smoke_packed_rehearsal_on_cpu():
+    """chip_smoke's packed path on the CPU at narrow widths: the plain
+    versions count no launch, the lists equal the host reference, and the
+    tile batch K4's operands come from is the one the engine runs."""
+    net = tpt.FplNetwork("baseline", device="cpu", dtype=torch.bfloat16,
+                         features=(4, 6), dilations=(1, 2), head_features=8)
+    vol = chip_smoke.make_volume_u8(32, 3, seed=0)
+    res = chip_smoke.run_main_path(net, vol, n_cand=100)
+    chip_smoke.require_launches(res, {}, "packed baseline on the CPU")
+    assert res["n_nms"] > 0
+    ti = net.tiled_inference(vol.shape)
+    tiles = chip_smoke.first_tile_batch(net.infer_spec, vol, "cpu")
+    assert tiles.shape == (ti.tile_batch, *(ti.tile_in,) * 3, 1)
+    assert tiles.dtype == torch.uint8

@@ -32,6 +32,7 @@ from flypylib_tpu.ops import packed_unet as jpu
 from flypylib_tpu.train.trainer import TrainState
 from flypylib_tpu_torch.models import zoo as tzoo
 from flypylib_tpu_torch.ops import packed_unet as tpu
+from flypylib_tpu_torch.ops.packed_conv import packed_spec
 from flypylib_tpu_torch.ops import tail as ttail
 from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
 from tests.conftest import make_blob_volume
@@ -238,10 +239,17 @@ def test_network_packed_option():
     assert unet.variables.keys() == unet.module.state_dict().keys()
     plain = tpt.FplNetwork("unet", device="cpu", base_features=2, packed=False)
     assert plain.infer_spec is plain.spec
-    base = tpt.FplNetwork("baseline", device="cpu")
-    assert base.infer_spec is base.spec  # no packed ConvStack yet
-    with pytest.raises(NotImplementedError, match="queue 1, item 15"):
-        tpt.FplNetwork("baseline", device="cpu", packed=True)
+    # the conv stacks: packed by default and with packed=True, as the JAX
+    # package; packed=False is the plain stack
+    for packed in ("auto", True):
+        base = tpt.FplNetwork("baseline", device="cpu", packed=packed)
+        assert base.infer_spec.name == "baseline+packed"
+        assert base.infer_spec.module.inner is base.module is base.spec.module
+    base = tpt.FplNetwork("baseline", device="cpu", packed=False)
+    assert base.infer_spec is base.spec
+    ready = packed_spec(tzoo.vgg_like())
+    net = tpt.FplNetwork(ready, device="cpu", packed=True)
+    assert net.infer_spec is ready and net.module is ready.module.inner
     ready = tpu.packed_unet_spec(tzoo.unet(base_features=2), tail_impl="pallas")
     net = tpt.FplNetwork(ready, device="cpu", packed=True)
     assert net.infer_spec is ready and net.module is ready.module.inner
