@@ -15,6 +15,10 @@ prints no result line):
    U-Net's ten convs at ``default_tiling``'s tile and batch for a 256^3
    volume) and one ``vgg_like`` layer (64 -> 96 channels, dilation 4), in
    f32 and bf16, with the median times of both and of one cuDNN call.
+   Each case prints the kernel's route (``k1_route``); every bf16 case
+   with Ci > 1 must take the wgmma/TMA kernel.  One broken output
+   (baseline layer 3, the centre tap's weights zeroed) must fail the same
+   check.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
    versions at the packed U-Net's 256^3 covering tile: on the operands its
    forward hands them, launch by launch (each stage and the logits on the
@@ -36,7 +40,8 @@ prints no result line):
    ``FplNetwork("baseline", device="cuda", seed=0, packed=False)`` at bf16
    on a 256^3 uint8 blob volume runs ``infer``, ``detect(method="nms")``
    and ``detect(method="components")``.  K1's launch count must rise by
-   exactly four per tile batch and forward, and both detection lists must
+   exactly four per tile batch and forward (three on the wgmma route, one
+   on the Ci = 1 kernel), and both detection lists must
    equal the host (numpy/scipy) reference on the same probability map.
    Times follow, and where one infer's time goes (host pad, upload,
    forwards, the rest).
@@ -50,7 +55,8 @@ prints no result line):
    the 256^3 volume, each engine (the K3 tail, the K2 tail, the unfused
    default, the plain U-Net) runs infer and both detects, with the counts
    reset before and read after: K3 or K2 once per tile batch and forward,
-   K1 once per conv, tile batch and forward on the plain U-Net, no kernel
+   K1 once per conv, tile batch and forward on the plain U-Net (conv 0 on
+   the Ci = 1 kernel, convs 1-9 on the wgmma route), no kernel
    of the others.  The lists must equal the host reference; times, peak
    memory and the infer's phases follow.
 
@@ -349,7 +355,8 @@ def conv_cases():
 
 def check_kernels(card_str: str) -> dict:
     """K1 against its plain version at every case, in f32 and bf16."""
-    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu, conv3d_reference
+    from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu, conv3d_reference,
+                                             k1_route)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -358,7 +365,9 @@ def check_kernels(card_str: str) -> dict:
           "float32_matmul_precision='highest'")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16_main = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-                 "library_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0}
+                 "library_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0,
+                 "routes": {}}
+    broken_done = False
     unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for label, B, S, Ci, Co, d in conv_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -371,6 +380,11 @@ def check_kernels(card_str: str) -> dict:
             w = torch.randn((3, 3, 3, Ci, Co), generator=gen, device="cuda")
             w = w / math.sqrt(27 * Ci)
             b = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
+            route = k1_route(x, w)
+            dt = str(dtype).replace("torch.", "")
+            if dtype == torch.bfloat16 and Ci > 1:
+                require(route == "wgmma", f"K1 {label} {dt}: route {route}, "
+                                          "not the wgmma kernel")
             got = conv3d_bias_relu(x, w, b, d)
             ref = conv3d_reference(x, w, b, d)
             torch.cuda.synchronize()
@@ -383,15 +397,31 @@ def check_kernels(card_str: str) -> dict:
             lib = median_ms(lambda: cudnn_conv(x, w, b, d))
             flops = 2 * 27 * Ci * got.numel()
             bnd, by = bound(flops, nbytes(x, w, b, got), dtype)
-            dt = str(dtype).replace("torch.", "")
             print(f"K1 {label} x{tuple(x.shape)} -> {tuple(got.shape)} d={d} "
-                  f"{dt}: max|err| {err:.6g} (max|ref| "
+                  f"{dt} [{route}]: max|err| {err:.6g} (max|ref| "
                   f"{float(ref.float().abs().max()):.6g}) "
                   f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, cuDNN {lib:.4f} ms, bound {bnd:.4f} ms "
                   f"({by}) [{card_str}]", flush=True)
             require(ok, f"K1 {label} {dt}: outside tolerance (max|err| {err})")
+            if route == "wgmma" and label == "baseline layer 3":
+                # the centre tap's weights zeroed: the check must see it
+                w_broken = w.clone()
+                w_broken[1, 1, 1] = 0
+                bad = conv3d_bias_relu(x, w_broken, b, d)
+                berr, bok = conv_check(bad, ref)
+                print(f"K1 {label} {dt} [{route}], centre tap zeroed: max|err| "
+                      f"{berr:.6g} {'ok' if bok else 'FAIL'} (must fail)",
+                      flush=True)
+                require(not bok, "K1: the check passes a zeroed tap")
+                broken_done = True
+                del bad, w_broken
             if dtype == torch.bfloat16 and label.startswith("baseline"):
+                per = bf16_main["routes"].setdefault(route, dict.fromkeys(
+                    ("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bnd)):
+                    per[key] += v
                 bf16_main["ms"] += ms
                 bf16_main["plain_ms"] += plain
                 bf16_main["max_abs_err"] = max(bf16_main["max_abs_err"], err)
@@ -406,6 +436,7 @@ def check_kernels(card_str: str) -> dict:
     for dtype, (ms, plain) in unet_sum.items():
         print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
+    require(broken_done, "K1: the zeroed-tap case did not run")
     torch.cuda.empty_cache()
     # the summed bound is bounded by what bounds the larger share of it
     op_ms = bf16_main.pop("op_ms")
@@ -884,7 +915,23 @@ def kernel_wrappers() -> dict:
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each wrapper's launches, and K1's per route as
+    ``conv3d_bias_relu:<route>``."""
+    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    counts.update({f"conv3d_bias_relu:{r}": n
+                   for r, n in conv3d_bias_relu.routes.items()})
+    return counts
+
+
+def reset_launch_counts() -> None:
+    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    for r in conv3d_bias_relu.routes:
+        conv3d_bias_relu.routes[r] = 0
 
 
 def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
@@ -894,8 +941,7 @@ def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
     from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
 
     n_batches = net.tiled_inference(vol.shape).n_batches(vol.shape)
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launch_counts()
     prob = net.infer(vol, keep_on_device=True)
     after_infer = launch_counts()
     require(tuple(prob.shape) == vol.shape and prob.dtype == torch.float32,
@@ -1055,11 +1101,14 @@ def main(argv=None) -> int:
     require(net.infer_spec is net.spec and net.module.dtype == torch.bfloat16,
             "the plain baseline is not a bf16 ConvStack")
     res = run_main_path(net, vol)
-    require_launches(res, {"conv3d_bias_relu": 4 * res["n_batches"]},
-                     "baseline")
+    nb = res["n_batches"]
+    require_launches(res, {"conv3d_bias_relu": 4 * nb,
+                           "conv3d_bias_relu:wgmma": 3 * nb,
+                           "conv3d_bias_relu:ci1": nb}, "baseline")
     print(f"main path: {res['n_batches']} tile batches, launches "
           f"{res['launches']} (K1 = 3 forwards x 4 layers x "
-          f"{res['n_batches']}); threshold {res['threshold']:.9g} "
+          f"{res['n_batches']}: layers 1-3 wgmma, layer 0 ci1); threshold "
+          f"{res['threshold']:.9g} "
           f"({res['above_threshold']} voxels above); nms {res['n_nms']} "
           f"detections, components {res['n_cc']}; both equal the host "
           "reference", flush=True)
@@ -1105,7 +1154,10 @@ def main(argv=None) -> int:
         require(net.module.dtype == torch.bfloat16, "unet is not bf16")
         r = run_main_path(net, vol)
         n = r["n_batches"]
-        per_forward = {"plain": {"conv3d_bias_relu": len(net.module.convs) * n},
+        per_forward = {"plain": {"conv3d_bias_relu": len(net.module.convs) * n,
+                                 "conv3d_bias_relu:ci1": n,
+                                 "conv3d_bias_relu:wgmma":
+                                     (len(net.module.convs) - 1) * n},
                        "pallas": {"packed_tail": n},
                        "pallas2": {"packed_tail2": n}}.get(engine, {})
         require_launches(r, per_forward, f"unet {engine}")
@@ -1124,15 +1176,23 @@ def main(argv=None) -> int:
         del net
         torch.cuda.empty_cache()
 
+    k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu"}
+    k1_routes = k1.pop("routes")
     kernels = [{
         "name": "conv3d_bias_relu",
         "route": "cuda",
-        "source": "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu",
+        "source": k1_sources["wgmma"],
         "replaces": "flypylib_tpu/ops/pallas_conv.py:155",
         "launches": res["launches"]["conv3d_bias_relu"],
         **k1,
-        "at": "baseline layers 0-3 summed, bf16, one tile batch; launches "
-              "from the plain baseline path",
+        "routes": {r: {"launches": res["launches"][f"conv3d_bias_relu:{r}"],
+                       "source": k1_sources.get(
+                           r, "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu"),
+                       **k1_routes.get(r, {})}
+                   for r in ("wgmma", "wmma", "ci1", "fma")},
+        "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
+              "on the wgmma route, layer 0 on ci1; routes splits launches "
+              "and times by route); launches from the plain baseline path",
     }]
     for kname, name, line, engine in (
             ("K2", "packed_tail", 221, "pallas"),

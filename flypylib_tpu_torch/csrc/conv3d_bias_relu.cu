@@ -26,16 +26,18 @@
 //   a (chunk, BN) slice of the weights -- so neither the whole weight
 //   tensor (332 KB in f32 at layer 3) nor a full W-row halo has to fit in
 //   the 227 KB a block may hold.
-//   * bf16 (the model's default) runs conv_wmma_kernel: 16x16x16 WMMA
-//     products on the tensor cores with f32 accumulators, fed 16-byte runs
-//     of 8 channels when Ci and Co are multiples of 8.
+//   * bf16 (the model's default) runs, where Ci and Co are multiples of 8
+//     and x is 16-byte aligned, the wgmma/TMA kernel of conv3d_wgmma.cu
+//     (the Python wrapper picks it; see ops/conv.py::k1_route).  Every
+//     other bf16 call runs conv_wmma_kernel here: 16x16x16 WMMA products
+//     on the tensor cores with f32 accumulators, gathered element by
+//     element.
 //   * f32 runs conv_gemm_kernel on CUDA-core FMAs (TF32 tensor cores would
 //     round the inputs): each thread keeps a 4 x (BN/16) tile of f32
 //     accumulators in registers.
 //
-// This is a simple first version: one chunk in flight per block, no
-// software pipeline.  wgmma, TMA and a ring of shared-memory stages are
-// later work.
+// These are simple first versions: one chunk in flight per block, no
+// software pipeline.
 //
 // Blocks run in parallel and in no order, so the ragged edge is masked
 // (rows past M and channels past Co load zeros and store nothing) instead
@@ -226,17 +228,17 @@ conv_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // ------------------------------------- implicit GEMM, bf16 on tensor cores
 // The same implicit GEMM for bf16, with 16x16x16 bf16 WMMA products (f32
-// accumulators) in place of the FMAs.  A block owns a 64 x BN output tile;
-// each of its 8 warps holds BN/32 accumulator tiles of 16 x 16.  K streams
-// through shared memory 32 at a time.  With VEC (Ci and Co multiples of 8,
-// 16-byte aligned x and w) every thread moves one 16-byte run of 8 channels
-// of one tap per operand and chunk; otherwise elements are gathered one by
-// one.  The f32 tile goes through shared memory for the bias, ReLU and
-// rounding epilogue, which stores along the channel axis.
+// accumulators) in place of the FMAs, for the bf16 calls the wgmma kernel
+// does not take (Ci or Co off the multiples of 8, or x off a 16-byte
+// boundary).  A block owns a 64 x BN output tile; each of its 8 warps
+// holds BN/32 accumulator tiles of 16 x 16.  K streams through shared
+// memory 32 at a time, gathered element by element.  The f32 tile goes
+// through shared memory for the bias, ReLU and rounding epilogue, which
+// stores along the channel axis.
 constexpr int kWKC = 32;          // K chunk staged in shared memory
 constexpr int kALd = kWKC + 8;    // A row pitch in bf16 (80 bytes)
 
-template <int BN, bool VEC>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
 conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
@@ -248,7 +250,6 @@ conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int CLd = BN + 4;  // C row pitch in f32
   constexpr int FN = BN / 32;  // accumulator tiles per warp along N
   static_assert(BN == 32 || BN == 64, "BN must be 32 or 64");
-  static_assert(kBM * kWKC / 8 == kThreads, "one 16-byte A run per thread");
 
   // pitches keep every fragment pointer 32-byte aligned, as WMMA requires
   __shared__ __align__(32) __nv_bfloat16 As[kBM][kALd];
@@ -271,39 +272,20 @@ conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[j], 0.f);
 
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
   for (int k0 = 0; k0 < K; k0 += kWKC) {
-    if constexpr (VEC) {
-      const int m = tid >> 2, q = (tid & 3) * 8;
-      const long long koff = k_offset(k0 + q, K, Ci, d, H, W);
-      __syncthreads();  // rowbase written / previous chunk consumed
+    const int kk_ld = tid % kWKC;
+    const long long koff = k_offset(k0 + kk_ld, K, Ci, d, H, W);
+    __syncthreads();  // rowbase written / previous chunk consumed
+    for (int m = tid / kWKC; m < kBM; m += kThreads / kWKC) {
       const long long rb = rowbase[m];
-      *reinterpret_cast<uint4*>(&As[m][q]) =
-          (koff >= 0 && rb >= 0)
-              ? *reinterpret_cast<const uint4*>(x + rb + koff) : zero4;
-      for (int e = tid; e < kWKC * BN / 8; e += kThreads) {
-        const int kk = e / (BN / 8), nq = (e % (BN / 8)) * 8;
-        const int kg = k0 + kk, ng = n0 + nq;
-        *reinterpret_cast<uint4*>(&Bs[kk][nq]) =
-            (kg < K && ng < Co)
-                ? *reinterpret_cast<const uint4*>(w + (long long)kg * Co + ng)
-                : zero4;
-      }
-    } else {
-      const int kk_ld = tid % kWKC;
-      const long long koff = k_offset(k0 + kk_ld, K, Ci, d, H, W);
-      __syncthreads();  // rowbase written / previous chunk consumed
-      for (int m = tid / kWKC; m < kBM; m += kThreads / kWKC) {
-        const long long rb = rowbase[m];
-        As[m][kk_ld] = (koff >= 0 && rb >= 0) ? x[rb + koff]
-                                              : __float2bfloat16_rn(0.f);
-      }
-      for (int e = tid; e < kWKC * BN; e += kThreads) {
-        const int nn = e % BN, kk = e / BN;
-        const int kg = k0 + kk, ng = n0 + nn;
-        Bs[kk][nn] = (kg < K && ng < Co) ? w[(long long)kg * Co + ng]
-                                         : __float2bfloat16_rn(0.f);
-      }
+      As[m][kk_ld] = (koff >= 0 && rb >= 0) ? x[rb + koff]
+                                            : __float2bfloat16_rn(0.f);
+    }
+    for (int e = tid; e < kWKC * BN; e += kThreads) {
+      const int nn = e % BN, kk = e / BN;
+      const int kg = k0 + kk, ng = n0 + nn;
+      Bs[kk][nn] = (kg < K && ng < Co) ? w[(long long)kg * Co + ng]
+                                       : __float2bfloat16_rn(0.f);
     }
     __syncthreads();
 #pragma unroll
@@ -351,15 +333,8 @@ void launch_gemm(const __nv_bfloat16* x, const __nv_bfloat16* w,
                  const __nv_bfloat16* b, __nv_bfloat16* out, dim3 grid,
                  int D, int H, int W, int Ci, int Co, int d, int Do, int Ho,
                  int Wo, long long M, cudaStream_t stream) {
-  const bool vec = Ci % 8 == 0 && Co % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (vec)
-    conv_wmma_kernel<BN, true><<<grid, kThreads, 0, stream>>>(
-        x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M);
-  else
-    conv_wmma_kernel<BN, false><<<grid, kThreads, 0, stream>>>(
-        x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M);
+  conv_wmma_kernel<BN><<<grid, kThreads, 0, stream>>>(
+      x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M);
 }
 
 template <typename T>

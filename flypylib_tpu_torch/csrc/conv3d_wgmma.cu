@@ -1,0 +1,541 @@
+// K1's bf16 route for Ci > 1 on Hopper: the valid dilated 3x3x3 conv +
+// bias + ReLU as an implicit GEMM on wgmma, fed by TMA through an mbarrier
+// ring (sm_90a).
+//
+// Replaces the TPU kernel flypylib_tpu/ops/pallas_conv.py:155
+// (conv3d_bias_relu) for bf16 x (B,D,H,W,Ci) with Ci % 8 == 0, Co % 8 == 0
+// and a 16-byte-aligned x; csrc/conv3d_bias_relu.cu keeps every other call.
+// It computes, as that kernel does,
+//
+//   out[n,z,y,x,o] = bf16(relu(sum_{tz,ty,tx,c} f32(x[n, z+tz*d, y+ty*d, x+tx*d, c])
+//                                                * f32(w[tz,ty,tx,c,o]) + f32(b[o])))
+//
+// with f32 accumulation, the f32 bias add, ReLU, then one rounding.
+//
+// The GEMM: M = output voxels, N = Co, K = 27 taps x Ci.
+// - A block owns one output box (bz, by, bx) of one batch entry, up to 256
+//   rows (bz*by*bx <= 256; the wrapper picks the box that covers the
+//   output in the fewest blocks), and the whole of N: the
+//   N-tile NT is Co rounded up to one of 24/32/48/64/96/128, so each A
+//   tile is loaded once whatever Co is.
+// - K runs over (tap, channel slice) steps.  For each step one TMA load of
+//   a 5-D box (32, bx, by, bz, 1) at (c0, x0+tx*d, y0+ty*d, z0+tz*d, n)
+//   over the NDHWC input is exactly that tap's A tile, K contiguous, 64-byte
+//   swizzled; TMA zero-fills channels past Ci and voxels past the volume.
+//   Where the channels past the last multiple of 32 are at most 16, they go
+//   in one 16-channel slice ending at channel Ci (a (16, bx, by, bz, 1) box
+//   with the 32-byte swizzle, one k16 step; the weights of channels an
+//   earlier slice holds are zeroed): Ci = 48 moves and multiplies 48
+//   channels, not 64.  A rest of 17-31 channels takes one more 32-channel
+//   slice, zero-filled past Ci.  (Ci = 24 is the slow case: its 48-byte
+//   voxel stride leaves the box rows off the 32- and 64-byte boundaries,
+//   and it runs at about half the rate of Ci = 16 or 32 at the same shape;
+//   scripts/probe_k1_channels.py times the three.)  A second TMA load
+//   brings the step's (NT x 32 or 16) weight slice from the images the
+//   wrapper lays out once per call (zero-padded bf16), K-major with the
+//   same swizzle.
+// - A ring of STAGES (A, B) stages in dynamic shared memory with full and
+//   empty mbarriers.  Warp 8 is the producer (one thread issues the TMA
+//   loads); warpgroups 0 and 1 are consumers, each owning two m64 row
+//   blocks: per step, 2 k16 wgmma per row block (m64nNTk16, both operands
+//   from shared memory), then wait_group 1 and release of the step before.
+//   The accumulators take NT f32 registers a thread (156 registers in all
+//   at NT = 128, no spill).
+// - Epilogue from registers: the f32 fragment plus the f32 bias, ReLU, one
+//   rounding to bf16, stored as bf16 pairs along the channel axis; rows
+//   past (Do, Ho, Wo) or past the box, and channels past Co, are masked.
+//
+// What bounds it on an H100: each input value is re-read through L2 by
+// every tap that covers it, about 27 times, and each block re-reads the
+// weights once per step.  At the baseline's layer 3 that is ~5.4 GB of A
+// and ~1.4 GB of B through L2 for 0.35 ms of MMA work, so the kernel is
+// L2-bandwidth-bound before it is MMA-bound.  What the design does about
+// it: every byte goes by TMA (no registers, no address arithmetic per
+// thread), the ring keeps STAGES - 1 steps in flight under the wgmma, the
+// N tile covers Co (A is read once per block, not once per N block), and
+// 256-row blocks halve the weight re-reads of 128-row ones.  Reusing the
+// x-shifted taps out of one shared-memory tile, which would cut A's L2
+// traffic about threefold, is later work (the shift breaks the swizzle
+// phase the wgmma descriptor assumes, so it needs a different layout).
+//
+// C entry: fpl_conv3d_wgmma(...) encodes the two tensor maps, launches on
+// the given stream and returns cudaGetLastError() (or cudaErrorInvalidValue
+// for arguments it does not take); it allocates nothing and does not
+// synchronise.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kKC = 32;            // channels per K step (64 bytes)
+constexpr int kRowBytes = kKC * 2;
+constexpr int kStages = 5;         // depth of the ring
+constexpr int kConsumers = 256;    // two warpgroups
+constexpr int kMW = 2;             // m64 row blocks per consumer warpgroup
+constexpr int kRows = 128 * kMW;   // output rows (voxels) per block
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` has completed.  A wait that
+// never ends (a fault in the ring) traps after ~2^26 polls, so the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with ROW-byte rows (64
+// or 32) and the swizzle of the same width, as TMA writes it: LBO unused
+// (1), SBO = 8 rows, layout type 2 (B64) or 3 (B32).  Tiles start on
+// 1024-byte boundaries, so base_offset = 0.
+template <int ROW>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  static_assert(ROW == 64 || ROW == 32, "row bytes");
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * ROW >> 4) << 32) |
+         ((uint64_t)(ROW == 64 ? 2 : 3) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32, in registers) = A (64 x 16) * B (16 x N) + (scale_d ? D
+// : 0), A and B K-major bf16 in shared memory.  One specialisation per N
+// tile.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<24>(float (&d)[12], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<96>(float (&d)[48], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_x16,
+                  const __grid_constant__ CUtensorMap tm_w,
+                  const __grid_constant__ CUtensorMap tm_w16,
+                  const __nv_bfloat16* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ out, int Do, int Ho, int Wo,
+                  int Co, int d, int n_full, int half, int c_last, int bz,
+                  int by, int bx,
+                  int tiles_z, int tiles_y, int tiles_x) {
+  constexpr int kABytes = kRows * kRowBytes;
+  constexpr int kBBytes = NT * kRowBytes;
+  constexpr int kStageBytes = kABytes + ((kBBytes + 1023) / 1024) * 1024;
+  static_assert(NT % 8 == 0 && NT <= 128, "N tile");
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  // the swizzle pattern repeats every 512 bytes: align every tile to 1024
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  int t = blockIdx.x;
+  const int ti_x = t % tiles_x;
+  t /= tiles_x;
+  const int ti_y = t % tiles_y;
+  t /= tiles_y;
+  const int ti_z = t % tiles_z;
+  const int n = t / tiles_z;
+  const int x0 = ti_x * bx, y0 = ti_y * by, z0 = ti_z * bz;
+  const int per_tap = n_full + half;  // K steps per tap
+  const int steps = 27 * per_tap;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), kConsumers / 32);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    if (tid == kConsumers) {
+      prefetch_map(&tm_x);
+      prefetch_map(&tm_w);
+      if (half) prefetch_map(&tm_x16), prefetch_map(&tm_w16);
+      const int rows = bz * by * bx;
+      int tap = 0, sl = 0;
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages)
+          mbar_wait(smem_u32(&empty_bar[s]), ((it / kStages) + 1) & 1);
+        const int tz = tap / 9, ty = (tap / 3) % 3, tx = tap % 3;
+        const uint32_t fb = smem_u32(&full_bar[s]);
+        const uint32_t sa = base + s * kStageBytes;
+        const bool full = sl < n_full;  // else the 16-channel slice
+        const int row = full ? kRowBytes : kRowBytes / 2;
+        mbar_expect_tx(fb, (uint32_t)((rows + NT) * row));
+        tma_load_5d(sa, full ? &tm_x : &tm_x16, fb, full ? sl * kKC : c_last,
+                    x0 + tx * d, y0 + ty * d, z0 + tz * d, n);
+        tma_load_2d(sa + kABytes, full ? &tm_w : &tm_w16, fb, 0,
+                    (full ? tap * n_full + sl : tap) * NT);
+        if (++sl == per_tap) sl = 0, ++tap;
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = tid / 128;
+  // no zero fill: the first step's wgmma overwrites (scale_d = 0).  A move
+  // into the accumulators between wgmma issue and wait would serialise them.
+  float acc[kMW][NT / 2];
+  int sl = 0;
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % kStages;
+    mbar_wait(smem_u32(&full_bar[s]), (it / kStages) & 1);
+    const uint32_t sa = base + s * kStageBytes;
+#pragma unroll
+    for (int m = 0; m < kMW; ++m) fence_acc(acc[m]);
+    wgmma_fence();
+    if (sl < n_full) {  // 32 channels: two k16 steps, +32 bytes of K each
+      const uint64_t db = desc_k<64>(sa + kABytes);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int m = 0; m < kMW; ++m)
+          wgmma_bf16<NT>(acc[m],
+                         desc_k<64>(sa + (wg * kMW + m) * 64 * kRowBytes) + 2 * ks,
+                         db + 2 * ks, it > 0 || ks > 0);
+    } else {  // the 16-channel slice: 32-byte rows, one k16 step
+      const uint64_t db = desc_k<32>(sa + kABytes);
+#pragma unroll
+      for (int m = 0; m < kMW; ++m)
+        wgmma_bf16<NT>(acc[m],
+                       desc_k<32>(sa + (wg * kMW + m) * 64 * (kRowBytes / 2)),
+                       db, it > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the step before has been read: release its stage
+#pragma unroll
+    for (int m = 0; m < kMW; ++m) fence_acc(acc[m]);
+    if (it > 0 && (tid & 31) == 0)
+      mbar_arrive(smem_u32(&empty_bar[(it - 1) % kStages]));
+    if (++sl == per_tap) sl = 0;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < kMW; ++m) fence_acc(acc[m]);
+
+  // ------------------------------------------------------------- epilogue
+  const int warp = (tid % 128) / 32, lane = tid & 31;
+  const int box_rows = bz * by * bx;
+#pragma unroll
+  for (int m = 0; m < kMW; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wg * kMW + m) * 64 + warp * 16 + h * 8 + lane / 4;
+      if (r >= box_rows) continue;
+      const int xx = x0 + r % bx, yy = y0 + (r / bx) % by, zz = z0 + r / (bx * by);
+      if (xx >= Wo || yy >= Ho || zz >= Do) continue;
+      __nv_bfloat16* o =
+          out + ((((long long)n * Do + zz) * Ho + yy) * Wo + xx) * Co;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = j * 8 + (lane % 4) * 2;
+        if (col >= Co) continue;
+        const float v0 = fmaxf(acc[m][4 * j + 2 * h] + __bfloat162float(bias[col]), 0.f);
+        const float v1 =
+            fmaxf(acc[m][4 * j + 2 * h + 1] + __bfloat162float(bias[col + 1]), 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(o + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// that the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the map of x (B,D,H,W,Ci) read in boxes (kc, bx, by, bz, 1), kc = 32
+// channels with the 64-byte swizzle or 16 with the 32-byte one
+bool encode_x(EncodeTiled encode, CUtensorMap* map, const void* x, int B,
+              int D, int H, int W, int Ci, int kc, int bz, int by, int bx) {
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dim[5] = {(cuuint64_t)Ci, (cuuint64_t)W, (cuuint64_t)H,
+                             (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t stride[4] = {Ci * e, (cuuint64_t)W * Ci * e,
+                                (cuuint64_t)H * W * Ci * e,
+                                (cuuint64_t)D * H * W * Ci * e};
+  const cuuint32_t box[5] = {(cuuint32_t)kc, (cuuint32_t)bx, (cuuint32_t)by,
+                             (cuuint32_t)bz, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
+                dim, stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                kc == kKC ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the map of a weight image of `rows` rows of kc channels, read n_tile
+// rows at a time
+bool encode_w(EncodeTiled encode, CUtensorMap* map, const void* w, int rows,
+              int kc, int n_tile) {
+  const cuuint64_t dim[2] = {(cuuint64_t)kc, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {kc * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kc, (cuuint32_t)n_tile};
+  const cuuint32_t ones[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
+                dim, stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                kc == kKC ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Maps {
+  CUtensorMap x, x16, w, w16;
+};
+
+template <int NT>
+int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
+           int Do, int Ho, int Wo, int Co, int d, int n_full, int half,
+           int c_last, int bz, int by, int bx, cudaStream_t stream) {
+  constexpr int kABytes = kRows * kRowBytes;
+  constexpr int kStageBytes =
+      kABytes + ((NT * kRowBytes + 1023) / 1024) * 1024;
+  constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment slack
+  if (bz * by * bx > kRows) return (int)cudaErrorInvalidValue;
+  auto kernel = conv_wgmma_kernel<NT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int tz = (Do + bz - 1) / bz, ty = (Ho + by - 1) / by,
+            tx = (Wo + bx - 1) / bx;
+  const long long blocks = (long long)B * tz * ty * tx;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+      m.x, m.x16, m.w, m.w16, b, out, Do, Ho, Wo, Co, d, n_full, half, c_last,
+      bz, by, bx, tz, ty, tx);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B,D,H,W,Ci) bf16, 16-byte aligned.  The weights as the wrapper lays
+// them out (ops/conv.py::wgmma_weights): w32 (27, n_full, n_tile, 32) for
+// the n_full slices of 32 channels (Ci / 32, plus one if the rest is more
+// than 16; null if none), w16 (27, n_tile, 16) for the 16-channel slice
+// at max(Ci - 16, 0) that holds a rest of 1-16 channels (null if none);
+// both bf16, zero past Ci and Co and where a 32-channel slice holds the
+// channel.  b (Co,) bf16; out (B, D-2d,
+// H-2d, W-2d, Co) bf16.  n_tile is one of 24/32/48/64/96/128 (>= Co); the
+// output box bz*by*bx is at most 256 rows.
+// All contiguous; shapes are checked by the Python wrapper.
+extern "C" int fpl_conv3d_wgmma(const void* x, const void* w32,
+                                const void* w16, const void* b, void* out,
+                                int B, int D, int H, int W, int Ci, int Co,
+                                int d, int n_tile, int bz, int by, int bx,
+                                void* stream) {
+  cudaGetLastError();  // clear any earlier, unrelated error
+  const int rest = Ci % kKC;
+  const int half = rest > 0 && rest <= kKC / 2;
+  const int n_full = Ci / kKC + (rest > kKC / 2);
+  const int c_last = Ci > kKC / 2 ? Ci - kKC / 2 : 0;
+  if (Ci < 8 || Ci % 8 || Co < 8 || Co % 8 || Co > n_tile || bz < 1 ||
+      by < 1 || bx < 1 || bz > 256 || by > 256 || bx > 256 ||
+      (n_full > 0 && (w32 == nullptr || reinterpret_cast<uintptr_t>(w32) % 16)) ||
+      (half && (w16 == nullptr || reinterpret_cast<uintptr_t>(w16) % 16)) ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+
+  Maps m = {};  // a map the call does not use stays zero and is never read
+  bool ok = true;
+  if (n_full > 0)
+    ok = encode_x(encode, &m.x, x, B, D, H, W, Ci, kKC, bz, by, bx) &&
+         encode_w(encode, &m.w, w32, 27 * n_full * n_tile, kKC, n_tile);
+  if (half)
+    ok = ok && encode_x(encode, &m.x16, x, B, D, H, W, Ci, kKC / 2, bz, by, bx) &&
+         encode_w(encode, &m.w16, w16, 27 * n_tile, kKC / 2, n_tile);
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  const auto* bt = static_cast<const __nv_bfloat16*>(b);
+  auto* ot = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int Do = D - 2 * d, Ho = H - 2 * d, Wo = W - 2 * d;
+#define FPL_WGMMA_CASE(NT)                                               \
+  case NT:                                                                 \
+    return launch<NT>(m, bt, ot, B, Do, Ho, Wo, Co, d, n_full, half, c_last, \
+                      bz, by, bx, s);
+  switch (n_tile) {
+    FPL_WGMMA_CASE(24)
+    FPL_WGMMA_CASE(32)
+    FPL_WGMMA_CASE(48)
+    FPL_WGMMA_CASE(64)
+    FPL_WGMMA_CASE(96)
+    FPL_WGMMA_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FPL_WGMMA_CASE
+}

@@ -2,10 +2,15 @@
 
 Counterpart of ``flypylib_tpu/ops/pallas_conv.py``: ``conv3d_bias_relu``
 computes one body layer of the baseline ``ConvStack``.  On a CUDA tensor it
-launches the hand-written kernel in ``csrc/conv3d_bias_relu.cu`` (built by
-``ops/_build.py`` on first use); on a CPU tensor it runs the plain version,
-:func:`conv3d_reference`.  There is no fallback between the two: a CUDA
-tensor the kernel cannot take raises.
+launches a hand-written kernel (built by ``ops/_build.py`` on first use); on
+a CPU tensor it runs the plain version, :func:`conv3d_reference`.  There is
+no fallback between the two: a CUDA tensor the kernel cannot take raises.
+
+Which kernel takes a CUDA call is a rule on shape, dtype and alignment,
+decided before the launch (:func:`k1_route`): bf16 with Ci > 1, Ci and Co
+multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA kernel of
+``csrc/conv3d_wgmma.cu`` ("wgmma"); ``csrc/conv3d_bias_relu.cu`` keeps
+Ci = 1 ("ci1"), the other bf16 calls ("wmma") and f32 ("fma").
 
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
@@ -19,6 +24,7 @@ The f32 products that every plain version shares live here too:
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +32,10 @@ import torch.nn.functional as F
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CO = 128
 DILATIONS = (1, 2, 4)
+K1_ROUTES = ("wgmma", "wmma", "ci1", "fma")
+WGMMA_N_TILES = (24, 32, 48, 64, 96, 128)  # the kernel's N tiles
+WGMMA_KC = 32  # channels per K step of the wgmma kernel (a 64-byte row)
+WGMMA_ROWS = 256  # output voxels per block of the wgmma kernel
 
 
 def _out_shape(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -109,14 +119,105 @@ def conv3d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(dt).contiguous()
 
 
+def k1_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which of K1's CUDA kernels takes ``x`` (B, D, H, W, Ci) and ``w``
+    (3, 3, 3, Ci, Co): "ci1" for Ci = 1; "fma" for f32; "wgmma" for bf16
+    with Ci and Co multiples of 8 and ``x`` on a 16-byte boundary (the TMA
+    tensor map's rules; the weights are repacked, so their alignment does
+    not matter); "wmma" for every other bf16 call."""
+    ci, co = x.shape[-1], w.shape[-1]
+    if ci == 1:
+        return "ci1"
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    if ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def wgmma_tile(co: int) -> int:
+    """The wgmma kernel's N tile for ``co`` output channels: the smallest
+    that holds Co."""
+    n_tile = next((n for n in WGMMA_N_TILES if n >= co), None)
+    if n_tile is None:
+        raise ValueError(f"Co must be <= {WGMMA_N_TILES[-1]}, got {co}")
+    return n_tile
+
+
+@functools.lru_cache(maxsize=256)
+def wgmma_box(out_dhw: tuple[int, int, int],
+              rows: int = WGMMA_ROWS) -> tuple[int, int, int]:
+    """The output box (bz, by, bx) of one block, bz*by*bx <= ``rows``: the
+    box that covers ``out_dhw`` in the fewest blocks (the masked ragged
+    edge is the least work), and of those the most compact one (the least
+    halo, so the 27 taps' loads overlap most in L2)."""
+    best = None  # rows <= 256, so no box side passes TMA's limit of 256
+    for bz in range(1, rows + 1):
+        for by in range(1, rows // bz + 1):
+            box = (bz, by, rows // (bz * by))
+            tiles = 1
+            for e, s in zip(out_dhw, box):
+                tiles *= -(-e // s)
+            key = (tiles, (bz + 2) * (by + 2) * (box[2] + 2))
+            if best is None or key < best[0]:
+                best = (key, box)
+    return best[1]
+
+
+def wgmma_slices(ci: int) -> tuple[int, int | None]:
+    """(number of 32-channel slices, first channel of the 16-channel slice
+    or None) of the wgmma kernel's K steps per tap for ``ci`` input
+    channels: Ci // 32 slices of 32; a rest of 1-16 channels in one
+    16-channel slice ending at channel Ci (so it reaches past Ci only if
+    Ci < 16); a rest of 17-31 in one more 32-channel slice."""
+    n_full, rest = divmod(ci, WGMMA_KC)
+    if rest == 0:
+        return n_full, None
+    if rest <= WGMMA_KC // 2:
+        return n_full, max(ci - WGMMA_KC // 2, 0)
+    return n_full + 1, None
+
+
+def wgmma_weights(w: torch.Tensor,
+                  n_tile: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The weight images the wgmma kernel loads, one (n_tile, 32 or 16)
+    slice per K step (:func:`wgmma_slices`), tap = 9 tz + 3 ty + tx:
+
+    - ``w32[tap, s, o, c] = w[tap, 32 s + c, o]`` for the 32-channel slices,
+      shape (27, n_full, n_tile, 32);
+    - ``w16[tap, o, c] = w[tap, c0 + c, o]`` for the 16-channel slice that
+      starts at channel c0, shape (27, n_tile, 16), or None when there is
+      none; zero for a channel a 32-channel slice already holds;
+
+    zero past Ci and where o >= Co; bf16, contiguous.  Each slice is
+    K-major, 64 (or 32) bytes per output channel, which the TMA load
+    swizzles as the kernel's wgmma descriptor expects."""
+    ci, co = w.shape[3], w.shape[4]
+    n_full, c0 = wgmma_slices(ci)
+    wk = w.reshape(27, ci, co).to(torch.bfloat16).transpose(1, 2)  # K-major
+    k = min(ci, n_full * WGMMA_KC)
+    w32 = torch.zeros((27, n_tile, n_full * WGMMA_KC), dtype=torch.bfloat16,
+                      device=w.device)
+    w32[:, :co, :k] = wk[:, :, :k]
+    w32 = w32.view(27, n_tile, n_full, WGMMA_KC).transpose(1, 2).contiguous()
+    if c0 is None:
+        return w32, None
+    w16 = torch.zeros((27, n_tile, WGMMA_KC // 2), dtype=torch.bfloat16,
+                      device=w.device)
+    lo = n_full * WGMMA_KC  # channels the 32-channel slices hold
+    w16[:, :co, lo - c0:ci - c0] = wk[:, :, lo:ci]
+    return w32, w16
+
+
 def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      dilation: int = 1) -> torch.Tensor:
     """Fused valid conv3d (3x3x3, dilated) + bias + ReLU.
 
     x: (B, D, H, W, Ci) bf16 or f32; w: (3, 3, 3, Ci, Co); b: (Co,).
     Returns (B, D-2d, H-2d, W-2d, Co) in ``x.dtype``.  A CPU tensor runs
-    :func:`conv3d_reference`; a CUDA tensor launches the kernel (and adds
-    one to ``conv3d_bias_relu.launches``) or raises."""
+    :func:`conv3d_reference`; a CUDA tensor launches the kernel that
+    :func:`k1_route` names (and adds one to ``conv3d_bias_relu.launches``
+    and to that route's ``conv3d_bias_relu.routes``) or raises."""
     if x.device.type == "cpu":
         return conv3d_reference(x, w, b, dilation)
     if x.device.type != "cuda":
@@ -136,23 +237,36 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     from flypylib_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    wc = w.to(x.dtype).contiguous()
+    route = k1_route(x, w)
     bc = b.to(x.dtype).contiguous()
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:  # B == 0: a launch with an empty grid is refused
         return out
     B, D, H, W, Ci = x.shape
+    Co, d = shape[4], int(dilation)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fpl_conv3d_bias_relu(
-            x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
-            B, D, H, W, Ci, shape[4], int(dilation), _DTYPE_CODES[x.dtype],
-            stream,
-        )
+        if route == "wgmma":
+            n_tile = wgmma_tile(Co)
+            w32, w16 = wgmma_weights(w, n_tile)
+            bz, by, bx = wgmma_box(shape[1:4])
+            err = lib.fpl_conv3d_wgmma(
+                x.data_ptr(), w32.data_ptr() if w32.numel() else None,
+                w16.data_ptr() if w16 is not None else None, bc.data_ptr(),
+                out.data_ptr(), B, D, H, W, Ci, Co, d, n_tile, bz, by, bx,
+                stream)
+        else:
+            wc = w.to(x.dtype).contiguous()
+            err = lib.fpl_conv3d_bias_relu(
+                x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
+                B, D, H, W, Ci, Co, d, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"conv3d_bias_relu kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv3d_bias_relu kernel launch failed ({route} "
+                           f"route): cudaError {err}")
     conv3d_bias_relu.launches += 1
+    conv3d_bias_relu.routes[route] += 1
     return out
 
 
 conv3d_bias_relu.launches = 0
+conv3d_bias_relu.routes = dict.fromkeys(K1_ROUTES, 0)

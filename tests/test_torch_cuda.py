@@ -7,10 +7,14 @@ and uses no conftest fixture, so on the card it runs alone as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 K1's tolerances are ``chip_smoke.conv_check``'s: f32 max |err| <= 1e-4
-max |ref|, bf16 one bf16 ulp.  Shapes cover both bf16 gathers of the
-tensor-core path (16-byte runs when Ci and Co are multiples of 8 and the
-data is 16-byte aligned, single elements otherwise), both tile widths
-(Co <= 32, Co > 32), the Ci = 1 kernel and every dilation the wrapper takes.
+max |ref|, bf16 one bf16 ulp.  Every case asserts the route ``k1_route``
+names and that its count rose by one.  The bf16 calls with Ci and Co
+multiples of 8 and a 16-byte-aligned input take the wgmma/TMA kernel: the
+main path's widths at every dilation, Ci = 96 into Co = 96 and 128, the
+16-channel last slice (Ci % 32 <= 16), ragged extents and batch 2.  The
+others pin the old kernels: the element gather of the WMMA kernel (widths
+off the multiples of 8, an input 2 bytes off a 16-byte boundary), both its
+tile widths, the f32 FMA kernel and the Ci = 1 kernel.
 
 K5 (``parity_split_kernel``) is a copy: bitwise equal to its plain
 version, at every unit width the kernel picks (16-byte runs down to 2-byte
@@ -39,7 +43,7 @@ from flypylib_tpu_torch.ops import wino_conv as wino
 from flypylib_tpu_torch.ops.split import (parity_split_kernel,
                                           parity_split_reference)
 from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu, conv3d_f32,
-                                         conv3d_reference)
+                                         conv3d_reference, k1_route)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,11 +64,26 @@ def _inputs(shape, ci, co, batch, seed=0):
     return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
 
 
+def _route(x, ci, co):
+    """The route the rule of ``k1_route`` gives, written out."""
+    if ci == 1:
+        return "ci1"
+    if x.dtype == torch.float32:
+        return "fma"
+    aligned = ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0
+    return "wgmma" if aligned else "wmma"
+
+
 def _check(x, w, b, d):
+    route = _route(x, x.shape[-1], w.shape[-1])
+    assert k1_route(x, w) == route
     before = conv3d_bias_relu.launches
+    routes = dict(conv3d_bias_relu.routes)
     got = conv3d_bias_relu(x, w, b, d)
     torch.cuda.synchronize()
     assert conv3d_bias_relu.launches == before + 1
+    routes[route] += 1
+    assert conv3d_bias_relu.routes == routes
     ref = conv3d_reference(x, w, b, d)
     assert got.shape == ref.shape and got.dtype == x.dtype
     err, ok = chip_smoke.conv_check(got.cpu(), ref.cpu())
@@ -82,6 +101,26 @@ def _check(x, w, b, d):
 def test_kernel_matches_plain(cuda, ci, co, d, dtype):
     x, w, b = _inputs((13, 17, 22), ci, co, batch=2)
     _check(x.to(dtype).to(cuda), w.to(cuda), b.to(cuda), d)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+@pytest.mark.parametrize("ci,co", [(24, 32), (32, 48), (48, 64), (64, 96)])
+def test_wgmma_route_main_path_widths(cuda, ci, co, d):
+    x, w, b = _inputs((12, 14, 19), ci, co, batch=1)
+    _check(x.to(torch.bfloat16).to(cuda), w.to(cuda), b.to(cuda), d)
+
+
+@pytest.mark.parametrize("shape,batch,ci,co,d", [
+    ((13, 17, 22), 2, 96, 96, 1),     # three 32-channel slices
+    ((13, 17, 22), 1, 96, 128, 2),    # the widest N tile
+    ((15, 14, 21), 2, 48, 48, 4),     # 16-channel last slice, ragged boxes
+    ((11, 12, 30), 2, 16, 24, 1),     # only a 16-channel slice, Co = 24
+    ((13, 17, 22), 1, 40, 56, 2),     # Co between the N tiles: masked columns
+    ((75, 9, 10), 1, 32, 32, 1),      # an output box taller than wide
+])
+def test_wgmma_route_other_widths_and_extents(cuda, shape, batch, ci, co, d):
+    x, w, b = _inputs(shape, ci, co, batch=batch)
+    _check(x.to(torch.bfloat16).to(cuda), w.to(cuda), b.to(cuda), d)
 
 
 def test_unaligned_input_takes_the_element_gather(cuda):
