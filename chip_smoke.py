@@ -16,15 +16,25 @@ prints no result line):
    volume) and one ``vgg_like`` layer (64 -> 96 channels, dilation 4), in
    f32 and bf16, with the median times of both and of one cuDNN call.
    Each case prints the kernel's route (``k1_route``); every bf16 case
-   with Ci > 1 must take the wgmma/TMA kernel.  One broken output
-   (baseline layer 3, the centre tap's weights zeroed) must fail the same
-   check.
+   with Ci > 1 and Ci, Co multiples of 8 must take the wgmma/TMA kernel.
+   Small cases at a dilation of 3 and at Co > 128 (192, 136) run on every
+   route.  One broken output (baseline layer 3, the centre tap's weights
+   zeroed) must fail the same check.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
-   versions at the packed U-Net's 256^3 covering tile: on the operands its
-   forward hands them, launch by launch (each stage and the logits on the
-   kernel's own input); and, timed, in the four forms ``tail_impl``
+   versions.  Small cases first (ragged box edges, odd extents, one and two
+   operands, a 16-channel rest, batch > 1, logits in and out of the
+   epilogue, one case on the WMMA route).  Then at the packed U-Net's 256^3
+   covering tile: on the operands its forward hands them, launch by launch
+   (each stage and the logits on the kernel's own input, and the last
+   stage with the logits in its epilogue against the logits of the
+   kernel's own stage output); and, timed, in the four forms ``tail_impl``
    selects ("pallas", "pallas_fold", "pallas2", "pallas_fold2") on those
-   shapes with unit-scale activations.  In f32 and bf16.
+   shapes with unit-scale activations, in f32 and bf16.  Every bf16 stage
+   there must take the wgmma/TMA kernel (``tail_route``).  Two broken
+   outputs (a tap of the weights dropped, xb zeroed) must fail the same
+   checks.  The bf16 tails are timed per stage, beside the WMMA kernel of
+   ``packed_tail.cu`` on the same operands and beside the unfused tail as
+   the default engine runs it (cuDNN convs, adds, ReLUs, the plain logits).
 5. K5 (``parity_split_kernel``) against its plain version, bit for bit, at
    the packed baseline's and ``vgg_like``'s stage-A -> stage-B boundary
    (one tile batch), in f32 and bf16, timed beside the plain version and
@@ -44,7 +54,8 @@ prints no result line):
    on the Ci = 1 kernel), and both detection lists must
    equal the host (numpy/scipy) reference on the same probability map.
    Times follow, and where one infer's time goes (host pad, upload,
-   forwards, the rest).
+   forwards, the rest).  A baseline with dilations (1, 1, 3, 3) (no packed
+   engine takes it, so the plain stack runs) must return the CPU's map too.
 8. The packed ConvStack paths, the default engine: the 48^3 map check for
    ``FplNetwork("baseline")``, then ``baseline`` and ``vgg_like`` at bf16 on
    the 256^3 volume as in 7, K5 launched once per tile batch and forward
@@ -55,6 +66,7 @@ prints no result line):
    the 256^3 volume, each engine (the K3 tail, the K2 tail, the unfused
    default, the plain U-Net) runs infer and both detects, with the counts
    reset before and read after: K3 or K2 once per tile batch and forward,
+   both of its stages on the wgmma route and none on another,
    K1 once per conv, tile batch and forward on the plain U-Net (conv 0 on
    the Ci = 1 kernel, convs 1-9 on the wgmma route), no kernel
    of the others.  The lists must equal the host reference; times, peak
@@ -115,6 +127,14 @@ UNET_TILING = (24, 3)  # 27 tiles in 9 batches: stitching is inside the check
 # (PERF.md).
 UNET_LOGIT_TOL_F32 = 1e-3
 UNET_LOGIT_TOL_BF16 = 0.25
+# the plain three-level U-Net (context 44): a map of 8 tiles of 20^3 (tile in
+# 108, stride 16) in 4 batches, and one tile batch's logits against the
+# CPU's, relative to max |logit|.  bf16: the two-level U-Net's sound
+# readings above are 0.0026-0.0037 of its max |logit| (39.2) and its limit
+# 0.0064; the deeper net has 14 convs for 10, so 1e-2.
+DEEP_UNET_SMALL = 36
+DEEP_UNET_TILING = (20, 2)
+DEEP_UNET_RTOL_BF16 = 1e-2
 # the 256^3 U-Net engines: tail_impl, or "plain" for packed=False
 UNET_ENGINES = ("pallas2", "pallas", "xla", "plain")
 # the packed baseline's map check, card vs CPU, max |logit difference|.
@@ -309,12 +329,27 @@ def median_s(fn, iters: int = 3) -> float:
     return statistics.median(times)
 
 
+# K1 past the widths and dilations of the zoo's defaults, small, one per
+# route and dtype: a dilation of 3 (a baseline with dilations (1, 1, 3, 3)),
+# Co = 192 (the three-level U-Net's bottleneck, two 96-wide N blocks on the
+# wgmma route), Co = 192 at d = 3 on the Ci = 1 kernel (two launches of at
+# most 128 channels) and widths off the multiples of 8 (bf16: the WMMA
+# kernel's N blocks; f32: the FMA kernel's).  (label, B, size, Ci, Co, d)
+WIDE_CONV_CASES = (
+    ("wide d=3", 2, 21, 32, 48, 3),
+    ("wide Co=192", 2, 15, 96, 192, 1),
+    ("wide Ci=1 Co=192 d=3", 2, 21, 1, 192, 3),
+    ("wide Ci=12 Co=136 d=3", 2, 19, 12, 136, 3),
+)
+
+
 def conv_cases():
     """(label, B, input size, Ci, Co, dilation) of K1 on the main path:
     the baseline's four body layers, vgg_like's 64 -> 96, d=4 layer and the
     plain U-Net's ten convs, at ``default_tiling``'s tile and batch for a
-    VOLUME^3 volume.  The U-Net's extents (pooled, cropped) are recorded by
-    a hook on each conv in one forward of a zero tile on the card."""
+    VOLUME^3 volume, then WIDE_CONV_CASES.  The U-Net's extents (pooled,
+    cropped) are recorded by a hook on each conv in one forward of a zero
+    tile on the card."""
     from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
     from flypylib_tpu_torch.models.zoo import baseline_model, unet, vgg_like
 
@@ -350,7 +385,7 @@ def conv_cases():
                       conv.dilation))
     del module
     torch.cuda.empty_cache()
-    return cases
+    return cases + list(WIDE_CONV_CASES)
 
 
 def check_kernels(card_str: str) -> dict:
@@ -368,6 +403,7 @@ def check_kernels(card_str: str) -> dict:
                  "library_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0,
                  "routes": {}}
     broken_done = False
+    wide_routes = set()  # the routes WIDE_CONV_CASES ran on
     unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for label, B, S, Ci, Co, d in conv_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -382,7 +418,7 @@ def check_kernels(card_str: str) -> dict:
             b = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
             route = k1_route(x, w)
             dt = str(dtype).replace("torch.", "")
-            if dtype == torch.bfloat16 and Ci > 1:
+            if dtype == torch.bfloat16 and Ci > 1 and Ci % 8 == Co % 8 == 0:
                 require(route == "wgmma", f"K1 {label} {dt}: route {route}, "
                                           "not the wgmma kernel")
             got = conv3d_bias_relu(x, w, b, d)
@@ -429,6 +465,8 @@ def check_kernels(card_str: str) -> dict:
                 bf16_main["bound_ms"] += bnd
                 if by == "operations":
                     bf16_main["op_ms"] += bnd
+            if label.startswith("wide"):
+                wide_routes.add(route)
             if label.startswith("unet"):
                 unet_sum[dtype][0] += ms
                 unet_sum[dtype][1] += plain
@@ -437,6 +475,8 @@ def check_kernels(card_str: str) -> dict:
         print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
     require(broken_done, "K1: the zeroed-tap case did not run")
+    require(wide_routes == {"wgmma", "wmma", "ci1", "fma"},
+            f"K1: the wide cases ran on {sorted(wide_routes)} only")
     torch.cuda.empty_cache()
     # the summed bound is bounded by what bounds the larger share of it
     op_ms = bf16_main.pop("op_ms")
@@ -532,8 +572,9 @@ def check_tail_stagewise(seen: dict, dtype: torch.dtype, tin: int,
                           lambda w=w, b=b: packed_tail(cur, [(w, b)]),
                           lambda w=w, b=b: tail_reference(cur, [(w, b)]),
                           lambda w=w: conv3d_f32(cur, w.to(dtype)).to(dtype)))
-        cur = None
+        cur = prev = None
         for step, kern, plain, pre in steps:
+            prev = cur
             got, ref = kern(), plain()
             err, ok = tail_check(got, ref, dtype, pre())
             print(f"{kname} real operands {step} -> {tuple(got.shape)} {dt} "
@@ -556,7 +597,19 @@ def check_tail_stagewise(seen: dict, dtype: torch.dtype, tin: int,
               f"[{card_str}]", flush=True)
         require(ok, f"{kname} logits {dt} on real operands: outside tolerance "
                     f"(max|err| {err})")
-        del got, ref, mags, cur
+        # the last stage with the logits in its launch (bf16: in the wgmma
+        # kernel's epilogue, the stage output never stored) against the
+        # logits of the kernel's own stage output, to the same bound
+        got = packed_tail(prev, rest[-1:], logit_ops)
+        err = float((got - ref).abs().max())
+        ok = err <= F32_RTOL * float(mags.max())
+        print(f"{kname} real operands last stage + logits in one call -> "
+              f"{tuple(got.shape)} {dt}: max|err| {err:.6g} against the "
+              f"logits of the stage's own output {'ok' if ok else 'FAIL'} "
+              f"[{card_str}]", flush=True)
+        require(ok, f"{kname} last stage + logits {dt} on real operands: "
+                    f"outside tolerance (max|err| {err})")
+        del got, ref, mags, cur, prev
         got, ref = whole_k(), whole_p()
         print(f"{kname} real operands whole chain {dt}: max|err| "
               f"{float((got - ref).abs().max()):.6g} (max|ref| "
@@ -583,16 +636,161 @@ def tail_bound(operands, out: torch.Tensor, stage_weights,
     return bound(flops, moved, x.dtype)
 
 
+# K2 / K3 at small shapes, bf16: ((B, D, H, W), Ca, Cb, Co, stages after the
+# first, logits, the route of stage 0)
+TAIL_SMALL_CASES = (
+    ((2, 9, 10, 11), 240, 0, 192, 1, 8, "wgmma"),   # K2's widths: a 16-channel
+                                                    # rest, batch 2, ragged boxes
+    ((1, 7, 12, 19), 192, 48, 192, 1, 8, "wgmma"),  # K3's widths, odd extents
+    ((2, 5, 6, 37), 192, 48, 192, 0, 0, "wgmma"),   # one stage, stored
+    ((1, 9, 9, 9), 8, 0, 8, 0, 0, "wgmma"),         # one 16-channel slice alone
+    ((1, 6, 7, 8), 16, 8, 24, 1, 3, "wgmma"),       # three logits
+    ((3, 4, 5, 6), 40, 24, 56, 2, 8, "wgmma"),      # three stages, batch 3, Co
+                                                    # between the N tiles
+    ((1, 3, 3, 70), 48, 16, 40, 0, 5, "wgmma"),     # one stage with logits
+    ((1, 12, 11, 10), 64, 0, 128, 1, 8, "wgmma"),   # Cb = 0, two full slices
+    ((1, 5, 6, 7), 16, 0, 16, 0, 10, "wgmma"),      # more logits than the
+                                                    # epilogue takes
+    ((2, 6, 7, 8), 20, 12, 44, 1, 3, "wmma"),       # off the multiples of 8
+)
+
+
+def tail_operands(shape, ca, cb, co, n_after, n_logits, seed=0):
+    """Seeded bf16 operands of a K2 (``cb`` = 0) or K3 chain on the card:
+    ``(xa, xb or None, (wa, wb or None, b0), stages, logits or None)``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=gen, device="cuda")
+
+    xa = torch.relu(rnd(*shape, ca)).bfloat16()
+    xb = torch.relu(rnd(*shape, cb)).bfloat16() if cb else None
+    k = 8 * (ca + cb)
+    stage0 = (rnd(2, 2, 2, ca, co, scale=k ** -0.5),
+              rnd(2, 2, 2, cb, co, scale=k ** -0.5) if cb else None,
+              rnd(co, scale=0.1))
+    stages = [(rnd(2, 2, 2, co, co, scale=(8 * co) ** -0.5), rnd(co, scale=0.1))
+              for _ in range(n_after)]
+    lg = ((rnd(co, 2 * n_logits, scale=co ** -0.5), rnd(n_logits))
+          if n_logits else None)
+    return xa, xb, stage0, stages, lg
+
+
+def run_tail(xa, xb, stage0, stages, lg, plain=False):
+    """The chain of :func:`tail_operands` through K2 or K3, or with
+    ``plain`` through its plain version."""
+    from flypylib_tpu_torch.ops import tail
+
+    wa, wb, b0 = stage0
+    if xb is None:
+        fn = tail.tail_reference if plain else tail.packed_tail
+        return fn(xa, [(wa, b0)] + stages, lg)
+    fn = tail.tail2_reference if plain else tail.packed_tail2
+    return fn(xa, xb, stage0, stages, lg)
+
+
+def check_tail_small(card_str: str) -> None:
+    """K2 and K3 against their plain versions at TAIL_SMALL_CASES (bf16),
+    each on the route the case names, by :func:`tail_check`."""
+    from flypylib_tpu_torch.ops import tail
+    from flypylib_tpu_torch.ops.conv import conv3d_f32
+
+    for shape, ca, cb, co, n_after, n_logits, route in TAIL_SMALL_CASES:
+        ops = tail_operands(shape, ca, cb, co, n_after, n_logits)
+        xa, xb, (wa, wb, _), _, _ = ops
+        wrapper = tail.packed_tail if xb is None else tail.packed_tail2
+        require(tail.tail_route(xa, xb, wa) == route,
+                f"tail {shape} {ca}+{cb}->{co}: route "
+                f"{tail.tail_route(xa, xb, wa)}, not {route}")
+        before = dict(wrapper.routes)
+        got, ref = run_tail(*ops), run_tail(*ops, plain=True)
+        torch.cuda.synchronize()
+        ran = {r: n - before[r] for r, n in wrapper.routes.items() if n != before[r]}
+        pre = None
+        if n_after == 0 and not n_logits:  # one stage: the two-rounding bound
+            pre = conv3d_f32(xa, wa.bfloat16())
+            if xb is not None:
+                pre = pre + conv3d_f32(xb, wb.bfloat16())
+            pre = pre.bfloat16()
+        err, ok = tail_check(got, ref, torch.bfloat16, pre)
+        print(f"{'K2' if xb is None else 'K3'} small x{shape} {ca}+{cb}->{co} "
+              f"x{1 + n_after} logits {n_logits} {ran}: max|err| {err:.6g} "
+              f"{'ok' if ok else 'FAIL'} [{card_str}]", flush=True)
+        require(got.shape == ref.shape and got.dtype == ref.dtype and ok,
+                f"tail {shape} {ca}+{cb}->{co}: outside tolerance ({err})")
+        require(ran == {route: 1 + n_after},
+                f"tail {shape} {ca}+{cb}->{co}: stages ran on {ran}")
+
+
+def unfused_tail(xa, xb, stage0, stages, lg) -> torch.Tensor:
+    """The tail as the packed U-Net's default engine runs it (its
+    ``tail_impl="xla"``): every stage a cuDNN conv rounded to bf16 (K3's
+    first stage two of them, added), a bias add and a ReLU pass, then the
+    plain logits.  The yardstick beside K2 and K3, not the port's path."""
+    from flypylib_tpu_torch.ops.packed_conv import _conv
+    from flypylib_tpu_torch.ops.tail import logits_reference
+
+    wa, wb, b0 = stage0
+    dt = xa.dtype
+    y = _conv(xa, wa) if xb is None else _conv(xa, wa) + _conv(xb, wb)
+    x = torch.relu(y + b0.to(dt))
+    for w, b in stages:
+        x = torch.relu(_conv(x, w) + b.to(dt))
+    return logits_reference(x, *lg)
+
+
+def check_tail_controls(kname, ops, card_str: str) -> None:
+    """Broken outputs of the bf16 chain ``ops`` (:func:`tail_operands`'
+    layout) must fail :func:`tail_check`: one tap of stage 0's weights
+    dropped and, for K3, xb zeroed, on stage 0 alone (the two-rounding
+    bound); one tap of the last stage dropped, on the whole chain with the
+    logits in the epilogue (the chain tolerance)."""
+    from flypylib_tpu_torch.ops.conv import conv3d_f32
+
+    xa, xb, (wa, wb, b0), stages, lg = ops
+    dt = xa.dtype
+    ref0 = run_tail(xa, xb, (wa, wb, b0), [], None, plain=True)
+    pre = conv3d_f32(xa, wa.to(dt))
+    if xb is not None:
+        pre = pre + conv3d_f32(xb, wb.to(dt))
+    pre = pre.to(dt)
+    wa_drop = wa.clone()
+    wa_drop[1, 1, 1] = 0
+    broken = {"stage 0, a tap dropped":
+              (run_tail(xa, xb, (wa_drop, wb, b0), [], None), ref0, pre)}
+    if xb is not None:
+        broken["stage 0, xb zeroed"] = (
+            run_tail(xa, torch.zeros_like(xb), (wa, wb, b0), [], None), ref0, pre)
+    del wa_drop
+    w_last, b_last = stages[-1]
+    w_drop = w_last.clone()
+    w_drop[0, 1, 0] = 0
+    broken["whole chain, a tap of the last stage dropped"] = (
+        run_tail(xa, xb, (wa, wb, b0), stages[:-1] + [(w_drop, b_last)], lg),
+        run_tail(*ops, plain=True), None)
+    for what, (got, ref, p) in broken.items():
+        err, ok = tail_check(got, ref, dt, p)
+        print(f"{kname} {what}: max|err| {err:.6g} "
+              f"{'ok' if ok else 'FAIL'} (must fail) [{card_str}]", flush=True)
+        require(not ok, f"{kname}: the check passes a broken output ({what})")
+
+
 def check_tail_kernels(card_str: str) -> dict:
-    """K2 and K3 against their plain versions: in the four forms, both
-    dtypes and timed, on the main path's shapes with unit-scale activations;
-    then launch by launch on the real operands (:func:`tail_inputs`,
-    :func:`check_tail_stagewise`).  Returns the bf16 readings of the full
-    tails ("pallas" for K2, "pallas2" for K3)."""
+    """K2 and K3 against their plain versions: at small shapes
+    (:func:`check_tail_small`); launch by launch on the real operands
+    (:func:`tail_inputs`, :func:`check_tail_stagewise`); then in the four
+    forms, both dtypes and timed, on the main path's shapes with unit-scale
+    activations, every stage on the route its dtype implies, with the
+    broken-output controls and, for the bf16 tails, the times per stage, of
+    the WMMA kernel and of the unfused tail on the same operands.  Returns
+    the bf16 readings of the full tails ("pallas" for K2, "pallas2" for
+    K3)."""
+    from flypylib_tpu_torch.ops import tail
     from flypylib_tpu_torch.ops.conv import conv3d_f32
     from flypylib_tpu_torch.ops.tail import (packed_tail, packed_tail2,
                                              tail2_reference, tail_reference)
 
+    check_tail_small(card_str)
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         real, seen, tin = tail_inputs(dtype)
@@ -601,25 +799,37 @@ def check_tail_kernels(card_str: str) -> dict:
         xin, stages, lg = seen["packed_tail"]
         sc, xu, stage0, stages2, lg2 = seen["packed_tail2"]
         wa, wb = stage0[0], stage0[1]
+        route = "wgmma" if dtype == torch.bfloat16 else "fma"
         forms = {
-            # form: (kernel, wrapper call, plain call, the stage's rounded
-            #        conv sum before the bias, for a single stage)
-            "pallas": ("K2", lambda: packed_tail(xin, stages, lg),
-                       lambda: tail_reference(xin, stages, lg), None),
-            "pallas_fold": ("K2", lambda: packed_tail(xin, stages[:1]),
+            # form: (kernel, wrapper, stages, wrapper call, plain call, the
+            #        stage's rounded conv sum before the bias, for a single
+            #        stage); each single stage before the chain it starts
+            "pallas_fold": ("K2", packed_tail, 1,
+                            lambda: packed_tail(xin, stages[:1]),
                             lambda: tail_reference(xin, stages[:1]),
                             lambda: conv3d_f32(xin, stages[0][0]).to(dtype)),
-            "pallas2": ("K3", lambda: packed_tail2(sc, xu, stage0, stages2, lg2),
-                        lambda: tail2_reference(sc, xu, stage0, stages2, lg2),
-                        None),
-            "pallas_fold2": ("K3", lambda: packed_tail2(sc, xu, stage0),
+            "pallas": ("K2", packed_tail, len(stages),
+                       lambda: packed_tail(xin, stages, lg),
+                       lambda: tail_reference(xin, stages, lg), None),
+            "pallas_fold2": ("K3", packed_tail2, 1,
+                             lambda: packed_tail2(sc, xu, stage0),
                              lambda: tail2_reference(sc, xu, stage0),
                              lambda: (conv3d_f32(sc, wa) + conv3d_f32(xu, wb))
                              .to(dtype)),
+            "pallas2": ("K3", packed_tail2, 1 + len(stages2),
+                        lambda: packed_tail2(sc, xu, stage0, stages2, lg2),
+                        lambda: tail2_reference(sc, xu, stage0, stages2, lg2),
+                        None),
         }
         dt = str(dtype).replace("torch.", "")
-        for form, (kname, kern, plain, pre) in forms.items():
+        times = {}
+        for form, (kname, wrapper, n_stages, kern, plain, pre) in forms.items():
+            before = dict(wrapper.routes)
             got = kern()
+            ran = {r: n - before[r] for r, n in wrapper.routes.items()
+                   if n != before[r]}
+            require(ran == {route: n_stages},
+                    f"{kname} {form} {dt}: stages ran on {ran}, not on {route}")
             ref = plain()
             torch.cuda.synchronize()
             require(got.shape == ref.shape and got.dtype == ref.dtype,
@@ -627,27 +837,70 @@ def check_tail_kernels(card_str: str) -> dict:
                     f"{tuple(ref.shape)} {ref.dtype}")
             err, ok = tail_check(got, ref, dtype, pre() if pre else None)
             ms = median_ms(kern, warmup=1, iters=5)
-            plain_ms = median_ms(plain, warmup=1, iters=5)
+            plain_ms = median_ms(plain, warmup=1, iters=3)
+            times[form] = ms
             ins = (f"x{tuple(xin.shape)}" if kname == "K2" else
                    f"xa{tuple(sc.shape)} xb{tuple(xu.shape)}")
             print(f"{kname} tail_impl={form!r} {ins} -> {tuple(got.shape)} "
-                  f"{dt} (tile in {tin}): max|err| {err:.6g} (max|ref| "
-                  f"{float(ref.float().abs().max()):.6g}) "
+                  f"{dt} [{route}] (tile in {tin}): max|err| {err:.6g} "
+                  f"(max|ref| {float(ref.float().abs().max()):.6g}) "
                   f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms [{card_str}]", flush=True)
             require(ok, f"{kname} {form} {dt}: outside tolerance (max|err| {err})")
             if dtype == torch.bfloat16 and form in ("pallas", "pallas2"):
                 if kname == "K2":
+                    ops = (xin, None, (stages[0][0], None, stages[0][1]),
+                           list(stages[1:]), lg)
                     bnd, by = tail_bound((xin,), got, [[w] for w, _ in stages],
                                          lg[0])
                 else:
+                    ops = (sc, xu, stage0, list(stages2), lg2)
                     bnd, by = tail_bound((sc, xu), got, [[wa, wb]] + [
                         [w] for w, _ in stages2], lg2[0])
-                print(f"{kname} tail_impl={form!r} bound {bnd:.4f} ms ({by}); "
-                      f"no single PyTorch call computes it [{card_str}]")
+                # the stages after the first, with the logits, on the
+                # kernel's own stage-0 output
+                mid = run_tail(*ops[:3], [], None)
+                rest_ms = median_ms(lambda: packed_tail(mid, ops[3], ops[4]),
+                                    warmup=1, iters=5)
+                del mid
+                # the WMMA kernel of packed_tail.cu (the bf16 route of
+                # other widths) on the same operands, held to the same check
+                rule = tail.tail_route
+                tail.tail_route = lambda *a: "wmma"
+                try:
+                    old = kern()
+                    old_err, old_ok = tail_check(old, ref, dtype)
+                    old_ms = median_ms(kern, warmup=0, iters=3)
+                finally:
+                    tail.tail_route = rule
+                del old
+                require(old_ok, f"{kname} {form} on the WMMA kernel: outside "
+                                f"tolerance (max|err| {old_err})")
+                loose = unfused_tail(*ops)
+                loose_err = float((loose - ref).abs().max())
+                del loose
+                loose_ms = median_ms(lambda: unfused_tail(*ops), warmup=1,
+                                     iters=5)
+                print(f"{kname} tail_impl={form!r} bf16: whole tail {ms:.4f} "
+                      f"ms = stage 0 alone {times[form.replace('pallas', 'pallas_fold')]:.4f}"
+                      f" + the rest with the logits {rest_ms:.4f}; the WMMA "
+                      f"kernel {old_ms:.4f} ms (max|err| {old_err:.6g}); the "
+                      f"unfused tail (cuDNN convs, adds, ReLUs, plain logits) "
+                      f"{loose_ms:.4f} ms (max|its logits - plain| "
+                      f"{loose_err:.6g}); bound {bnd:.4f} ms ({by}); no "
+                      f"single PyTorch call computes it [{card_str}]",
+                      flush=True)
+                check_tail_controls(kname, ops, card_str)
                 main[kname] = {"ms": ms, "plain_ms": plain_ms,
                                "max_abs_err": err, "bound_ms": bnd,
-                               "bound_by": by, "library_ms": None}
+                               "bound_by": by, "library_ms": None,
+                               "tail_route": route,
+                               "stage0_ms": times[form.replace("pallas",
+                                                               "pallas_fold")],
+                               "rest_with_logits_ms": rest_ms,
+                               "wmma_kernel_ms": old_ms,
+                               "unfused_tail_ms": loose_ms}
+                del ops
             del got, ref
         del seen, xin, stages, lg, sc, xu, stage0, stages2, lg2
         torch.cuda.empty_cache()
@@ -888,6 +1141,55 @@ def check_unet_maps(port, card_str: str) -> None:
                   UNET_TILING, limits)
 
 
+def check_deep_unet(port, card_str: str) -> None:
+    """The plain three-level U-Net (``levels=3, packed=False``: K1 at
+    Co = 192 in its bottleneck) returns a map on the card, and the logits
+    of its first tile batch match the CPU's plain versions with the same
+    weights.  An untrained net this deep saturates the sigmoid (p is
+    exactly 0 or 1 in places), so the logits are compared as the module
+    returns them, relative to their largest magnitude: f32
+    UNET_LOGIT_TOL_F32, bf16 DEEP_UNET_RTOL_BF16."""
+    vol = make_volume_u8(DEEP_UNET_SMALL, 2, seed=1)
+    for dtype, rtol in ((torch.float32, UNET_LOGIT_TOL_F32),
+                        (torch.bfloat16, DEEP_UNET_RTOL_BF16)):
+        gpu = port.FplNetwork("unet", device="cuda", seed=0, dtype=dtype,
+                              levels=3, packed=False)
+        cpu = port.FplNetwork("unet", device="cpu", seed=0, dtype=dtype,
+                              levels=3, packed=False)
+        cpu.module.load_state_dict(gpu.module.state_dict())
+        reset_launch_counts()
+        prob = gpu.infer(vol, *DEEP_UNET_TILING)
+        counts = launch_counts()
+        n = gpu.tiled_inference(vol.shape, *DEEP_UNET_TILING).n_batches(vol.shape)
+        routes = {r: counts[f"conv3d_bias_relu:{r}"]
+                  for r in ("wgmma", "wmma", "ci1", "fma")}
+        main = "fma" if dtype == torch.float32 else "wgmma"
+        want = dict.fromkeys(routes, 0)
+        want.update({"ci1": n, main: (len(gpu.module.convs) - 1) * n})
+        require(prob.shape == vol.shape and bool(np.isfinite(prob).all())
+                and float(prob.min()) >= 0 and float(prob.max()) <= 1,
+                f"unet levels=3 plain: map {prob.shape}, not probabilities")
+        require(routes == want, f"unet levels=3 plain: K1 ran on {routes}, "
+                                f"expected {want}")
+        tiles = first_tile_batch(gpu.infer_spec, vol)[:DEEP_UNET_TILING[1]]
+        with torch.no_grad():
+            lg = gpu.module(tiles).cpu()
+            lc = cpu.module(tiles.cpu())
+        scale = float(lc.abs().max())
+        err = float((lg - lc).abs().max())
+        dt = str(dtype).replace("torch.", "")
+        print(f"unet levels=3 plain (Co = 192 bottleneck) {vol.shape} map in "
+              f"{n} tile batches, K1 launches by route {routes}; logits of one "
+              f"tile batch {tuple(tiles.shape)}, card vs CPU plain versions, "
+              f"{dt}: max|dlogit| {err:.6g} (limit {rtol:g} x max|logit| "
+              f"{scale:.6g}) [{card_str}]", flush=True)
+        require(bool(torch.isfinite(lg).all()) and err <= rtol * scale,
+                f"unet levels=3 plain {dt}: logits differ from the CPU's by "
+                f"{err} (limit {rtol} x {scale})")
+        del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 def same_list(got, ref, loc_tol: float, what: str) -> None:
     """Detection lists equal: same length and order, locations within
     ``loc_tol`` (0: exactly equal), conf within CONF_TOL."""
@@ -914,24 +1216,30 @@ def kernel_wrappers() -> dict:
             "wino_conv3d_bias_relu": wino_conv3d_bias_relu}
 
 
-def launch_counts() -> dict:
-    """Each wrapper's launches, and K1's per route as
-    ``conv3d_bias_relu:<route>``."""
+def routed_wrappers() -> dict:
+    """The wrappers that count their launches per route as well."""
     from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
+    from flypylib_tpu_torch.ops.tail import packed_tail, packed_tail2
 
+    return {"conv3d_bias_relu": conv3d_bias_relu, "packed_tail": packed_tail,
+            "packed_tail2": packed_tail2}
+
+
+def launch_counts() -> dict:
+    """Each wrapper's launches, and the launches per route of K1 and of the
+    stages of K2 and K3 as ``<wrapper>:<route>``."""
     counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
-    counts.update({f"conv3d_bias_relu:{r}": n
-                   for r, n in conv3d_bias_relu.routes.items()})
+    for name, fn in routed_wrappers().items():
+        counts.update({f"{name}:{r}": n for r, n in fn.routes.items()})
     return counts
 
 
 def reset_launch_counts() -> None:
-    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
-
     for fn in kernel_wrappers().values():
         fn.launches = 0
-    for r in conv3d_bias_relu.routes:
-        conv3d_bias_relu.routes[r] = 0
+    for fn in routed_wrappers().values():
+        for r in fn.routes:
+            fn.routes[r] = 0
 
 
 def run_main_path(net, vol: np.ndarray, n_cand: int = N_CAND) -> dict:
@@ -1077,7 +1385,8 @@ def main(argv=None) -> int:
     path, seconds = _build.build()
     _build.load_library()
     report = [ln for ln in path.with_suffix(".log").read_text().splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+              if "registers" in ln or "spill" in ln or "Compiling" in ln
+              or "Performance" in ln]
     print("\n".join(report))
     print(f"build: {path.name} in {seconds:.2f} s", flush=True)
 
@@ -1118,6 +1427,19 @@ def main(argv=None) -> int:
         profile_detect(net, vol, res["threshold"], card_str)
     del net
     torch.cuda.empty_cache()
+    # a dilation outside the packed engine's powers of two: the default
+    # packed="auto" finds no packed spec, so the plain stack runs, K1 at d = 3
+    reset_launch_counts()
+    check_map(card_str, "baseline dilations (1, 1, 3, 3)",
+              lambda dev, dt: port.FplNetwork(
+                  "baseline", device=dev, seed=0, dtype=dt,
+                  dilations=(1, 1, 3, 3)),
+              make_volume_u8(SMALL, 2, seed=1), SMALL_TILING,
+              ((torch.float32, LOGIT_TOL_F32), (torch.bfloat16, LOGIT_TOL_BF16)))
+    counts = launch_counts()
+    require(counts["conv3d_bias_relu"] > 0
+            and counts["parity_split_kernel"] == 0,
+            f"baseline dilations (1, 1, 3, 3): launches {counts}")
 
     # 8. the packed ConvStack paths, the default engine: the map against the
     #    CPU's at a small size, then 256^3 for baseline and vgg_like
@@ -1148,6 +1470,7 @@ def main(argv=None) -> int:
 
     # 9. the U-Net paths: maps against the CPU's at a small size, then 256^3
     check_unet_maps(port, card_str)
+    check_deep_unet(port, card_str)
     unet_runs = {}
     for engine in UNET_ENGINES:
         net = unet_net(port, engine, "cuda")
@@ -1158,8 +1481,11 @@ def main(argv=None) -> int:
                                  "conv3d_bias_relu:ci1": n,
                                  "conv3d_bias_relu:wgmma":
                                      (len(net.module.convs) - 1) * n},
-                       "pallas": {"packed_tail": n},
-                       "pallas2": {"packed_tail2": n}}.get(engine, {})
+                       # two stages per call, both on the wgmma route, the
+                       # logits in the second one's epilogue
+                       "pallas": {"packed_tail": n, "packed_tail:wgmma": 2 * n},
+                       "pallas2": {"packed_tail2": n,
+                                   "packed_tail2:wgmma": 2 * n}}.get(engine, {})
         require_launches(r, per_forward, f"unet {engine}")
         print(f"unet {engine} ({net.infer_spec.name}, tile in "
               f"{net.tiled_inference(vol.shape).tile_in}): {n} tile batches, "
@@ -1197,16 +1523,22 @@ def main(argv=None) -> int:
     for kname, name, line, engine in (
             ("K2", "packed_tail", 221, "pallas"),
             ("K3", "packed_tail2", 470, "pallas2")):
+        run = unet_runs[engine]["launches"]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "flypylib_tpu_torch/csrc/packed_tail.cu",
+            "source": "flypylib_tpu_torch/csrc/packed_tail_wgmma.cu",
             "replaces": f"flypylib_tpu/ops/pallas_tail.py:{line}",
-            "launches": unet_runs[engine]["launches"][name],
+            "launches": run[name],
             **tails[kname],
-            "at": f"tail_impl={engine!r} (2 stages + logits), bf16, one "
-                  f"{VOLUME}^3 covering tile; launches from the U-Net "
-                  f"{engine} path",
+            "stage_launches": {r: run[f"{name}:{r}"]
+                               for r in ("wgmma", "wmma", "fma")},
+            "at": f"tail_impl={engine!r} (2 stages, the logits in the "
+                  f"second's epilogue), bf16, one {VOLUME}^3 covering tile; "
+                  f"launches from the U-Net {engine} path, stage_launches "
+                  "its stage kernels by route; wmma_kernel_ms is "
+                  "csrc/packed_tail.cu's kernel and unfused_tail_ms the "
+                  "default engine's cuDNN tail, both on the same operands",
         })
     kernels.append({
         "name": "wino_conv3d_bias_relu",

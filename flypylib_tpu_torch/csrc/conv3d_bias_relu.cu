@@ -72,26 +72,31 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-constexpr int kMaxCo = 128;
+constexpr int kMaxCo = 128;  // output channels per launch of the Ci = 1 kernel
 
 // ---------------------------------------------------------------- Ci == 1
+// One launch computes Cn <= kMaxCo output channels of the Co the layer has:
+// w, b and out point at the first of them, and Co is the stride of a weight
+// row and of an output voxel.  total = M * Cn.
 template <typename T>
 __global__ void __launch_bounds__(256)
 conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const T* __restrict__ b, T* __restrict__ out, int D, int H,
-                int W, int Co, int d, int Do, int Ho, int Wo,
+                int W, int Co, int Cn, int d, int Do, int Ho, int Wo,
                 long long total) {
   __shared__ float ws[27 * kMaxCo];
   __shared__ float bs[kMaxCo];
-  for (int i = threadIdx.x; i < 27 * Co; i += blockDim.x) ws[i] = to_f32(w[i]);
-  for (int i = threadIdx.x; i < Co; i += blockDim.x) bs[i] = to_f32(b[i]);
+  for (int i = threadIdx.x; i < 27 * Cn; i += blockDim.x)
+    ws[i] = to_f32(w[(i / Cn) * Co + i % Cn]);
+  for (int i = threadIdx.x; i < Cn; i += blockDim.x) bs[i] = to_f32(b[i]);
   __syncthreads();
 
   const long long plane = (long long)H * W;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
-    const int o = (int)(e % Co);
-    long long p = e / Co;
+    const int o = (int)(e % Cn);
+    const long long row = e / Cn;
+    long long p = row;
     const int xo = (int)(p % Wo);
     p /= Wo;
     const int yo = (int)(p % Ho);
@@ -104,9 +109,9 @@ conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int tap = 0; tap < 27; ++tap) {
       const int tz = tap / 9, ty = (tap / 3) % 3, tx = tap % 3;
       const long long off = (long long)tz * d * plane + (long long)ty * d * W + tx * d;
-      acc = fmaf(to_f32(src[off]), ws[tap * Co + o], acc);
+      acc = fmaf(to_f32(src[off]), ws[tap * Cn + o], acc);
     }
-    out[e] = from_f32<T>(fmaxf(acc + bs[o], 0.f));
+    out[row * Co + o] = from_f32<T>(fmaxf(acc + bs[o], 0.f));
   }
 }
 
@@ -347,11 +352,14 @@ void launch(const void* x, const void* w, const void* b, void* out, int B,
   const T* bt = static_cast<const T*>(b);
   T* ot = static_cast<T*>(out);
   if (Ci == 1) {
-    const long long total = M * Co;
-    long long blocks = (total + 255) / 256;
-    if (blocks > 8192) blocks = 8192;  // grid-stride; amortises the weight load
-    conv_ci1_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-        xt, wt, bt, ot, D, H, W, Co, d, Do, Ho, Wo, total);
+    for (int c0 = 0; c0 < Co; c0 += kMaxCo) {  // one launch when Co <= kMaxCo
+      const int Cn = Co - c0 < kMaxCo ? Co - c0 : kMaxCo;
+      const long long total = M * Cn;
+      long long blocks = (total + 255) / 256;
+      if (blocks > 8192) blocks = 8192;  // grid-stride; amortises the weight load
+      conv_ci1_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
+          xt, wt + c0, bt + c0, ot + c0, D, H, W, Co, Cn, d, Do, Ho, Wo, total);
+    }
     return;
   }
   const unsigned gm = (unsigned)((M + kBM - 1) / kBM);
@@ -373,7 +381,7 @@ extern "C" int fpl_conv3d_bias_relu(const void* x, const void* w,
                                     int H, int W, int Ci, int Co, int d,
                                     int dtype, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
-  if (Co < 1 || Co > kMaxCo || Ci < 1) return (int)cudaErrorInvalidValue;
+  if (Co < 1 || Ci < 1 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     launch<float>(x, w, b, out, B, D, H, W, Ci, Co, d, s);

@@ -63,191 +63,15 @@
 // for arguments it does not take); it allocates nothing and does not
 // synchronise.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kKC = 32;            // channels per K step (64 bytes)
-constexpr int kRowBytes = kKC * 2;
 constexpr int kStages = 5;         // depth of the ring
 constexpr int kConsumers = 256;    // two warpgroups
 constexpr int kMW = 2;             // m64 row blocks per consumer warpgroup
 constexpr int kRows = 128 * kMW;   // output rows (voxels) per block
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// waits until the phase of parity `parity` has completed.  A wait that
-// never ends (a fault in the ring) traps after ~2^26 polls, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map))
-               : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with ROW-byte rows (64
-// or 32) and the swizzle of the same width, as TMA writes it: LBO unused
-// (1), SBO = 8 rows, layout type 2 (B64) or 3 (B32).  Tiles start on
-// 1024-byte boundaries, so base_offset = 0.
-template <int ROW>
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  static_assert(ROW == 64 || ROW == 32, "row bytes");
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(8 * ROW >> 4) << 32) |
-         ((uint64_t)(ROW == 64 ? 2 : 3) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns them
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D (64 x N, f32, in registers) = A (64 x 16) * B (16 x N) + (scale_d ? D
-// : 0), A and B K-major bf16 in shared memory.  One specialisation per N
-// tile.
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
-                                           uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<24>(float (&d)[12], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<96>(float (&d)[48], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -257,7 +81,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w16,
                   const __nv_bfloat16* __restrict__ bias,
                   __nv_bfloat16* __restrict__ out, int Do, int Ho, int Wo,
-                  int Co, int d, int n_full, int half, int c_last, int bz,
+                  int Co, int ldo, int d, int n_full, int half, int c_last, int bz,
                   int by, int bx,
                   int tiles_z, int tiles_y, int tiles_x) {
   constexpr int kABytes = kRows * kRowBytes;
@@ -282,6 +106,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int per_tap = n_full + half;  // K steps per tap
   const int steps = 27 * per_tap;
   const int tid = threadIdx.x;
+  const int warp_id = uniform_warp_index();
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -292,7 +117,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {
+  if (warp_id >= kConsumers / 32) {
     // ---------------------------------------------------------- producer
     if (tid == kConsumers) {
       prefetch_map(&tm_x);
@@ -321,7 +146,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 
   // ------------------------------------------------------------ consumers
-  const int wg = tid / 128;
+  const int wg = warp_id / 4;
   // no zero fill: the first step's wgmma overwrites (scale_d = 0).  A move
   // into the accumulators between wgmma issue and wait would serialise them.
   float acc[kMW][NT / 2];
@@ -363,7 +188,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   for (int m = 0; m < kMW; ++m) fence_acc(acc[m]);
 
   // ------------------------------------------------------------- epilogue
-  const int warp = (tid % 128) / 32, lane = tid & 31;
+  const int warp = warp_id % 4, lane = tid & 31;
   const int box_rows = bz * by * bx;
 #pragma unroll
   for (int m = 0; m < kMW; ++m) {
@@ -374,7 +199,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       const int xx = x0 + r % bx, yy = y0 + (r / bx) % by, zz = z0 + r / (bx * by);
       if (xx >= Wo || yy >= Ho || zz >= Do) continue;
       __nv_bfloat16* o =
-          out + ((((long long)n * Do + zz) * Ho + yy) * Wo + xx) * Co;
+          out + ((((long long)n * Do + zz) * Ho + yy) * Wo + xx) * ldo;
 #pragma unroll
       for (int j = 0; j < NT / 8; ++j) {
         const int col = j * 8 + (lane % 4) * 2;
@@ -389,76 +214,14 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so
-// that the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the map of x (B,D,H,W,Ci) read in boxes (kc, bx, by, bz, 1), kc = 32
-// channels with the 64-byte swizzle or 16 with the 32-byte one
-bool encode_x(EncodeTiled encode, CUtensorMap* map, const void* x, int B,
-              int D, int H, int W, int Ci, int kc, int bz, int by, int bx) {
-  const cuuint64_t e = sizeof(__nv_bfloat16);
-  const cuuint64_t dim[5] = {(cuuint64_t)Ci, (cuuint64_t)W, (cuuint64_t)H,
-                             (cuuint64_t)D, (cuuint64_t)B};
-  const cuuint64_t stride[4] = {Ci * e, (cuuint64_t)W * Ci * e,
-                                (cuuint64_t)H * W * Ci * e,
-                                (cuuint64_t)D * H * W * Ci * e};
-  const cuuint32_t box[5] = {(cuuint32_t)kc, (cuuint32_t)bx, (cuuint32_t)by,
-                             (cuuint32_t)bz, 1};
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
-                dim, stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                kc == kKC ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the map of a weight image of `rows` rows of kc channels, read n_tile
-// rows at a time
-bool encode_w(EncodeTiled encode, CUtensorMap* map, const void* w, int rows,
-              int kc, int n_tile) {
-  const cuuint64_t dim[2] = {(cuuint64_t)kc, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {kc * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kc, (cuuint32_t)n_tile};
-  const cuuint32_t ones[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-                dim, stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                kc == kKC ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Maps {
   CUtensorMap x, x16, w, w16;
 };
 
 template <int NT>
 int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
-           int Do, int Ho, int Wo, int Co, int d, int n_full, int half,
-           int c_last, int bz, int by, int bx, cudaStream_t stream) {
+           int Do, int Ho, int Wo, int Co, int ldo, int d, int n_full,
+           int half, int c_last, int bz, int by, int bx, cudaStream_t stream) {
   constexpr int kABytes = kRows * kRowBytes;
   constexpr int kStageBytes =
       kABytes + ((NT * kRowBytes + 1023) / 1024) * 1024;
@@ -473,7 +236,7 @@ int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
   const long long blocks = (long long)B * tz * ty * tx;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
-      m.x, m.x16, m.w, m.w16, b, out, Do, Ho, Wo, Co, d, n_full, half, c_last,
+      m.x, m.x16, m.w, m.w16, b, out, Do, Ho, Wo, Co, ldo, d, n_full, half, c_last,
       bz, by, bx, tz, ty, tx);
   return (int)cudaGetLastError();
 }
@@ -487,20 +250,24 @@ int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
 // at max(Ci - 16, 0) that holds a rest of 1-16 channels (null if none);
 // both bf16, zero past Ci and Co and where a 32-channel slice holds the
 // channel.  b (Co,) bf16; out (B, D-2d,
-// H-2d, W-2d, Co) bf16.  n_tile is one of 24/32/48/64/96/128 (>= Co); the
-// output box bz*by*bx is at most 256 rows.
+// H-2d, W-2d, ldo) bf16, of which the call writes Co channels starting at
+// `out` (ldo >= Co, a multiple of 8: a layer wider than the widest N tile
+// runs as one call per block of output channels, each with its own weight
+// images, bias and channel offset into out).  n_tile is one of
+// 24/32/48/64/96/128 (>= Co); the output box bz*by*bx is at most 256 rows.
 // All contiguous; shapes are checked by the Python wrapper.
 extern "C" int fpl_conv3d_wgmma(const void* x, const void* w32,
                                 const void* w16, const void* b, void* out,
                                 int B, int D, int H, int W, int Ci, int Co,
-                                int d, int n_tile, int bz, int by, int bx,
-                                void* stream) {
+                                int ldo, int d, int n_tile, int bz, int by,
+                                int bx, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
   const int rest = Ci % kKC;
   const int half = rest > 0 && rest <= kKC / 2;
   const int n_full = Ci / kKC + (rest > kKC / 2);
   const int c_last = Ci > kKC / 2 ? Ci - kKC / 2 : 0;
-  if (Ci < 8 || Ci % 8 || Co < 8 || Co % 8 || Co > n_tile || bz < 1 ||
+  if (Ci < 8 || Ci % 8 || Co < 8 || Co % 8 || Co > n_tile || ldo < Co ||
+      ldo % 8 || d < 1 || bz < 1 ||
       by < 1 || bx < 1 || bz > 256 || by > 256 || bx > 256 ||
       (n_full > 0 && (w32 == nullptr || reinterpret_cast<uintptr_t>(w32) % 16)) ||
       (half && (w16 == nullptr || reinterpret_cast<uintptr_t>(w16) % 16)) ||
@@ -525,8 +292,8 @@ extern "C" int fpl_conv3d_wgmma(const void* x, const void* w32,
   const int Do = D - 2 * d, Ho = H - 2 * d, Wo = W - 2 * d;
 #define FPL_WGMMA_CASE(NT)                                               \
   case NT:                                                                 \
-    return launch<NT>(m, bt, ot, B, Do, Ho, Wo, Co, d, n_full, half, c_last, \
-                      bz, by, bx, s);
+    return launch<NT>(m, bt, ot, B, Do, Ho, Wo, Co, ldo, d, n_full, half,      \
+                      c_last, bz, by, bx, s);
   switch (n_tile) {
     FPL_WGMMA_CASE(24)
     FPL_WGMMA_CASE(32)

@@ -2,9 +2,14 @@
 // valid 2x2x2 conv stages, and the hi/lo logits dot.
 //
 // Replaces the TPU kernels flypylib_tpu/ops/pallas_tail.py::packed_tail (K2)
-// and ::packed_tail2 (K3).  The Python wrappers (flypylib_tpu_torch/ops/
-// tail.py) run a chain as one launch of fpl_tail_stage per stage and one of
-// fpl_tail_logits, with the intermediates in device memory.
+// and ::packed_tail2 (K3) for f32 (the "fma" route of flypylib_tpu_torch/
+// ops/tail.py::tail_route) and for the bf16 stages that
+// packed_tail_wgmma.cu does not take (the "wmma" route: a channel count
+// off the multiples of 8, Co > 192, an operand off a 16-byte boundary).
+// The Python wrappers run a chain as one launch per stage, with the
+// intermediates in device memory, and one launch of fpl_tail_logits when
+// the last stage did not compute the logits in its epilogue (only the
+// wgmma kernel does).
 //
 // fpl_tail_stage: for xa (B,D,H,W,Ca), optional xb (B,D,H,W,Cb) (K3's first
 // stage; Cb = 0 for one operand), wa (2,2,2,Ca,Co), wb (2,2,2,Cb,Co) and
@@ -39,10 +44,14 @@
 // The logits read each stage output once and are memory-bound: one thread
 // per output value, the row and the (Cn, 2L) weights read through L1.
 //
-// This is a simple first version.  The TPU kernel's point -- the chain's
-// intermediates never leave fast memory -- is not carried over: each stage
-// writes its output to device memory and the next reads it back.  A fused
-// chain (intermediates in shared memory, wgmma and TMA) is later work.
+// These are the simple kernels of the first port: one shared-memory buffer,
+// loads and MMAs in turn, N in blocks of 64 or 32 so A is gathered once
+// per N block.  At the main path's widths bf16 runs the wgmma/TMA kernel
+// of packed_tail_wgmma.cu instead, about 4.5 times faster.  The TPU
+// kernel's point -- the chain's intermediates never leave fast memory --
+// is carried over by neither: on this card the chain is bound by the
+// tensor cores and the L2, not by device memory, so each stage writes its
+// output to device memory and the next reads it back.
 //
 // 64-bit offsets throughout: at the reference's largest tile the tail input
 // holds ~1.8e9 values.  Rows past M and channels past Co load zeros and

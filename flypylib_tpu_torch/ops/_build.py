@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together), and the objects are linked into
 one shared library with a plain C interface, at first use, under
 ``build/kernels/`` at the root of the checkout.  The file name carries a
-hash of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded.  No PyTorch header is compiled: the wrappers pass
+hash of the sources, the headers they share (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  No PyTorch header is compiled: the wrappers pass
 ``tensor.data_ptr()`` and the current stream as ``c_void_p``.
 
 Only the CUDA branches of the wrappers import this module, so CPU-only
@@ -38,8 +39,9 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (restype is always int: a cudaError_t)
 _ENTRIES = {
     "fpl_conv3d_bias_relu": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "fpl_conv3d_wgmma": [_P] * 5 + [_I] * 11 + [_P],
+    "fpl_conv3d_wgmma": [_P] * 5 + [_I] * 12 + [_P],
     "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
+    "fpl_tail_stage_wgmma": [_P] * 8 + [_I] * 13 + [_P],
     "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
     "fpl_parity_split": [_P, _P] + [_I] * 6 + [_P],
     "fpl_wino_conv": [_P] * 4 + [_I] * 8 + [_P],
@@ -66,7 +68,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfpl_kernels_{h.hexdigest()[:16]}.so"

@@ -10,7 +10,10 @@ Which kernel takes a CUDA call is a rule on shape, dtype and alignment,
 decided before the launch (:func:`k1_route`): bf16 with Ci > 1, Ci and Co
 multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA kernel of
 ``csrc/conv3d_wgmma.cu`` ("wgmma"); ``csrc/conv3d_bias_relu.cu`` keeps
-Ci = 1 ("ci1"), the other bf16 calls ("wmma") and f32 ("fma").
+Ci = 1 ("ci1"), the other bf16 calls ("wmma") and f32 ("fma").  Every route
+takes any dilation and any Co, as the reference does: the wgmma kernel runs
+a layer wider than its widest N tile as one launch per block of output
+channels (:func:`wgmma_chunks`), the others loop over N blocks themselves.
 
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
@@ -30,8 +33,6 @@ import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CO = 128
-DILATIONS = (1, 2, 4)
 K1_ROUTES = ("wgmma", "wmma", "ci1", "fma")
 WGMMA_N_TILES = (24, 32, 48, 64, 96, 128)  # the kernel's N tiles
 WGMMA_KC = 32  # channels per K step of the wgmma kernel (a 64-byte row)
@@ -144,13 +145,25 @@ def wgmma_tile(co: int) -> int:
     return n_tile
 
 
+def wgmma_chunks(co: int) -> list[tuple[int, int]]:
+    """The blocks of output channels ``(first, count)`` the wgmma kernel
+    runs ``co`` (a multiple of 8) in, one launch each: one block up to the
+    widest N tile; above it the fewest blocks, of equal width rounded up to
+    a multiple of 8 (Co = 192 runs as 96 + 96, not 128 + 64)."""
+    n = -(-co // WGMMA_N_TILES[-1])
+    width = -(-co // (8 * n)) * 8
+    return [(c0, min(width, co - c0)) for c0 in range(0, co, width)]
+
+
 @functools.lru_cache(maxsize=256)
-def wgmma_box(out_dhw: tuple[int, int, int],
-              rows: int = WGMMA_ROWS) -> tuple[int, int, int]:
+def wgmma_box(out_dhw: tuple[int, int, int], rows: int = WGMMA_ROWS,
+              halo: int = 2) -> tuple[int, int, int]:
     """The output box (bz, by, bx) of one block, bz*by*bx <= ``rows``: the
     box that covers ``out_dhw`` in the fewest blocks (the masked ragged
     edge is the least work), and of those the most compact one (the least
-    halo, so the 27 taps' loads overlap most in L2)."""
+    halo, so the taps' loads overlap most in L2).  ``halo`` is what the
+    taps reach past the box on each axis: 2 for K1's 3^3 conv (at d = 1),
+    1 for a 2^3 stage."""
     best = None  # rows <= 256, so no box side passes TMA's limit of 256
     for bz in range(1, rows + 1):
         for by in range(1, rows // bz + 1):
@@ -158,7 +171,7 @@ def wgmma_box(out_dhw: tuple[int, int, int],
             tiles = 1
             for e, s in zip(out_dhw, box):
                 tiles *= -(-e // s)
-            key = (tiles, (bz + 2) * (by + 2) * (box[2] + 2))
+            key = (tiles, (bz + halo) * (by + halo) * (box[2] + halo))
             if best is None or key < best[0]:
                 best = (key, box)
     return best[1]
@@ -192,17 +205,25 @@ def wgmma_weights(w: torch.Tensor,
     zero past Ci and where o >= Co; bf16, contiguous.  Each slice is
     K-major, 64 (or 32) bytes per output channel, which the TMA load
     swizzles as the kernel's wgmma descriptor expects."""
-    ci, co = w.shape[3], w.shape[4]
+    return weight_images(w.reshape(27, w.shape[3], w.shape[4]), n_tile)
+
+
+def weight_images(w: torch.Tensor,
+                  n_tile: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """:func:`wgmma_weights` for ``w`` (taps, Ci, Co) with any number of
+    taps (27 for K1's 3^3 conv, 8 for the decoder tail's 2^3 stages):
+    ``(w32 (taps, n_full, n_tile, 32), w16 (taps, n_tile, 16) or None)``."""
+    taps, ci, co = w.shape
     n_full, c0 = wgmma_slices(ci)
-    wk = w.reshape(27, ci, co).to(torch.bfloat16).transpose(1, 2)  # K-major
+    wk = w.to(torch.bfloat16).transpose(1, 2)  # K-major
     k = min(ci, n_full * WGMMA_KC)
-    w32 = torch.zeros((27, n_tile, n_full * WGMMA_KC), dtype=torch.bfloat16,
+    w32 = torch.zeros((taps, n_tile, n_full * WGMMA_KC), dtype=torch.bfloat16,
                       device=w.device)
     w32[:, :co, :k] = wk[:, :, :k]
-    w32 = w32.view(27, n_tile, n_full, WGMMA_KC).transpose(1, 2).contiguous()
+    w32 = w32.view(taps, n_tile, n_full, WGMMA_KC).transpose(1, 2).contiguous()
     if c0 is None:
         return w32, None
-    w16 = torch.zeros((27, n_tile, WGMMA_KC // 2), dtype=torch.bfloat16,
+    w16 = torch.zeros((taps, n_tile, WGMMA_KC // 2), dtype=torch.bfloat16,
                       device=w.device)
     lo = n_full * WGMMA_KC  # channels the 32-channel slices hold
     w16[:, :co, lo - c0:ci - c0] = wk[:, :, lo:ci]
@@ -229,10 +250,8 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError("x, w and b must be on the same device")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NDHWC)")
-    if int(dilation) not in DILATIONS:
-        raise ValueError(f"dilation must be one of {DILATIONS}, got {dilation}")
-    if shape[4] > MAX_CO:
-        raise ValueError(f"Co must be <= {MAX_CO}, got {shape[4]}")
+    if int(dilation) < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
 
     from flypylib_tpu_torch.ops._build import load_library
 
@@ -247,14 +266,17 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
-            n_tile = wgmma_tile(Co)
-            w32, w16 = wgmma_weights(w, n_tile)
             bz, by, bx = wgmma_box(shape[1:4])
-            err = lib.fpl_conv3d_wgmma(
-                x.data_ptr(), w32.data_ptr() if w32.numel() else None,
-                w16.data_ptr() if w16 is not None else None, bc.data_ptr(),
-                out.data_ptr(), B, D, H, W, Ci, Co, d, n_tile, bz, by, bx,
-                stream)
+            for c0, cn in wgmma_chunks(Co):
+                n_tile = wgmma_tile(cn)
+                w32, w16 = wgmma_weights(w[..., c0:c0 + cn], n_tile)
+                err = lib.fpl_conv3d_wgmma(
+                    x.data_ptr(), w32.data_ptr() if w32.numel() else None,
+                    w16.data_ptr() if w16 is not None else None,
+                    bc[c0:].data_ptr(), out[..., c0:].data_ptr(), B, D, H, W,
+                    Ci, cn, Co, d, n_tile, bz, by, bx, stream)
+                if err != 0:
+                    break
         else:
             wc = w.to(x.dtype).contiguous()
             err = lib.fpl_conv3d_bias_relu(

@@ -8,11 +8,21 @@ Counterpart of ``flypylib_tpu/ops/pallas_tail.py``:
   skip and upsampled operands apart (``relu(conv2(xa, wa) + conv2(xb, wb)
   + b)``), so their channel concat never exists.
 
-On a CUDA tensor each launches the hand-written kernels of
-``csrc/packed_tail.cu`` (one launch per stage, and one for the logits) and
-adds one to its ``launches`` count; on a CPU tensor it runs its plain
+On a CUDA tensor each launches hand-written kernels, one launch per stage,
+and adds one to its ``launches`` count; on a CPU tensor it runs its plain
 version, :func:`tail_reference` / :func:`tail2_reference`.  There is no
 fallback between the two: a CUDA tensor the kernels cannot take raises.
+
+Which kernel takes a stage is a rule on dtype, channel counts and alignment,
+decided before the launch (:func:`tail_route`): bf16 with every channel
+count a multiple of 8, Co <= 192 and 16-byte-aligned operands runs the
+wgmma/TMA kernel of ``csrc/packed_tail_wgmma.cu`` ("wgmma"), which also
+computes the logits in the last stage's epilogue (for up to 8 of them), so
+that stage's output never reaches device memory; ``csrc/packed_tail.cu``
+keeps the other bf16 stages ("wmma"), f32 ("fma": TF32 would round the
+inputs) and the logits of chains that do not end in a wgmma stage.
+``packed_tail.routes`` / ``packed_tail2.routes`` count stage launches per
+route.
 
 Unlike the reference, every operand carries a batch axis:
 x is (B, D, H, W, C), as for K1.
@@ -31,9 +41,15 @@ from __future__ import annotations
 
 import torch
 
-from flypylib_tpu_torch.ops.conv import conv3d_f32, matmul_f32
+from flypylib_tpu_torch.ops.conv import (WGMMA_KC, conv3d_f32, matmul_f32,
+                                         weight_images, wgmma_box,
+                                         wgmma_slices)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TAIL_ROUTES = ("wgmma", "wmma", "fma")
+TAIL_N_TILES = (32, 64, 96, 128, 192)  # the wgmma kernel's N tiles
+TAIL_ROWS = 128  # output voxels per block of the wgmma kernel: 128 or 192
+TAIL_MAX_LOGITS = 8  # logits the wgmma kernel's epilogue computes
 
 
 # -- plain versions ---------------------------------------------------------
@@ -116,10 +132,120 @@ def _check_cuda(tensors, x):
         raise ValueError("x must be contiguous (NDHWC)")
 
 
+# -- the wgmma route's plain-Python parts --------------------------------------
+def tail_route(xa: torch.Tensor, xb: torch.Tensor | None,
+               wa: torch.Tensor) -> str:
+    """Which CUDA kernel takes the stage ``relu(round(conv2(xa, wa) [+
+    conv2(xb, wb)]) + b)``: "fma" for f32; "wgmma" for bf16 with Ca, Cb and
+    Co multiples of 8, Co at most the widest N tile (192) and ``xa`` and
+    ``xb`` on 16-byte boundaries (the TMA tensor map's rules; the weights
+    are repacked, so their alignment does not matter); "wmma" for every
+    other bf16 stage."""
+    if xa.dtype != torch.bfloat16:
+        return "fma"
+    co = wa.shape[-1]
+    operands = [xa] if xb is None else [xa, xb]
+    if (all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in operands)
+            and co % 8 == 0 and co <= TAIL_N_TILES[-1]):
+        return "wgmma"
+    return "wmma"
+
+
+def tail_tile(co: int) -> int:
+    """The wgmma kernel's N tile for ``co`` output channels: the smallest
+    that holds Co."""
+    n_tile = next((n for n in TAIL_N_TILES if n >= co), None)
+    if n_tile is None:
+        raise ValueError(f"Co must be <= {TAIL_N_TILES[-1]}, got {co}")
+    return n_tile
+
+
+def tail_box(out_dhw: tuple[int, int, int],
+             rows: int = TAIL_ROWS) -> tuple[int, int, int]:
+    """The output box (bz, by, bx) of one tile of the wgmma kernel, at most
+    ``rows`` voxels: the fewest tiles, then the least halo (K1's search,
+    :func:`wgmma_box`, with the 2^3 stage's one-voxel reach)."""
+    return wgmma_box(tuple(out_dhw), rows, 1)
+
+
+def tail_slices(ca: int, cb: int = 0) -> list[tuple[str, int, int]]:
+    """The wgmma kernel's K steps per tap, ``(operand, first channel,
+    width)``: xa's 32-channel slices, its 16-channel slice (a rest of 1-16
+    channels, ending at channel Ca), then the same of xb
+    (:func:`wgmma_slices` per operand: a rest of 17-31 channels takes one
+    more 32-channel slice, zero-filled past C)."""
+    steps = []
+    for name, c in (("a", ca), ("b", cb)):
+        if c == 0:
+            continue
+        n_full, c_last = wgmma_slices(c)
+        steps += [(name, WGMMA_KC * i, WGMMA_KC) for i in range(n_full)]
+        if c_last is not None:
+            steps.append((name, c_last, WGMMA_KC // 2))
+    return steps
+
+
+def tail_weights(wa: torch.Tensor, wb: torch.Tensor | None,
+                 n_tile: int) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The weight images the wgmma kernel loads, one (n_tile, 32 or 16)
+    K-major slice per K step (:func:`tail_slices`), tap = 4 tz + 2 ty + tx,
+    ``[wa; wb]`` stacked along the slice axis:
+
+    - ``w32[tap, s, o, c]`` for the s-th 32-channel slice (xa's, then
+      xb's), shape (8, n32, n_tile, 32), or None when there is none;
+    - ``w16[tap, s, o, c]`` for the s-th 16-channel slice, shape
+      (8, n16, n_tile, 16), or None; zero for a channel a 32-channel slice
+      of the same operand already holds;
+
+    zero past C and where o >= Co; bf16, contiguous."""
+    imgs = [weight_images(w.reshape(8, w.shape[3], w.shape[4]), n_tile)
+            for w in (wa, wb) if w is not None and w.shape[3] > 0]
+    w32 = torch.cat([i32 for i32, _ in imgs], dim=1)
+    w16 = [i16 for _, i16 in imgs if i16 is not None]
+    return (w32 if w32.shape[1] else None,
+            torch.stack(w16, dim=1) if w16 else None)
+
+
 # -- kernel launches ----------------------------------------------------------
+def _stage_wgmma(lib, stream, xa, xb, wa, wb, b, logits):
+    """One launch of the wgmma stage kernel; with ``logits = (wl, bl)`` its
+    epilogue computes them and the stage output is not stored."""
+    B, D, H, W, ca = xa.shape
+    co = wa.shape[4]
+    n_tile = tail_tile(co)
+    w32, w16 = tail_weights(wa, None if xb is None else wb, n_tile)
+    bz, by, bx = tail_box((D - 1, H - 1, W - 1))
+    b = b.to(torch.bfloat16).contiguous()
+    if logits is None:
+        wl = bl = None
+        n_logits = 0
+        out = torch.empty((B, D - 1, H - 1, W - 1, co), dtype=torch.bfloat16,
+                          device=xa.device)
+    else:
+        wl = logits[0].to(torch.bfloat16).contiguous()
+        bl = logits[1].float().contiguous()
+        n_logits = bl.shape[0]
+        out = torch.empty((B, D - 1, H - 1, W - 1, n_logits),
+                          dtype=torch.float32, device=xa.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.fpl_tail_stage_wgmma(
+        xa.data_ptr(), ptr(xb), ptr(w32), ptr(w16), b.data_ptr(), ptr(wl),
+        ptr(bl), out.data_ptr(), B, D, H, W, ca,
+        0 if xb is None else xb.shape[4], co, n_logits, n_tile, TAIL_ROWS, bz,
+        by, bx, stream)
+    if err != 0:
+        raise RuntimeError("packed tail stage kernel launch failed (wgmma "
+                           f"route): cudaError {err}")
+    return out
+
+
 def _stage(lib, stream, xa, xb, wa, wb, b):
-    """One launch of the stage kernel: relu(round(conv2(xa, wa) [+
-    conv2(xb, wb)]) + b), NDHWC in, NDHWC out, in xa's dtype."""
+    """One launch of the stage kernel of ``csrc/packed_tail.cu`` (the "wmma"
+    and "fma" routes): relu(round(conv2(xa, wa) [+ conv2(xb, wb)]) + b),
+    NDHWC in, NDHWC out, in xa's dtype."""
     dt = xa.dtype
     B, D, H, W, ca = xa.shape
     co = wa.shape[4]
@@ -153,21 +279,39 @@ def _logits(lib, stream, a, wl, bl):
 
 
 def _run_chain(x, xb, stage0, ws, bs, logits):
-    """Launch the chain on x's card; the first stage may have two operands."""
+    """Launch the chain on x's card; the first stage may have two operands.
+    Returns the result and the route of every stage launched."""
     from flypylib_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    stages = [(None, w, None, b) for w, b in zip(ws, bs)]
+    if stage0 is not None:
+        wa, wb, b0 = stage0
+        stages.insert(0, (xb, wa, wb, b0))
+    routes = []
+    fused = False  # the logits came out of the last stage's epilogue
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         cur = x
-        if stage0 is not None:
-            wa, wb, b0 = stage0
-            cur = _stage(lib, stream, x, xb, wa, wb, b0)
-        for w, b in zip(ws, bs):
-            cur = _stage(lib, stream, cur, None, w, None, b)
-        if logits is not None:
+        for i, (xb, wa, wb, b) in enumerate(stages):
+            route = tail_route(cur, xb, wa)
+            if route == "wgmma":
+                fused = (logits is not None and i == len(stages) - 1
+                         and logits[1].shape[0] <= TAIL_MAX_LOGITS)
+                cur = _stage_wgmma(lib, stream, cur, xb, wa, wb, b,
+                                   logits if fused else None)
+            else:
+                cur = _stage(lib, stream, cur, xb, wa, wb, b)
+            routes.append(route)
+        if logits is not None and not fused:
             cur = _logits(lib, stream, cur, *logits)
-    return cur
+    return cur, routes
+
+
+def _count(wrapper, routes):
+    wrapper.launches += 1
+    for route in routes:
+        wrapper.routes[route] += 1
 
 
 def _empty_result(x, n, c_last, logits):
@@ -191,8 +335,8 @@ def packed_tail(x: torch.Tensor, stages, logits=None) -> torch.Tensor:
         to ``x.dtype``, and ``bl`` (L,) f32.
     Returns (B, D-n, H-n, W-n, L) f32 with logits, else (..., Cn) in
     ``x.dtype``.  A CPU tensor runs :func:`tail_reference`; a CUDA tensor
-    launches the kernels (and adds one to ``packed_tail.launches``) or
-    raises."""
+    launches the kernels (and adds one to ``packed_tail.launches``, and one
+    per stage to that stage's route in ``packed_tail.routes``) or raises."""
     stages = list(stages)
     ws = [w for w, _ in stages]
     bs = [b for _, b in stages]
@@ -207,8 +351,8 @@ def packed_tail(x: torch.Tensor, stages, logits=None) -> torch.Tensor:
     if x.shape[0] == 0:  # a launch with an empty grid is refused
         return _empty_result(x, len(ws), ws[-1].shape[4] if ws else x.shape[4],
                              logits)
-    out = _run_chain(x, None, None, ws, bs, logits)
-    packed_tail.launches += 1
+    out, routes = _run_chain(x, None, None, ws, bs, logits)
+    _count(packed_tail, routes)
     return out
 
 
@@ -250,10 +394,12 @@ def packed_tail2(xa: torch.Tensor, xb: torch.Tensor, stage0, stages=(),
     _check_cuda([xb, wa, wb, b0, *ws, *bs, *(logits or ())], xa)
     if xa.shape[0] == 0:  # a launch with an empty grid is refused
         return _empty_result(xa, n, ws[-1].shape[4] if ws else co, logits)
-    out = _run_chain(xa, xb, stage0, ws, bs, logits)
-    packed_tail2.launches += 1
+    out, routes = _run_chain(xa, xb, stage0, ws, bs, logits)
+    _count(packed_tail2, routes)
     return out
 
 
 packed_tail.launches = 0
 packed_tail2.launches = 0
+packed_tail.routes = dict.fromkeys(TAIL_ROUTES, 0)
+packed_tail2.routes = dict.fromkeys(TAIL_ROUTES, 0)

@@ -6,8 +6,9 @@
 Imports ``flypylib_tpu_torch`` and ``chip_smoke`` from DIR (default: this
 checkout), so two checkouts can be compared on one card by running it once
 per checkout, in turns (A, B, B, A).  For the plain baseline
-(``packed=False``), the packed baseline (the default), the unfused U-Net
-(the default) and the plain U-Net, all bf16 with seed-0 weights on
+(``packed=False``), the packed baseline (the default), the packed U-Net with
+the K3 tail (``pallas2``), the K2 tail (``pallas``) and the unfused tail
+(``xla``, the default), and the plain U-Net, all bf16 with seed-0 weights on
 ``chip_smoke``'s 256^3 blob volume at its operating threshold (the 2000th
 largest probability): one warm-up detect, then N timed detects, each
 ending in a synchronise.  Prints the median, min and max Mvox/s per engine
@@ -43,6 +44,8 @@ def main() -> int:
                                                   seed=0, packed=False),
         "packed baseline": lambda: port.FplNetwork("baseline", device="cuda",
                                                    seed=0),
+        "unet pallas2": lambda: cs.unet_net(port, "pallas2", "cuda"),
+        "unet pallas": lambda: cs.unet_net(port, "pallas", "cuda"),
         "unet xla": lambda: cs.unet_net(port, "xla", "cuda"),
         "unet plain": lambda: cs.unet_net(port, "plain", "cuda"),
     }

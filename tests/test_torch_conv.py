@@ -76,6 +76,31 @@ def test_matches_pallas_kernel(rng, shape, ci, co, d, dtype):
     _assert_close(got[0], ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,ci,co,d", [
+    ((9, 10, 11), 4, 8, 3),     # a dilation outside {1, 2, 4}
+    ((5, 6, 7), 8, 192, 1),     # Co past 128: the 3-level U-Net's bottleneck
+    ((9, 8, 10), 1, 136, 3),    # both, on Ci = 1
+])
+def test_any_dilation_and_any_co_match_the_reference(rng, shape, ci, co, d,
+                                                     dtype):
+    """The wrapper takes what the reference's plain path takes (Flax
+    ``nn.Conv``: any dilation, any Co) and equals the JAX package's lax
+    reference of K1 there."""
+    x, w, b = _inputs(rng, shape, ci, co)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj = jnp.asarray(x).astype(jdt)
+    ref = np.asarray(jconv.conv3d_reference(
+        xj, jnp.asarray(w).astype(jdt), jnp.asarray(b).astype(jdt), d
+    ).astype(jnp.float32))
+    got = conv3d_bias_relu(torch.from_numpy(x).to(dtype)[None],
+                           torch.from_numpy(w), torch.from_numpy(b), d)
+    assert got.dtype == dtype and got.shape == (1, *ref.shape)
+    assert got.shape[-1] == co and got.shape[1] == shape[0] - 2 * d
+    _assert_close(got[0], ref, dtype)
+
+
 def test_batch_of_two_is_two_volumes(rng):
     x, w, b = _inputs(rng, (9, 10, 11), 5, 8, batch=2)
     got = conv3d_bias_relu(torch.from_numpy(x), torch.from_numpy(w),

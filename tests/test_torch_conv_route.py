@@ -132,3 +132,24 @@ def test_main_path_boxes_waste_little():
         box = wgmma_box((extent,) * 3)
         blocks = math.prod(-(-extent // b) for b in box)
         assert blocks * WGMMA_ROWS / extent**3 - 1 < 0.05
+
+
+def test_any_co_runs_in_blocks_of_output_channels():
+    """K1's domain is the reference's: no cap on Co or on the dilation.  The
+    wgmma kernel takes a layer wider than its widest N tile in equal blocks
+    of output channels, each a multiple of 8 that an N tile holds."""
+    from flypylib_tpu_torch.ops import conv
+
+    assert not hasattr(conv, "MAX_CO") and not hasattr(conv, "DILATIONS")
+    assert conv.wgmma_chunks(64) == [(0, 64)]
+    assert conv.wgmma_chunks(128) == [(0, 128)]
+    assert conv.wgmma_chunks(192) == [(0, 96), (96, 96)]
+    assert conv.wgmma_chunks(136) == [(0, 72), (72, 64)]
+    for co in range(8, 1025, 8):
+        chunks = conv.wgmma_chunks(co)
+        assert [c0 for c0, _ in chunks] == [
+            sum(n for _, n in chunks[:i]) for i in range(len(chunks))]
+        assert sum(n for _, n in chunks) == co
+        assert all(n % 8 == 0 and wgmma_tile(n) >= n for _, n in chunks)
+        assert len(chunks) == -(-co // WGMMA_N_TILES[-1])
+    assert k1_route(_x(96), _w(96, 192)) == "wgmma"

@@ -14,7 +14,9 @@ main path's widths at every dilation, Ci = 96 into Co = 96 and 128, the
 16-channel last slice (Ci % 32 <= 16), ragged extents and batch 2.  The
 others pin the old kernels: the element gather of the WMMA kernel (widths
 off the multiples of 8, an input 2 bytes off a 16-byte boundary), both its
-tile widths, the f32 FMA kernel and the Ci = 1 kernel.
+tile widths, the f32 FMA kernel and the Ci = 1 kernel.  Every route takes
+any dilation and any Co, as the reference does: cases at d = 3 and at
+Co = 136, 192 and 264 run on each.
 
 K5 (``parity_split_kernel``) is a copy: bitwise equal to its plain
 version, at every unit width the kernel picks (16-byte runs down to 2-byte
@@ -31,6 +33,11 @@ stage's two rounding points for single stages, rtol = atol = 2e-2 for
 chains.  Cases cover the main path's widths (Ci 240, or 192 + 48, into
 192), one and two stages, with and without logits, both dtypes, batch 2,
 channel counts off the multiples of 8 (the element gather) and Co <= 32.
+Every case asserts the route of its stages (``tail_route``): bf16 with
+channel counts in multiples of 8 takes the wgmma/TMA kernel, whose last
+stage computes the logits in its epilogue; ``chip_smoke``'s small cases
+(ragged boxes, odd extents, a 16-channel rest, batch 3, more logits than
+the epilogue takes) run here too.
 """
 
 import numpy as np
@@ -144,12 +151,45 @@ def test_empty_batch_and_rejections(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         conv3d_bias_relu(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError, match="dilation"):
-        conv3d_bias_relu(torch.zeros((1, 9, 9, 9, 4), device=cuda), w, b, 3)
+        conv3d_bias_relu(x, w, b, 0)
     with pytest.raises(ValueError, match="same device"):
         conv3d_bias_relu(x, w.cpu(), b)
-    big_w = torch.zeros((3, 3, 3, 4, 129), device=cuda)
-    with pytest.raises(ValueError, match="Co"):
-        conv3d_bias_relu(x, big_w, torch.zeros(129, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ci,co,d", [
+    (32, 48, 3), (24, 32, 5),       # dilations outside {1, 2, 4}
+    (96, 192, 1), (64, 136, 2),     # Co past 128: two N blocks (96 + 96, 72 + 64)
+    (32, 264, 3),                   # three N blocks of 88
+    (1, 192, 3), (1, 129, 1),       # the Ci = 1 kernel in two launches
+    (12, 136, 3), (5, 200, 1),      # off the multiples of 8: N blocks of the
+])                                  # WMMA (bf16) and FMA (f32) kernels
+def test_any_dilation_and_any_co(cuda, ci, co, d, dtype):
+    x, w, b = _inputs((15, 16, 21), ci, co, batch=2)
+    _check(x.to(dtype).to(cuda), w.to(cuda), b.to(cuda), d)
+
+
+@pytest.mark.parametrize("make", [
+    lambda zoo: zoo.baseline_model(dilations=(1, 1, 3, 3), dtype=torch.float32),
+    lambda zoo: zoo.unet(levels=3, dtype=torch.float32),  # bottleneck Co 192
+], ids=["baseline-d3", "unet-levels3"])
+def test_models_past_the_old_caps_match_the_cpu(cuda, make):
+    """A baseline at dilation 3 (no packed engine takes it) and the plain
+    three-level U-Net, f32, on the card against the CPU's plain versions."""
+    from flypylib_tpu_torch.models import zoo
+
+    spec = make(zoo)
+    s = spec.valid_size(spec.min_size + 4)
+    x = np.random.default_rng(0).random((1, s, s, s, 1)).astype(np.float32)
+    with torch.no_grad():
+        want = spec.module(torch.from_numpy(x))
+        before = conv3d_bias_relu.launches
+        got = spec.module.to(cuda)(torch.from_numpy(x).to(cuda))
+        torch.cuda.synchronize()
+    assert conv3d_bias_relu.launches == before + len(spec.module.convs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
 
 
 TAIL_CASES = {
@@ -185,6 +225,15 @@ def _tail_args(ca, cb, co, n_after, logits, dtype, device, seed=0):
     return xa, xb, stage0, stages, lg
 
 
+def _tail_route(dtype, ca, cb, co):
+    """The route the rule of ``tail_route`` gives aligned operands, written
+    out."""
+    if dtype == torch.float32:
+        return "fma"
+    on_rule = ca % 8 == 0 and cb % 8 == 0 and co % 8 == 0 and co <= 192
+    return "wgmma" if on_rule else "wmma"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(TAIL_CASES))
@@ -192,24 +241,53 @@ def test_tail_kernels_match_plain(cuda, case, dtype):
     ca, cb, co, n_after, logits = TAIL_CASES[case]
     xa, xb, (wa, wb, b0), stages, lg = _tail_args(ca, cb, co, n_after, logits,
                                                  dtype, cuda)
+    route = _tail_route(dtype, ca, cb, co)
+    assert tail.tail_route(xa, xb if cb else None, wa) == route
+    wrapper = tail.packed_tail2 if cb else tail.packed_tail
+    before = wrapper.launches
+    routes = dict(wrapper.routes)
     if cb:
-        before = tail.packed_tail2.launches
         got = tail.packed_tail2(xa, xb, (wa, wb, b0), stages, lg)
-        torch.cuda.synchronize()
-        assert tail.packed_tail2.launches == before + 1
         ref = tail.tail2_reference(xa, xb, (wa, wb, b0), stages, lg)
         pre = conv3d_f32(xa, wa.to(dtype)) + conv3d_f32(xb, wb.to(dtype))
     else:
-        before = tail.packed_tail.launches
         got = tail.packed_tail(xa, [(wa, b0)] + stages, lg)
-        torch.cuda.synchronize()
-        assert tail.packed_tail.launches == before + 1
         ref = tail.tail_reference(xa, [(wa, b0)] + stages, lg)
         pre = conv3d_f32(xa, wa.to(dtype))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    routes[route] += 1  # one count per stage launched, each by its widths
+    routes[_tail_route(dtype, co, 0, co)] += n_after
+    assert wrapper.routes == routes
     assert got.shape == ref.shape and got.dtype == ref.dtype
     single = not stages and lg is None
     err, ok = chip_smoke.tail_check(got.cpu(), ref.cpu(), dtype,
                                     pre.to(dtype).cpu() if single else None)
+    assert ok, f"max |err| {err}"
+
+
+def test_tail_small_cases_of_the_smoke_run(cuda):
+    """``chip_smoke``'s small K2 / K3 cases, each on the route it names."""
+    chip_smoke.check_tail_small("test")
+
+
+def test_tail_unaligned_operand_takes_the_wmma_kernel(cuda):
+    # xb a contiguous view 2 bytes past a 16-byte boundary
+    xa, xb, s0, stages, lg = _tail_args(16, 8, 24, 1, True, torch.bfloat16, cuda)
+    flat = torch.zeros(xb.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = xb.reshape(-1)
+    off = flat[1:].view(xb.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    assert tail.tail_route(xa, off, s0[0]) == "wmma"
+    assert tail.tail_route(xa, xb, s0[0]) == "wgmma"
+    routes = dict(tail.packed_tail2.routes)
+    got = tail.packed_tail2(xa, off, s0, stages, lg)
+    torch.cuda.synchronize()
+    routes["wmma"] += 1   # stage 0; the next stage's input is aligned again
+    routes["wgmma"] += 1
+    assert tail.packed_tail2.routes == routes
+    ref = tail.tail2_reference(xa, xb, s0, stages, lg)
+    err, ok = chip_smoke.tail_check(got.cpu(), ref.cpu(), torch.bfloat16)
     assert ok, f"max |err| {err}"
 
 
