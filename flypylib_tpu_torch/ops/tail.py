@@ -161,11 +161,12 @@ def tail_tile(co: int) -> int:
 
 
 def tail_box(out_dhw: tuple[int, int, int],
-             rows: int = TAIL_ROWS) -> tuple[int, int, int]:
+             rows: int | None = None) -> tuple[int, int, int]:
     """The output box (bz, by, bx) of one tile of the wgmma kernel, at most
-    ``rows`` voxels: the fewest tiles, then the least halo (K1's search,
-    :func:`wgmma_box`, with the 2^3 stage's one-voxel reach)."""
-    return wgmma_box(tuple(out_dhw), rows, 1)
+    ``rows`` voxels (``TAIL_ROWS`` if None): the fewest tiles, then the
+    least halo (K1's search, :func:`wgmma_box`, with the 2^3 stage's
+    one-voxel reach)."""
+    return wgmma_box(tuple(out_dhw), TAIL_ROWS if rows is None else rows, 1)
 
 
 def tail_slices(ca: int, cb: int = 0) -> list[tuple[str, int, int]]:

@@ -70,7 +70,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     for rows in (128, 192):
         tail.TAIL_ROWS = rows
-        print(f"rows per block {rows}:", flush=True)
+        box = tail.tail_box((131, 131, 131))
+        assert rows - 64 < box[0] * box[1] * box[2] <= rows, (rows, box)
+        print(f"rows per block {rows}, main-path box {box}:", flush=True)
         chip_smoke.check_tail_small(card)
         if not args.quick:
             time_main(card)
