@@ -129,11 +129,16 @@ UNET_LOGIT_TOL_F32 = 1e-3
 UNET_LOGIT_TOL_BF16 = 0.25
 # the plain three-level U-Net (context 44): a map of 8 tiles of 20^3 (tile in
 # 108, stride 16) in 4 batches, and one tile batch's logits against the
-# CPU's, relative to max |logit|.  bf16: the two-level U-Net's sound
-# readings above are 0.0026-0.0037 of its max |logit| (39.2) and its limit
-# 0.0064; the deeper net has 14 convs for 10, so 1e-2.
+# CPU's, relative to max |logit|.  scripts/probe_deep_unet_limit.py on an
+# H100, volume seeds 1-3: sound 1.6e-06-2.1e-06 (f32) and 0.0043-0.0088
+# (bf16); the second 96-channel launch of the Co = 192 bottleneck convs
+# zeroed or written one channel off reads 8.9e-04-1.9e-03 in f32 and
+# 0.0049-0.0091 in bf16.  So the f32 limit catches such a fault, and the
+# bf16 limit only bounds the rounding: an untrained bottleneck moves the
+# logits less than bf16 rounds them (PERF.md).
 DEEP_UNET_SMALL = 36
 DEEP_UNET_TILING = (20, 2)
+DEEP_UNET_RTOL_F32 = 1e-4
 DEEP_UNET_RTOL_BF16 = 1e-2
 # the 256^3 U-Net engines: tail_impl, or "plain" for packed=False
 UNET_ENGINES = ("pallas2", "pallas", "xla", "plain")
@@ -1148,9 +1153,9 @@ def check_deep_unet(port, card_str: str) -> None:
     weights.  An untrained net this deep saturates the sigmoid (p is
     exactly 0 or 1 in places), so the logits are compared as the module
     returns them, relative to their largest magnitude: f32
-    UNET_LOGIT_TOL_F32, bf16 DEEP_UNET_RTOL_BF16."""
+    DEEP_UNET_RTOL_F32, bf16 DEEP_UNET_RTOL_BF16."""
     vol = make_volume_u8(DEEP_UNET_SMALL, 2, seed=1)
-    for dtype, rtol in ((torch.float32, UNET_LOGIT_TOL_F32),
+    for dtype, rtol in ((torch.float32, DEEP_UNET_RTOL_F32),
                         (torch.bfloat16, DEEP_UNET_RTOL_BF16)):
         gpu = port.FplNetwork("unet", device="cuda", seed=0, dtype=dtype,
                               levels=3, packed=False)

@@ -25,8 +25,9 @@
 // (B, D-1, H-1, W-1, L) f32, and s never reaches device memory.
 //
 // The GEMM: M = output voxels, N = Co, K = 8 taps x (Ca + Cb).
-// - A block owns output boxes (bz, by, bx) of 64 NWG rows (NWG consumer
-//   warpgroups, one m64 row block each) and the whole of N: the N tile NT is
+// - A block owns output boxes (bz, by, bx) of up to 192 voxels (three
+//   consumer warpgroups, one m64 row block each) and the whole of N: the N
+//   tile NT is
 //   Co rounded up to one of 32/64/96/128/192, so each A tile is loaded once
 //   whatever Co is, and one m64nNTk16 accumulator is NT/2 f32 registers a
 //   thread (96 at Co = 192).  Blocks are persistent: the grid is one block
@@ -41,8 +42,8 @@
 //   load of the step's (NT x 32 or 16) slice of the weight images the
 //   wrapper lays out ([wa; wb] stacked, K-major, zero-padded bf16).
 // - A ring of (A, B) stages in dynamic shared memory with full and empty
-//   mbarriers; warp 4 NWG is the producer (one thread issues the loads),
-//   the warpgroups before it are consumers: per step two k16 wgmma (one for
+//   mbarriers; warp 12 is the producer (one thread issues the loads), the
+//   three warpgroups before it are consumers: per step two k16 wgmma (one for
 //   a 16-channel slice), wait_group 1, release of the step before.
 // - Epilogue from registers.  Without logits: round, bias, round, ReLU,
 //   stored as bf16 pairs along the channel axis.  With logits: the same
@@ -57,18 +58,19 @@
 // (1.35 ms) against 3.0 ms of tensor-core work, so the stages are bound by
 // operations.  Every block re-reads the whole weight image (0.74 MB at
 // stage 0) and every input value 8 times through L2: per K step an SM takes
-// in 64 NWG x 64 bytes of A and 12 KB of B for 64 NWG x 192 x 32 x 2 FLOP,
-// 1/N + 1/M bytes per FLOP, which at the tensor cores' peak would be
-// ~12.6 TB/s into the SMs; the kernel runs where that stream reads 5.7-6.9
-// TB/s.  What the design does about it: every byte goes by TMA, N covers Co
-// so A is loaded once, and the persistent ring overlaps the epilogue with
-// the next tile's loads.  Two blocks of a cluster sharing each weight slice
-// by TMA multicast (half the L2 reads, the same bytes into each SM) were
-// measured and were no faster, so the limit is the SMs' intake, not the
-// L2's output; 192 rows per block (three consumer warpgroups, capped at 128
-// registers a thread) were measured slower than 128 (two, 164 registers),
-// and four warpgroups of m64n192 accumulators do not fit beside a producer
-// warp (PERF.md has the times).
+// in 12 KB of A and 12 KB of B for 192 x 192 x 32 x 2 FLOP, 1/N + 1/M bytes
+// per FLOP, which at the tensor cores' peak would be ~10 TB/s into the SMs;
+// the kernel runs where that stream reads 5.0-6.4 TB/s.  What the design
+// does about it: every byte goes by TMA, N covers Co so A is loaded once,
+// the block is as many rows as the registers hold, and the persistent ring
+// overlaps the epilogue with the next tile's loads.  Three consumer
+// warpgroups (192 rows, 128 registers a thread, no spills) were measured
+// faster than two (128 rows, 164 registers) by 3-12% of the whole tail; four
+// warpgroups of m64n192 accumulators do not fit beside a producer warp (122
+// registers needed where 17 warps, allocated as 20, leave 96).  Two blocks
+// of a cluster sharing each weight slice by TMA multicast (half the L2
+// reads, the same bytes into each SM) were measured at 128 rows and were no
+// faster (PERF.md has the times).
 //
 // C entry: fpl_tail_stage_wgmma(...) encodes the tensor maps, launches on
 // the given stream and returns cudaGetLastError() (or cudaErrorInvalidValue
@@ -100,16 +102,17 @@ struct TailArgs {
   int bz, by, bx, tiles_z, tiles_y, tiles_x, n_tiles;
 };
 
-template <int NT, int NWG>
+template <int NT>
 struct Tile {
-  static constexpr int kRows = 64 * NWG;
+  static constexpr int kWarpgroups = 3;  // consumers, one m64 row block each
+  static constexpr int kRows = 64 * kWarpgroups;
   static constexpr int kABytes = kRows * kRowBytes;
   static constexpr int kBBytes = ((NT * kRowBytes + 1023) / 1024) * 1024;
   static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kStages =
       kRingBytes / kStageBytes < 8 ? kRingBytes / kStageBytes : 8;
   static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
-  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kConsumers = 128 * kWarpgroups;
   static constexpr int kThreads = kConsumers + 32;  // + one producer warp
 };
 
@@ -153,11 +156,11 @@ __device__ __forceinline__ Box tile_box(int t, const TailArgs& a) {
   return b;
 }
 
-template <int NT, int NWG>
-__global__ void __launch_bounds__(Tile<NT, NWG>::kThreads)
+template <int NT>
+__global__ void __launch_bounds__(Tile<NT>::kThreads)
 tail_wgmma_kernel(const __grid_constant__ TailMaps tm,
                   const __grid_constant__ TailArgs a) {
-  using T = Tile<NT, NWG>;
+  using T = Tile<NT>;
   constexpr int kStages = T::kStages;
   constexpr int kWlPitch = NT + 8;  // bf16: the B fragment reads hit 32 banks
   static_assert(NT % 16 == 0 && NT <= 192, "N tile");
@@ -370,11 +373,11 @@ void slices(int C, int* full, int* half, int* last) {
   *last = C > kKC / 2 ? C - kKC / 2 : 0;
 }
 
-template <int NT, int NWG>
+template <int NT>
 int launch(const TailMaps& m, TailArgs a, int B, cudaStream_t stream) {
-  using T = Tile<NT, NWG>;
+  using T = Tile<NT>;
   if (a.bz * a.by * a.bx > T::kRows) return (int)cudaErrorInvalidValue;
-  auto kernel = tail_wgmma_kernel<NT, NWG>;
+  auto kernel = tail_wgmma_kernel<NT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return (int)e;
@@ -407,18 +410,16 @@ bool aligned16(const void* p) {
 // slices (null if none); bf16, zero past C and Co and where a 32-channel
 // slice holds the channel.  b (Co,) bf16.  wl (Co, 2L) bf16 and bl (L,) f32,
 // or both null.  out (B, D-1, H-1, W-1, Co) bf16, or (.., L) f32 with
-// logits.  n_tile is one of 32/64/96/128/192 (>= Co); rows is the block's
-// row count, 128 or 192 (four consumer warpgroups of m64n192 accumulators
-// would need 122 registers a thread where 17 warps, allocated as 20, leave
-// 96), and the output box bz*by*bx at most that.
+// logits.  n_tile is one of 32/64/96/128/192 (>= Co); the output box
+// bz*by*bx is at most 192 voxels.
 // All contiguous; shapes are checked by the Python wrapper.
 extern "C" int fpl_tail_stage_wgmma(const void* xa, const void* xb,
                                     const void* w32, const void* w16,
                                     const void* b, const void* wl,
                                     const void* bl, void* out, int B, int D,
                                     int H, int W, int Ca, int Cb, int Co,
-                                    int L, int n_tile, int rows, int bz,
-                                    int by, int bx, void* stream) {
+                                    int L, int n_tile, int bz, int by,
+                                    int bx, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
   TailArgs a = {};
   slices(Ca, &a.a_full, &a.a_half, &a.a_last);
@@ -460,17 +461,12 @@ extern "C" int fpl_tail_stage_wgmma(const void* xa, const void* xb,
   a.Do = D - 1, a.Ho = H - 1, a.Wo = W - 1, a.Co = Co, a.L = L;
   a.bz = bz, a.by = by, a.bx = bx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FPL_TAIL_CASE(NT, NWG)            \
-  if (n_tile == NT && rows == 64 * NWG) \
-    return launch<NT, NWG>(m, a, B, s);
-#define FPL_TAIL_CASES(NT) \
-  FPL_TAIL_CASE(NT, 2) FPL_TAIL_CASE(NT, 3)
-  FPL_TAIL_CASES(32)
-  FPL_TAIL_CASES(64)
-  FPL_TAIL_CASES(96)
-  FPL_TAIL_CASES(128)
-  FPL_TAIL_CASES(192)
-#undef FPL_TAIL_CASES
-#undef FPL_TAIL_CASE
+  switch (n_tile) {
+    case 32: return launch<32>(m, a, B, s);
+    case 64: return launch<64>(m, a, B, s);
+    case 96: return launch<96>(m, a, B, s);
+    case 128: return launch<128>(m, a, B, s);
+    case 192: return launch<192>(m, a, B, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -48,7 +48,7 @@ from flypylib_tpu_torch.ops.conv import (WGMMA_KC, conv3d_f32, matmul_f32,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TAIL_ROUTES = ("wgmma", "wmma", "fma")
 TAIL_N_TILES = (32, 64, 96, 128, 192)  # the wgmma kernel's N tiles
-TAIL_ROWS = 128  # output voxels per block of the wgmma kernel: 128 or 192
+TAIL_ROWS = 192  # output voxels per block of the wgmma kernel
 TAIL_MAX_LOGITS = 8  # logits the wgmma kernel's epilogue computes
 
 
@@ -160,13 +160,11 @@ def tail_tile(co: int) -> int:
     return n_tile
 
 
-def tail_box(out_dhw: tuple[int, int, int],
-             rows: int | None = None) -> tuple[int, int, int]:
+def tail_box(out_dhw: tuple[int, int, int]) -> tuple[int, int, int]:
     """The output box (bz, by, bx) of one tile of the wgmma kernel, at most
-    ``rows`` voxels (``TAIL_ROWS`` if None): the fewest tiles, then the
-    least halo (K1's search, :func:`wgmma_box`, with the 2^3 stage's
-    one-voxel reach)."""
-    return wgmma_box(tuple(out_dhw), TAIL_ROWS if rows is None else rows, 1)
+    ``TAIL_ROWS`` voxels: the fewest tiles, then the least halo (K1's
+    search, :func:`wgmma_box`, with the 2^3 stage's one-voxel reach)."""
+    return wgmma_box(tuple(out_dhw), TAIL_ROWS, 1)
 
 
 def tail_slices(ca: int, cb: int = 0) -> list[tuple[str, int, int]]:
@@ -235,8 +233,8 @@ def _stage_wgmma(lib, stream, xa, xb, wa, wb, b, logits):
     err = lib.fpl_tail_stage_wgmma(
         xa.data_ptr(), ptr(xb), ptr(w32), ptr(w16), b.data_ptr(), ptr(wl),
         ptr(bl), out.data_ptr(), B, D, H, W, ca,
-        0 if xb is None else xb.shape[4], co, n_logits, n_tile, TAIL_ROWS, bz,
-        by, bx, stream)
+        0 if xb is None else xb.shape[4], co, n_logits, n_tile, bz, by, bx,
+        stream)
     if err != 0:
         raise RuntimeError("packed tail stage kernel launch failed (wgmma "
                            f"route): cudaError {err}")

@@ -3,9 +3,9 @@
 
     python3 scripts/probe_deep_unet_limit.py     # on a CUDA card
 
-For volume seeds 1-3, ``FplNetwork("unet", levels=3, packed=False)`` in bf16
-(seed-0 weights) runs the first tile batch of a 36^3 blob volume on the card
-and on the CPU, and prints max |logit difference| over max |logit| between
+For volume seeds 1-3 and f32 / bf16, ``FplNetwork("unet", levels=3,
+packed=False)`` (seed-0 weights) runs the first tile batch of a 36^3 blob
+volume on the card and on the CPU, and prints max |logit difference| over max |logit| between
 the two, as ``chip_smoke.check_deep_unet`` reads it: the sound reading, then
 the card's logits with the output of every Co = 192 conv (the bottleneck,
 which K1's wgmma route runs as two launches of 96 channels) broken in memory
@@ -13,9 +13,10 @@ against the same CPU logits:
 - "second chunk zeroed": channels 96-191 set to 0;
 - "second chunk one channel off": channels 96-191 rotated by one channel,
   what a wrong output offset of the second launch would write;
-- "one ulp high": every output one bf16 ulp further from 0, a rounding slip
-  the size of the sound gap.
-A limit must sit above every sound reading and below the broken ones.
+- "one ulp high": every output one bf16 ulp further from 0 (bf16 only), a
+  rounding slip the size of the sound gap.
+A limit must sit above every sound reading; a limit that also sits below the
+broken readings catches such a fault on its own.
 """
 
 from __future__ import annotations
@@ -60,29 +61,35 @@ def main() -> int:
     broken = {"second chunk zeroed": zeroed,
               "second chunk one channel off": shifted,
               "one ulp high": ulp_high}
-    kw = dict(seed=0, dtype=torch.bfloat16, levels=3, packed=False)
-    gpu = port.FplNetwork("unet", device="cuda", **kw)
-    cpu = port.FplNetwork("unet", device="cpu", **kw)
-    cpu.module.load_state_dict(gpu.module.state_dict())
-    for seed in (1, 2, 3):
-        vol = chip_smoke.make_volume_u8(chip_smoke.DEEP_UNET_SMALL, 2, seed=seed)
-        tiles = chip_smoke.first_tile_batch(gpu.infer_spec, vol)
-        tiles = tiles[:chip_smoke.DEEP_UNET_TILING[1]]
-        with torch.no_grad():
-            lc = cpu.module(tiles.cpu())
-            readings = {"sound": gpu.module(tiles).cpu()}
-            for name, fault in broken.items():
-                zoo.conv3d_bias_relu = breaking(fault)
-                try:
-                    readings[name] = gpu.module(tiles).cpu()
-                finally:
-                    zoo.conv3d_bias_relu = real
-        scale = float(lc.abs().max())
-        line = "; ".join(f"{k} {float((v - lc).abs().max()) / scale:.6g}"
-                         for k, v in readings.items())
-        print(f"unet levels=3 plain bf16, volume seed {seed}, max |dlogit| / "
-              f"max |logit| card vs CPU: {line} (max|logit| {scale:.6g}; limit "
-              f"{chip_smoke.DEEP_UNET_RTOL_BF16:g}) [{card}]", flush=True)
+    for dtype, rtol in ((torch.float32, chip_smoke.DEEP_UNET_RTOL_F32),
+                        (torch.bfloat16, chip_smoke.DEEP_UNET_RTOL_BF16)):
+        dt = str(dtype).replace("torch.", "")
+        kw = dict(seed=0, dtype=dtype, levels=3, packed=False)
+        gpu = port.FplNetwork("unet", device="cuda", **kw)
+        cpu = port.FplNetwork("unet", device="cpu", **kw)
+        cpu.module.load_state_dict(gpu.module.state_dict())
+        for seed in (1, 2, 3):
+            vol = chip_smoke.make_volume_u8(chip_smoke.DEEP_UNET_SMALL, 2,
+                                            seed=seed)
+            tiles = chip_smoke.first_tile_batch(gpu.infer_spec, vol)
+            tiles = tiles[:chip_smoke.DEEP_UNET_TILING[1]]
+            with torch.no_grad():
+                lc = cpu.module(tiles.cpu())
+                readings = {"sound": gpu.module(tiles).cpu()}
+                for name, fault in broken.items():
+                    if fault is ulp_high and dtype != torch.bfloat16:
+                        continue
+                    zoo.conv3d_bias_relu = breaking(fault)
+                    try:
+                        readings[name] = gpu.module(tiles).cpu()
+                    finally:
+                        zoo.conv3d_bias_relu = real
+            scale = float(lc.abs().max())
+            line = "; ".join(f"{k} {float((v - lc).abs().max()) / scale:.6g}"
+                             for k, v in readings.items())
+            print(f"unet levels=3 plain {dt}, volume seed {seed}, max |dlogit| "
+                  f"/ max |logit| card vs CPU: {line} (max|logit| {scale:.6g}; "
+                  f"limit {rtol:g}) [{card}]", flush=True)
     return 0
 
 

@@ -4,15 +4,13 @@
     python3 scripts/probe_tail_wgmma.py [--quick]
 
 Builds the kernels, prints the compiler's register/spill report of
-``packed_tail_wgmma.cu``, and for each row count per block the kernel is
-built for (128, 192: two or three consumer warpgroups) holds K2
-and K3 against their plain versions at ``chip_smoke``'s small shapes (ragged
-boxes, odd extents, one and two operands, a 16-channel rest, batch > 1,
-logits in the epilogue), then, unless ``--quick``, times the
-main path's stages (132^3 cells, 240 or 192 + 48 channels into 192, then
-192 into 192 with the logits) beside the WMMA kernel of ``packed_tail.cu``.
-The choice of ``ops/tail.py::TAIL_ROWS`` rests on these times.  Also counts
-the compiler's performance warnings (serialised wgmma) per wgmma kernel.
+``packed_tail_wgmma.cu``, counts the compiler's performance warnings
+(serialised wgmma) per wgmma kernel, and holds K2 and K3 against their plain
+versions at ``chip_smoke``'s small shapes (ragged boxes, odd extents, one
+and two operands, a 16-channel rest, batch > 1, logits in the epilogue),
+then, unless ``--quick``, times the main path's stages (132^3 cells, 240 or
+192 + 48 channels into 192, then 192 into 192 with the logits) beside the
+WMMA kernel of ``packed_tail.cu``.
 """
 
 import argparse
@@ -68,15 +66,12 @@ def main():
         print(f"ptxas performance warnings naming {fn}: {n}")
     print(f"build {seconds:.1f} s [{card}]", flush=True)
     torch.backends.cudnn.allow_tf32 = False
-    for rows in (128, 192):
-        tail.TAIL_ROWS = rows
-        box = tail.tail_box((131, 131, 131))
-        assert rows - 64 < box[0] * box[1] * box[2] <= rows, (rows, box)
-        print(f"rows per block {rows}, main-path box {box}:", flush=True)
-        chip_smoke.check_tail_small(card)
-        if not args.quick:
-            time_main(card)
+    print(f"rows per block {tail.TAIL_ROWS}, main-path boxes "
+          f"{tail.tail_box((131, 131, 131))}, {tail.tail_box((130, 130, 130))}:",
+          flush=True)
+    chip_smoke.check_tail_small(card)
     if not args.quick:
+        time_main(card)
         # the WMMA kernel of packed_tail.cu on the same operands
         ops = chip_smoke.tail_operands((1, 132, 132, 132), 240, 0, 192, 1, 8)
         wmma = tail.tail_route

@@ -162,17 +162,18 @@ def test_n_tile():
         tail_tile(200)
 
 
-@pytest.mark.parametrize("rows", [128, 192])
 @pytest.mark.parametrize("extents", [(131, 131, 131), (130, 130, 130),
-                                     (8, 9, 10), (1, 1, 300), (3, 2, 1)])
-def test_box_fits_the_tile_and_wastes_little(extents, rows):
-    bz, by, bx = tail_box(extents, rows)
-    assert bz * by * bx <= rows and max(bz, by, bx) <= 256
+                                     (129, 131, 130), (66, 66, 66),
+                                     (8, 9, 10), (1, 1, 300), (300, 1, 1),
+                                     (3, 2, 1), (1, 1, 1), (5, 7, 200)])
+def test_box_fits_the_tile_and_wastes_little(extents):
+    bz, by, bx = tail_box(extents)
+    assert bz * by * bx <= TAIL_ROWS and max(bz, by, bx) <= 256
     tiles = math.prod(-(-e // b) for e, b in zip(extents, (bz, by, bx)))
-    if min(extents) >= 130:  # the main path: the masked ragged edge
-        assert tiles * rows / math.prod(extents) - 1 < 0.06
+    if min(extents) >= 129:  # the main path: the masked ragged edge
+        assert tiles * TAIL_ROWS / math.prod(extents) - 1 < 0.06
 
 
 def test_rows_per_block_is_one_the_kernel_builds():
-    assert TAIL_ROWS in (128, 192)
+    assert TAIL_ROWS == 192  # three m64 row blocks
     assert tail.TAIL_MAX_LOGITS == 8
