@@ -13,11 +13,27 @@
 // What bounds it on an H100, at the baseline model's four body layers:
 // - Layer 0 has Ci = 1, so K = 27: each output value costs 54 FLOP and 2
 //   bytes written in bf16, about 27 FLOP per byte, far under the card's
-//   ridge of ~295.  It is memory-bound on writing the (B, 74^3, 24) map.
-//   conv_ci1_kernel gives it its own path: one thread per output value,
-//   the 27 taps read through L1 (the threads of one voxel share them),
-//   the (27, Co) weights in shared memory, and writes that are coalesced
-//   along the channel axis.  Tensor cores would not help it.
+//   ridge of ~295: its floor is writing the (B, 74^3, 24) map, 0.05 ms.
+//   conv_ci1_kernel gives it its own path, built so that neither the
+//   load/store units nor index arithmetic stand before that floor.  A block
+//   owns a box of up to 1024 output voxels (the wrapper picks it,
+//   ops/conv.py::ci1_plan) and stages the box's (bz+2d)(by+2d)(bx+2d) input
+//   halo in shared memory once, as f32.  Each thread owns 4 voxels (box
+//   voxels t, t+256, ..., so a warp's loads and stores run along x) and a
+//   chunk of 24 or 32 output channels: per tap it reads its 4 inputs and
+//   the chunk's weights as 16-byte broadcasts from shared memory, 10 loads
+//   for 96-128 FMAs, and keeps the 96-128 f32 sums in registers.  Voxel
+//   coordinates are taken once per voxel, in 32 bits inside the box.  The
+//   results leave as 16-byte stores (8 bf16 or 4 f32 channels), 48-64
+//   contiguous bytes a voxel; a Co that is no multiple of 8 (4 in f32)
+//   stores value by value.  The 27-term sums run on FMAs, not on
+//   mma.sync.m16n8k16 padded to K = 32: the 4.2 GFLOP of layer 0 are 0.07
+//   ms of the card's f32 FMA rate, within 1.5x of the byte floor, the f32
+//   dtype needs the FMAs anyway (TF32 would round the inputs), and the
+//   im2col fragments of a one-channel input would have to be gathered
+//   value by value, which is the load traffic the design removes.  A halo
+//   too large for shared memory (a large dilation) is read through L1
+//   instead.
 // - Layers 1-3 contract K = 27*Ci = 648..1296 into Co = 32..64 channels.
 //   Every input value is reused 27*Co times, so they are compute-bound.
 //   They run as an implicit GEMM: M = output voxels, N = Co, K = 27*Ci.
@@ -36,15 +52,16 @@
 //     round the inputs): each thread keeps a 4 x (BN/16) tile of f32
 //     accumulators in registers.
 //
-// These are simple first versions: one chunk in flight per block, no
-// software pipeline.
+// The two implicit-GEMM kernels here are simple first versions: one chunk
+// in flight per block, no software pipeline.
 //
 // Blocks run in parallel and in no order, so the ragged edge is masked
 // (rows past M and channels past Co load zeros and store nothing) instead
 // of shifting the last block inward as the TPU kernel does.
 //
-// C entry: fpl_conv3d_bias_relu(...) launches on the given stream and
-// returns cudaGetLastError(); it allocates nothing and does not synchronise.
+// C entries: fpl_conv3d_bias_relu(...) (Ci > 1) and fpl_conv3d_ci1(...)
+// launch on the given stream and return cudaGetLastError(); they allocate
+// nothing and do not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,44 +92,193 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 constexpr int kMaxCo = 128;  // output channels per launch of the Ci = 1 kernel
 
 // ---------------------------------------------------------------- Ci == 1
+constexpr int kCi1Threads = 256;
+constexpr int kCi1Run = 4;  // output voxels per thread
+constexpr int kCi1Voxels = kCi1Threads * kCi1Run;  // most voxels of a box
+
+struct Ci1Args {
+  int D, H, W, Co, Cn, d, Do, Ho, Wo;
+  int bz, by, bx, tiles_z, tiles_y, tiles_x;
+  int vec;  // 16-byte stores: the output rows and channel chunks allow them
+};
+
+__device__ __forceinline__ void store8(float* o, const float* v) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* o, const float* v) {
+  __nv_bfloat162 p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(p);
+}
+
 // One launch computes Cn <= kMaxCo output channels of the Co the layer has:
 // w, b and out point at the first of them, and Co is the stride of a weight
-// row and of an output voxel.  total = M * Cn.
-template <typename T>
-__global__ void __launch_bounds__(256)
+// row and of an output voxel.  blockIdx.x is the output box, blockIdx.y the
+// chunk of 8 NG channels.  STAGED: the halo goes through shared memory.
+template <typename T, int NG, bool STAGED>
+__global__ void __launch_bounds__(kCi1Threads)
 conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const T* __restrict__ b, T* __restrict__ out, int D, int H,
-                int W, int Co, int Cn, int d, int Do, int Ho, int Wo,
-                long long total) {
-  __shared__ float ws[27 * kMaxCo];
-  __shared__ float bs[kMaxCo];
-  for (int i = threadIdx.x; i < 27 * Cn; i += blockDim.x)
-    ws[i] = to_f32(w[(i / Cn) * Co + i % Cn]);
-  for (int i = threadIdx.x; i < Cn; i += blockDim.x) bs[i] = to_f32(b[i]);
+                const T* __restrict__ b, T* __restrict__ out, Ci1Args a) {
+  constexpr int CH = 8 * NG;
+  extern __shared__ __align__(16) float ci1_smem[];
+  float* ws = ci1_smem;      // [27][CH], zero past Cn
+  float* bs = ws + 27 * CH;  // [CH]
+  float* xs = bs + CH;       // the halo, [hz][hy][hx]
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.y * CH;
+  for (int i = tid; i < 27 * CH; i += kCi1Threads) {
+    const int tap = i / CH, c = c0 + i % CH;
+    ws[i] = c < a.Cn ? to_f32(w[tap * a.Co + c]) : 0.f;
+  }
+  if (tid < CH) bs[tid] = c0 + tid < a.Cn ? to_f32(b[c0 + tid]) : 0.f;
+
+  int t = blockIdx.x;
+  const int x0 = (t % a.tiles_x) * a.bx;
+  t /= a.tiles_x;
+  const int y0 = (t % a.tiles_y) * a.by;
+  t /= a.tiles_y;
+  const int z0 = (t % a.tiles_z) * a.bz;
+  const int n = t / a.tiles_z;
+  const int hx = a.bx + 2 * a.d, hy = a.by + 2 * a.d, hz = a.bz + 2 * a.d;
+  const T* xn = x + (long long)n * a.D * a.H * a.W;
+  if (STAGED) {
+    // a warp per halo row, lanes along x; zeros past the input
+    for (int r = tid / 32; r < hz * hy; r += kCi1Threads / 32) {
+      const int zz = z0 + r / hy, yy = y0 + r % hy;
+      const bool row = zz < a.D && yy < a.H;
+      const T* src = xn + ((long long)zz * a.H + yy) * a.W + x0;
+      for (int xx = tid % 32; xx < hx; xx += 32)
+        xs[r * hx + xx] = row && x0 + xx < a.W ? to_f32(src[xx]) : 0.f;
+    }
+  }
   __syncthreads();
 
-  const long long plane = (long long)H * W;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const int o = (int)(e % Cn);
-    const long long row = e / Cn;
-    long long p = row;
-    const int xo = (int)(p % Wo);
-    p /= Wo;
-    const int yo = (int)(p % Ho);
-    p /= Ho;
-    const int zo = (int)(p % Do);
-    const long long n = p / Do;
-    const T* src = x + ((n * D + zo) * H + yo) * (long long)W + xo;
-    float acc = 0.f;
+  // the thread's voxels: where their taps start, and where they are stored
+  // (-1: past the box or the output; such a voxel reads the box's first)
+  int base[kCi1Run];
+  long long dst[kCi1Run];
 #pragma unroll
-    for (int tap = 0; tap < 27; ++tap) {
-      const int tz = tap / 9, ty = (tap / 3) % 3, tx = tap % 3;
-      const long long off = (long long)tz * d * plane + (long long)ty * d * W + tx * d;
-      acc = fmaf(to_f32(src[off]), ws[tap * Cn + o], acc);
-    }
-    out[row * Co + o] = from_f32<T>(fmaxf(acc + bs[o], 0.f));
+  for (int j = 0; j < kCi1Run; ++j) {
+    const int v = tid + j * kCi1Threads;
+    int xx = v % a.bx, r = v / a.bx;
+    int yy = r % a.by, zz = r / a.by;
+    const bool live = zz < a.bz && x0 + xx < a.Wo && y0 + yy < a.Ho &&
+                      z0 + zz < a.Do;
+    if (!live) xx = yy = zz = 0;
+    base[j] = STAGED ? (zz * hy + yy) * hx + xx
+                     : ((z0 + zz) * a.H + y0 + yy) * a.W + x0 + xx;
+    dst[j] = live ? ((((long long)n * a.Do + z0 + zz) * a.Ho + y0 + yy) * a.Wo +
+                     x0 + xx) * a.Co + c0
+                  : -1;
   }
+
+  float acc[kCi1Run][CH];
+#pragma unroll
+  for (int j = 0; j < kCi1Run; ++j)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) acc[j][c] = 0.f;
+
+#pragma unroll
+  for (int tap = 0; tap < 27; ++tap) {
+    const int tz = tap / 9, ty = (tap / 3) % 3, tx = tap % 3;
+    const int off = STAGED ? (tz * a.d * hy + ty * a.d) * hx + tx * a.d
+                           : (tz * a.d * a.H + ty * a.d) * a.W + tx * a.d;
+    float xv[kCi1Run];
+#pragma unroll
+    for (int j = 0; j < kCi1Run; ++j)
+      xv[j] = STAGED ? xs[base[j] + off] : to_f32(xn[base[j] + off]);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + tap * CH + 8 * g);
+      const float4 w1 =
+          *reinterpret_cast<const float4*>(ws + tap * CH + 8 * g + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int j = 0; j < kCi1Run; ++j)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[j][8 * g + c] = fmaf(xv[j], wv[c], acc[j][8 * g + c]);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kCi1Run; ++j) {
+    if (dst[j] < 0) continue;
+    T* o = out + dst[j];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      float v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        v[c] = fmaxf(acc[j][8 * g + c] + bs[8 * g + c], 0.f);
+      if (a.vec && c0 + 8 * g + 8 <= a.Cn) {
+        store8(o + 8 * g, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (c0 + 8 * g + c < a.Cn) o[8 * g + c] = from_f32<T>(v[c]);
+      }
+    }
+  }
+}
+
+template <typename T, int NG, bool STAGED>
+cudaError_t launch_ci1(const T* x, const T* w, const T* b, T* out, int B,
+                       const Ci1Args& a, int smem, cudaStream_t stream) {
+  auto kernel = conv_ci1_kernel<T, NG, STAGED>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)B * a.tiles_z * a.tiles_y * a.tiles_x;
+  const int chunks = (a.Cn + 8 * NG - 1) / (8 * NG);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)tiles, chunks), kCi1Threads, smem, stream>>>(
+      x, w, b, out, a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_ci1_all(const void* x, const void* w, const void* b, void* out,
+                   int B, int D, int H, int W, int Co, int d, int bz, int by,
+                   int bx, int staged, cudaStream_t stream) {
+  Ci1Args a;
+  a.D = D; a.H = H; a.W = W; a.Co = Co; a.d = d;
+  a.Do = D - 2 * d; a.Ho = H - 2 * d; a.Wo = W - 2 * d;
+  a.bz = bz; a.by = by; a.bx = bx;
+  a.tiles_z = (a.Do + bz - 1) / bz;
+  a.tiles_y = (a.Ho + by - 1) / by;
+  a.tiles_x = (a.Wo + bx - 1) / bx;
+  a.vec = (long long)Co * sizeof(T) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  for (int c0 = 0; c0 < Co; c0 += kMaxCo) {  // one launch when Co <= kMaxCo
+    a.Cn = Co - c0 < kMaxCo ? Co - c0 : kMaxCo;
+    // chunks of 24 channels where they divide Cn and chunks of 32 do not
+    const bool ng3 = a.Cn % 24 == 0 && a.Cn % 32 != 0;
+    const int ch = ng3 ? 24 : 32;
+    const long long halo =
+        staged ? (long long)(bz + 2 * d) * (by + 2 * d) * (bx + 2 * d) : 0;
+    const long long smem = (28 * ch + halo) * (long long)sizeof(float);
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    cudaError_t e;
+    if (staged)
+      e = ng3 ? launch_ci1<T, 3, true>(xt, wt + c0, bt + c0, ot + c0, B, a,
+                                       (int)smem, stream)
+              : launch_ci1<T, 4, true>(xt, wt + c0, bt + c0, ot + c0, B, a,
+                                       (int)smem, stream);
+    else
+      e = ng3 ? launch_ci1<T, 3, false>(xt, wt + c0, bt + c0, ot + c0, B, a,
+                                        (int)smem, stream)
+              : launch_ci1<T, 4, false>(xt, wt + c0, bt + c0, ot + c0, B, a,
+                                        (int)smem, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 // ------------------------------------------------------- implicit GEMM
@@ -351,17 +517,6 @@ void launch(const void* x, const void* w, const void* b, void* out, int B,
   const T* wt = static_cast<const T*>(w);
   const T* bt = static_cast<const T*>(b);
   T* ot = static_cast<T*>(out);
-  if (Ci == 1) {
-    for (int c0 = 0; c0 < Co; c0 += kMaxCo) {  // one launch when Co <= kMaxCo
-      const int Cn = Co - c0 < kMaxCo ? Co - c0 : kMaxCo;
-      const long long total = M * Cn;
-      long long blocks = (total + 255) / 256;
-      if (blocks > 8192) blocks = 8192;  // grid-stride; amortises the weight load
-      conv_ci1_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-          xt, wt + c0, bt + c0, ot + c0, D, H, W, Co, Cn, d, Do, Ho, Wo, total);
-    }
-    return;
-  }
   const unsigned gm = (unsigned)((M + kBM - 1) / kBM);
   if (Co <= 32) {
     launch_gemm<32>(xt, wt, bt, ot, dim3(gm, 1), D, H, W, Ci, Co, d, Do, Ho,
@@ -374,14 +529,15 @@ void launch(const void* x, const void* w, const void* b, void* out, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Shapes are checked by the Python
-// wrapper (flypylib_tpu_torch/ops/conv.py); x, w, b and out are contiguous.
+// Ci > 1.  dtype: 0 = float32, 1 = bfloat16.  Shapes are checked by the
+// Python wrapper (flypylib_tpu_torch/ops/conv.py); x, w, b and out are
+// contiguous.
 extern "C" int fpl_conv3d_bias_relu(const void* x, const void* w,
                                     const void* b, void* out, int B, int D,
                                     int H, int W, int Ci, int Co, int d,
                                     int dtype, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
-  if (Co < 1 || Ci < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (Co < 1 || Ci < 2 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     launch<float>(x, w, b, out, B, D, H, W, Ci, Co, d, s);
@@ -391,4 +547,26 @@ extern "C" int fpl_conv3d_bias_relu(const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Ci = 1: x (B,D,H,W,1), w (27,Co), b (Co,), out (B,D-2d,H-2d,W-2d,Co).  The
+// output box (bz, by, bx) of a block holds at most 1024 voxels; staged != 0
+// puts its halo through shared memory (ops/conv.py::ci1_plan picks both).
+extern "C" int fpl_conv3d_ci1(const void* x, const void* w, const void* b,
+                              void* out, int B, int D, int H, int W, int Co,
+                              int d, int bz, int by, int bx, int staged,
+                              int dtype, void* stream) {
+  cudaGetLastError();  // clear any earlier, unrelated error
+  if (Co < 1 || d < 1 || bz < 1 || by < 1 || bx < 1 ||
+      (long long)bz * by * bx > kCi1Voxels || D <= 2 * d || H <= 2 * d ||
+      W <= 2 * d || (long long)D * H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_ci1_all<float>(x, w, b, out, B, D, H, W, Co, d, bz, by, bx,
+                                 staged, s);
+  if (dtype == 1)
+    return launch_ci1_all<__nv_bfloat16>(x, w, b, out, B, D, H, W, Co, d, bz,
+                                         by, bx, staged, s);
+  return (int)cudaErrorInvalidValue;
 }

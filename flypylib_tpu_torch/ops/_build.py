@@ -39,6 +39,7 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (restype is always int: a cudaError_t)
 _ENTRIES = {
     "fpl_conv3d_bias_relu": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "fpl_conv3d_ci1": [_P] * 4 + [_I] * 11 + [_P],
     "fpl_conv3d_wgmma": [_P] * 5 + [_I] * 12 + [_P],
     "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
     "fpl_tail_stage_wgmma": [_P] * 8 + [_I] * 12 + [_P],

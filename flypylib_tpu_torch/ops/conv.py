@@ -14,6 +14,7 @@ Ci = 1 ("ci1"), the other bf16 calls ("wmma") and f32 ("fma").  Every route
 takes any dilation and any Co, as the reference does: the wgmma kernel runs
 a layer wider than its widest N tile as one launch per block of output
 channels (:func:`wgmma_chunks`), the others loop over N blocks themselves.
+The Ci = 1 kernel is handed its output box by :func:`ci1_plan`.
 
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
@@ -37,6 +38,8 @@ K1_ROUTES = ("wgmma", "wmma", "ci1", "fma")
 WGMMA_N_TILES = (24, 32, 48, 64, 96, 128)  # the kernel's N tiles
 WGMMA_KC = 32  # channels per K step of the wgmma kernel (a 64-byte row)
 WGMMA_ROWS = 256  # output voxels per block of the wgmma kernel
+CI1_VOXELS = 1024  # output voxels per block of the Ci = 1 kernel, at most
+CI1_SMEM_FLOATS = 50 * 1024  # f32 values of halo a block of it may stage
 
 
 def _out_shape(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -177,6 +180,32 @@ def wgmma_box(out_dhw: tuple[int, int, int], rows: int = WGMMA_ROWS,
     return best[1]
 
 
+@functools.lru_cache(maxsize=256)
+def ci1_plan(out_dhw: tuple[int, int, int],
+             dilation: int) -> tuple[int, int, int, bool]:
+    """What the Ci = 1 kernel is handed for an output of ``out_dhw`` voxels:
+    the output box (bz, by, bx) of one block, no side past the output's and
+    bz*by*bx <= CI1_VOXELS (four voxels a thread), bx at least a warp's 32
+    voxels (or the whole row), so that a warp's loads and stores run along
+    x; of those the box that covers the output in the fewest blocks, then
+    the one with the smallest input halo (bz+2d)(by+2d)(bx+2d); and whether that halo fits the shared memory the
+    block stages it in (else the kernel reads the input through L1)."""
+    d = int(dilation)
+    Do, Ho, Wo = out_dhw
+    best = None
+    for bz in range(1, min(Do, CI1_VOXELS) + 1):
+        for by in range(1, min(Ho, CI1_VOXELS // bz) + 1):
+            bx = min(Wo, CI1_VOXELS // (bz * by))
+            if bx < min(Wo, 32):
+                break
+            tiles = -(-Do // bz) * -(-Ho // by) * -(-Wo // bx)
+            key = (tiles, (bz + 2 * d) * (by + 2 * d) * (bx + 2 * d))
+            if best is None or key < best[0]:
+                best = (key, (bz, by, bx))
+    (_, halo), box = best
+    return (*box, halo <= CI1_SMEM_FLOATS)
+
+
 def wgmma_slices(ci: int) -> tuple[int, int | None]:
     """(number of 32-channel slices, first channel of the 16-channel slice
     or None) of the wgmma kernel's K steps per tap for ``ci`` input
@@ -277,6 +306,13 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     Ci, cn, Co, d, n_tile, bz, by, bx, stream)
                 if err != 0:
                     break
+        elif route == "ci1":
+            wc = w.to(x.dtype).contiguous()
+            bz, by, bx, staged = ci1_plan(shape[1:4], d)
+            err = lib.fpl_conv3d_ci1(
+                x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
+                B, D, H, W, Co, d, bz, by, bx, int(staged),
+                _DTYPE_CODES[x.dtype], stream)
         else:
             wc = w.to(x.dtype).contiguous()
             err = lib.fpl_conv3d_bias_relu(
