@@ -20,12 +20,14 @@
 //   ops/conv.py::ci1_plan) and stages the box's (bz+2d)(by+2d)(bx+2d) input
 //   halo in shared memory once, as f32.  Each thread owns 4 voxels (box
 //   voxels t, t+256, ..., so a warp's loads and stores run along x) and a
-//   chunk of 24 or 32 output channels: per tap it reads its 4 inputs and
-//   the chunk's weights as 16-byte broadcasts from shared memory, 10 loads
-//   for 96-128 FMAs, and keeps the 96-128 f32 sums in registers.  Voxel
+//   chunk of 24 or 16 output channels: per tap it reads its 4 inputs and
+//   the chunk's weights as 16-byte broadcasts from shared memory, 8-10
+//   loads for 64-96 FMAs, and keeps the 64-96 f32 sums in registers (under
+//   128 registers a thread, so that two blocks share an SM and one block's
+//   staging and stores run under the other's FMAs).  Voxel
 //   coordinates are taken once per voxel, in 32 bits inside the box.  The
-//   results leave as 16-byte stores (8 bf16 or 4 f32 channels), 48-64
-//   contiguous bytes a voxel; a Co that is no multiple of 8 (4 in f32)
+//   results leave as 16-byte stores (8 bf16 or 4 f32 channels), 32-48
+//   contiguous bytes a voxel and chunk; a Co that is no multiple of 8 (4 in f32)
 //   stores value by value.  The 27-term sums run on FMAs, not on
 //   mma.sync.m16n8k16 padded to K = 32: the 4.2 GFLOP of layer 0 are 0.07
 //   ms of the card's f32 FMA rate, within 1.5x of the byte floor, the f32
@@ -118,7 +120,7 @@ __device__ __forceinline__ void store8(__nv_bfloat16* o, const float* v) {
 // row and of an output voxel.  blockIdx.x is the output box, blockIdx.y the
 // chunk of 8 NG channels.  STAGED: the halo goes through shared memory.
 template <typename T, int NG, bool STAGED>
-__global__ void __launch_bounds__(kCi1Threads)
+__global__ void __launch_bounds__(kCi1Threads, 2)
 conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const T* __restrict__ b, T* __restrict__ out, Ci1Args a) {
   constexpr int CH = 8 * NG;
@@ -258,9 +260,9 @@ int launch_ci1_all(const void* x, const void* w, const void* b, void* out,
   T* ot = static_cast<T*>(out);
   for (int c0 = 0; c0 < Co; c0 += kMaxCo) {  // one launch when Co <= kMaxCo
     a.Cn = Co - c0 < kMaxCo ? Co - c0 : kMaxCo;
-    // chunks of 24 channels where they divide Cn and chunks of 32 do not
-    const bool ng3 = a.Cn % 24 == 0 && a.Cn % 32 != 0;
-    const int ch = ng3 ? 24 : 32;
+    // chunks of 24 channels where they divide Cn, else of 16
+    const bool ng3 = a.Cn % 24 == 0;
+    const int ch = ng3 ? 24 : 16;
     const long long halo =
         staged ? (long long)(bz + 2 * d) * (by + 2 * d) * (bx + 2 * d) : 0;
     const long long smem = (28 * ch + halo) * (long long)sizeof(float);
@@ -269,12 +271,12 @@ int launch_ci1_all(const void* x, const void* w, const void* b, void* out,
     if (staged)
       e = ng3 ? launch_ci1<T, 3, true>(xt, wt + c0, bt + c0, ot + c0, B, a,
                                        (int)smem, stream)
-              : launch_ci1<T, 4, true>(xt, wt + c0, bt + c0, ot + c0, B, a,
+              : launch_ci1<T, 2, true>(xt, wt + c0, bt + c0, ot + c0, B, a,
                                        (int)smem, stream);
     else
       e = ng3 ? launch_ci1<T, 3, false>(xt, wt + c0, bt + c0, ot + c0, B, a,
                                         (int)smem, stream)
-              : launch_ci1<T, 4, false>(xt, wt + c0, bt + c0, ot + c0, B, a,
+              : launch_ci1<T, 2, false>(xt, wt + c0, bt + c0, ot + c0, B, a,
                                         (int)smem, stream);
     if (e != cudaSuccess) return (int)e;
   }
