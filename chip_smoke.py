@@ -350,8 +350,8 @@ WIDE_CONV_CASES = (
 
 def conv_cases():
     """(label, B, input size, Ci, Co, dilation) of K1 on the main path:
-    the baseline's four body layers, vgg_like's 64 -> 96, d=4 layer and the
-    plain U-Net's ten convs, at ``default_tiling``'s tile and batch for a
+    the baseline's four body layers, vgg_like's first layer (Ci = 1 into
+    32) and its 64 -> 96, d=4 layer, and the plain U-Net's ten convs, at ``default_tiling``'s tile and batch for a
     VOLUME^3 volume, then WIDE_CONV_CASES.  The U-Net's extents (pooled,
     cropped) are recorded by a hook on each conv in one forward of a zero
     tile on the card."""
@@ -359,7 +359,7 @@ def conv_cases():
     from flypylib_tpu_torch.models.zoo import baseline_model, unet, vgg_like
 
     cases = []
-    for spec, layers in ((baseline_model(), (0, 1, 2, 3)), (vgg_like(), (6,))):
+    for spec, layers in ((baseline_model(), (0, 1, 2, 3)), (vgg_like(), (0, 6))):
         tile_out, batch = default_tiling(spec, (VOLUME,) * 3)
         s = TiledInference(spec, tile_out, batch).tile_in
         for i, conv in enumerate(spec.module.convs):
@@ -407,7 +407,7 @@ def check_kernels(card_str: str) -> dict:
     bf16_main = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
                  "library_ms": 0.0, "bound_ms": 0.0, "op_ms": 0.0,
                  "routes": {}}
-    broken_done = False
+    broken_done = set()  # the routes whose zeroed-tap control ran
     wide_routes = set()  # the routes WIDE_CONV_CASES ran on
     unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for label, B, S, Ci, Co, d in conv_cases():
@@ -445,7 +445,8 @@ def check_kernels(card_str: str) -> dict:
                   f"{plain:.4f} ms, cuDNN {lib:.4f} ms, bound {bnd:.4f} ms "
                   f"({by}) [{card_str}]", flush=True)
             require(ok, f"K1 {label} {dt}: outside tolerance (max|err| {err})")
-            if route == "wgmma" and label == "baseline layer 3":
+            if (route, label) in (("wgmma", "baseline layer 3"),
+                                  ("ci1", "baseline layer 0")):
                 # the centre tap's weights zeroed: the check must see it
                 w_broken = w.clone()
                 w_broken[1, 1, 1] = 0
@@ -455,7 +456,7 @@ def check_kernels(card_str: str) -> dict:
                       f"{berr:.6g} {'ok' if bok else 'FAIL'} (must fail)",
                       flush=True)
                 require(not bok, "K1: the check passes a zeroed tap")
-                broken_done = True
+                broken_done.add(route)
                 del bad, w_broken
             if dtype == torch.bfloat16 and label.startswith("baseline"):
                 per = bf16_main["routes"].setdefault(route, dict.fromkeys(
@@ -479,7 +480,8 @@ def check_kernels(card_str: str) -> dict:
     for dtype, (ms, plain) in unet_sum.items():
         print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
-    require(broken_done, "K1: the zeroed-tap case did not run")
+    require(broken_done == {"wgmma", "ci1"},
+            f"K1: the zeroed-tap controls ran on {sorted(broken_done)} only")
     require(wide_routes == {"wgmma", "wmma", "ci1", "fma"},
             f"K1: the wide cases ran on {sorted(wide_routes)} only")
     torch.cuda.empty_cache()
@@ -986,6 +988,55 @@ def wino_operands(vol: np.ndarray, dtype: torch.dtype, device="cuda"):
     return [("layer 2", xa, c2), ("layer 3", xb, c3)]
 
 
+# K4 at small shapes, bf16: (label, N, D, H, W, Ci, Co, route).  The wgmma
+# kernel's tiles hold up to 64 2^3 output blocks: ragged tile edges on every
+# axis, odd block counts, one tile smaller than the GEMM's 64 rows, a
+# zero-filled 32-channel slice (Ci = 24), a 16-channel rest (Ci = 48, and
+# Ci = 40 where it overlaps the slice before it), Ci and Co past 128 (five
+# K slices, three blocks of output channels), and one case off the rule on
+# the WMMA kernel.
+WINO_SMALL_CASES = (
+    ("ragged tiles", 2, 12, 14, 40, 32, 48, "wgmma"),
+    ("odd block counts", 1, 8, 12, 16, 32, 64, "wgmma"),
+    ("one small tile, B = 1", 1, 6, 6, 6, 16, 8, "wgmma"),
+    ("Ci = 24", 2, 10, 10, 12, 24, 32, "wgmma"),
+    ("Ci = 48, 16-channel rest", 1, 10, 12, 22, 48, 64, "wgmma"),
+    ("Ci = 40, overlapping rest", 1, 8, 8, 14, 40, 24, "wgmma"),
+    ("Ci = 136, Co = 136", 1, 8, 8, 12, 136, 136, "wgmma"),
+    ("off the rule", 1, 8, 10, 12, 20, 28, "wmma"),
+)
+
+
+def check_wino_small(card_str: str) -> None:
+    """K4 at WINO_SMALL_CASES against its plain version on the card, each
+    case on the route it names."""
+    from flypylib_tpu_torch.ops import wino_conv as wino
+
+    rng = np.random.default_rng(0)
+    for label, n, d, h, w, ci, co, route in WINO_SMALL_CASES:
+        x = torch.from_numpy(np.maximum(rng.normal(0, 1, (n, d, h, w, ci)), 0)
+                             .astype(np.float32)).cuda().bfloat16()
+        wgt = torch.from_numpy(rng.normal(0, (27 * ci) ** -0.5,
+                                          (3, 3, 3, ci, co))
+                               .astype(np.float32)).cuda()
+        b = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).cuda()
+        u = wino.wino_transform_weights(wgt)
+        require(wino.wino_route(x, u) == route,
+                f"K4 {label}: route {wino.wino_route(x, u)}, not {route}")
+        before = dict(wino.wino_conv3d_bias_relu.routes)
+        got = wino.wino_conv3d_bias_relu(x, u, b)
+        torch.cuda.synchronize()
+        before[route] += 1
+        require(wino.wino_conv3d_bias_relu.routes == before,
+                f"K4 {label}: counts {wino.wino_conv3d_bias_relu.routes}")
+        ref = wino.wino_reference(x, u, b)
+        err, ok = wino_check(got, ref)
+        print(f"K4 small, {label}: x{tuple(x.shape)} -> Co {co} bf16 [{route}]"
+              f": max|err| {err:.6g} = {bf16_ulps(got, ref):.3g} ulps "
+              f"{'ok' if ok else 'FAIL'} [{card_str}]", flush=True)
+        require(ok, f"K4 {label}: outside tolerance (max|err| {err})")
+
+
 def wino_readings(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> dict:
     """K4 on ``x`` with transform-domain weights ``u`` and bias ``b``
     against its plain version: the sound reading and two broken outputs
@@ -1014,23 +1065,47 @@ def wino_readings(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> dict:
 
 
 def check_wino_kernel(card_str: str, vol: np.ndarray) -> dict:
-    """K4 against its plain version on the packed baseline's stage-B
-    operands (:func:`wino_operands`), f32 and bf16: sound within the
-    tolerance, both broken outputs outside it; timed beside the plain
-    version, K1 and one cuDNN call.  Returns the bf16 layer-3 reading."""
+    """K4 against its plain version at the small cases, then on the packed
+    baseline's stage-B operands (:func:`wino_operands`), f32 and bf16: sound
+    within the tolerance, both broken outputs outside it; timed beside the
+    plain version, K1 (its wgmma route at d = 1 in bf16), one cuDNN call
+    and, in bf16, the WMMA kernel of ``wino_conv.cu`` on the same operands.
+    Every bf16 stage-B call must take the wgmma kernel.  Returns the bf16
+    layer-3 reading."""
+    from flypylib_tpu_torch.ops import wino_conv as wino
     from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
     from flypylib_tpu_torch.ops.wino_conv import (wino_conv3d_bias_relu,
                                                   wino_reference,
                                                   wino_transform_weights)
 
+    check_wino_small(card_str)
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).replace("torch.", "")
         for label, x, conv in wino_operands(vol, dtype):
             w, b = conv.weight.detach(), conv.bias.detach()
             u = wino_transform_weights(w)
+            route = wino.wino_route(x, u)
+            for fn_route in wino_conv3d_bias_relu.routes:
+                wino_conv3d_bias_relu.routes[fn_route] = 0
             r = wino_readings(x, u, b)
             ms = median_ms(lambda: wino_conv3d_bias_relu(x, u, b))
+            ran = {k for k, v in wino_conv3d_bias_relu.routes.items() if v}
+            require(ran == {"wgmma" if dtype == torch.bfloat16 else "fma"}
+                    and ran == {route},
+                    f"K4 {label} {dt}: ran on {sorted(ran)}")
+            wmma = None
+            if dtype == torch.bfloat16:  # the WMMA kernel, same operands
+                rule, wino.wino_route = wino.wino_route, lambda *a: "wmma"
+                try:
+                    _, wok = wino_check(wino_conv3d_bias_relu(x, u, b),
+                                        wino_reference(x, u, b))
+                    wmma = median_ms(lambda: wino_conv3d_bias_relu(x, u, b),
+                                     warmup=1, iters=5)
+                finally:
+                    wino.wino_route = rule
+                require(wok, f"K4 {label}: the WMMA kernel is outside "
+                             "tolerance")
             plain = median_ms(lambda: wino_reference(x, u, b), warmup=1,
                               iters=3)
             k1 = median_ms(lambda: conv3d_bias_relu(x, w, b, 1))
@@ -1048,11 +1123,12 @@ def check_wino_kernel(card_str: str, vol: np.ndarray) -> dict:
                 for k, (e, ul, ok) in ((k, r[k]) for k in
                                        ("sound", "tap dropped",
                                         "channel zeroed")))
-            print(f"K4 baseline {label} x{tuple(x.shape)} -> Co {co} {dt}: "
-                  f"{readings} (max|ref| {r['max_ref']:.6g}); kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, K1 {k1:.4f} ms, cuDNN "
-                  f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}) [{card_str}]",
-                  flush=True)
+            print(f"K4 baseline {label} x{tuple(x.shape)} -> Co {co} {dt} "
+                  f"[{route}]: {readings} (max|ref| {r['max_ref']:.6g}); "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, K1 {k1:.4f} ms, "
+                  f"cuDNN {lib:.4f} ms"
+                  + (f", WMMA kernel {wmma:.4f} ms" if wmma is not None else "")
+                  + f", bound {bnd:.4f} ms ({by}) [{card_str}]", flush=True)
             require(r["sound"][2], f"K4 {label} {dt}: outside tolerance "
                                    f"({r['sound']})")
             require(not r["tap dropped"][2] and not r["channel zeroed"][2],
@@ -1060,7 +1136,8 @@ def check_wino_kernel(card_str: str, vol: np.ndarray) -> dict:
             if dtype == torch.bfloat16 and label == "layer 3":
                 main = {"ms": ms, "plain_ms": plain,
                         "max_abs_err": r["sound"][0], "library_ms": lib,
-                        "bound_ms": bnd, "bound_by": by, "k1_ms": k1}
+                        "bound_ms": bnd, "bound_by": by, "k1_ms": k1,
+                        "wmma_kernel_ms": wmma}
             del x
         torch.cuda.empty_cache()
     return main
@@ -1225,14 +1302,16 @@ def routed_wrappers() -> dict:
     """The wrappers that count their launches per route as well."""
     from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
     from flypylib_tpu_torch.ops.tail import packed_tail, packed_tail2
+    from flypylib_tpu_torch.ops.wino_conv import wino_conv3d_bias_relu
 
     return {"conv3d_bias_relu": conv3d_bias_relu, "packed_tail": packed_tail,
-            "packed_tail2": packed_tail2}
+            "packed_tail2": packed_tail2,
+            "wino_conv3d_bias_relu": wino_conv3d_bias_relu}
 
 
 def launch_counts() -> dict:
-    """Each wrapper's launches, and the launches per route of K1 and of the
-    stages of K2 and K3 as ``<wrapper>:<route>``."""
+    """Each wrapper's launches, and the launches per route of K1, of K4 and
+    of the stages of K2 and K3 as ``<wrapper>:<route>``."""
     counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
     for name, fn in routed_wrappers().items():
         counts.update({f"{name}:{r}": n for r, n in fn.routes.items()})
@@ -1548,12 +1627,20 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "wino_conv3d_bias_relu",
         "route": "cuda",
-        "source": "flypylib_tpu_torch/csrc/wino_conv.cu",
+        "source": "flypylib_tpu_torch/csrc/wino_conv_wgmma.cu",
         "replaces": "flypylib_tpu/ops/wino_conv.py:240",
         "launches": packed_runs["baseline"]["launches"]["wino_conv3d_bias_relu"],
-        **{k: v for k, v in k4.items() if k != "k1_ms"},
-        "at": f"packed baseline layer 3, bf16, one tile batch (K1 there "
-              f"{k4['k1_ms']:.4f} ms); no path calls it, as in the reference",
+        **k4,
+        "routes": {r: {"launches": packed_runs["baseline"]["launches"][
+                           f"wino_conv3d_bias_relu:{r}"],
+                       "source": "flypylib_tpu_torch/csrc/" + (
+                           "wino_conv_wgmma.cu" if r == "wgmma"
+                           else "wino_conv.cu")}
+                   for r in ("wgmma", "wmma", "fma")},
+        "at": "packed baseline layer 3, bf16, one tile batch, on the wgmma "
+              "route; k1_ms is K1's wgmma route at d = 1 and wmma_kernel_ms "
+              "csrc/wino_conv.cu's kernel, both on the same operands; no "
+              "path calls it, as in the reference",
     })
     kernels.append({
         "name": "parity_split_kernel",

@@ -115,39 +115,45 @@ __host__ __device__ constexpr int phase_coef(int g, int A, int B, int C) {
 constexpr int kThreads = 256;
 
 struct Geometry {
-  int D, H, W, Ci, Co, Cip, Cop;
+  int D, H, W, Ci, Co, Cop;
+  int ldo;         // channels of an output voxel (>= Co: a block of a wider layer)
+  int Cc, Ccp;     // input channels per pass of the K loop, and padded to 16
+  int ldu;         // rows of one tap of u: Ci padded to 16
   int MD, MH, MW;  // output blocks per axis
   int MX, nq;      // x-blocks per block (at most), x-chunks per row
   int ts_bytes;    // bytes of the halo tile; V follows it
   int relu, vec;   // vec: 16-byte halo loads
 };
 
-// Steps 1-2: the halo of block (n, i, j, x0) into Ts, and B^T's z and y
-// stages in place.  Returns nothing; Ts[(A*4+B)*run + xpos*Ci + c] then
-// holds T2[A][B] at x position xpos, channel c (run = (2 mx + 2) Ci).
+// Steps 1-2: channels c0 .. c0 + cc of the halo of block (n, i, j, x0) into
+// Ts, and B^T's z and y stages in place.  Ts[(A*4+B)*run + xpos*cc + c]
+// then holds T2[A][B] at x position xpos, channel c0 + c (run = (2 mx + 2) cc).
 template <typename T>
 __device__ __forceinline__ void halo_zy(const T* __restrict__ x, T* Ts,
                                         const Geometry& g, long long n, int i,
-                                        int j, int x0, int run) {
+                                        int j, int x0, int c0, int cc,
+                                        int run) {
   const int tid = threadIdx.x;
   const long long row0 = ((n * g.D + 2 * i) * g.H + 2 * j) * (long long)g.W;
-  if (g.vec) {  // rows of run values are whole 16-byte units on both sides
-    const int run16 = run * (int)sizeof(T) / 16;
+  if (g.vec) {  // cc values of a voxel are whole 16-byte units on both sides
+    const int per = cc * (int)sizeof(T) / 16, run16 = run * (int)sizeof(T) / 16;
     for (int e = tid; e < 16 * run16; e += kThreads) {
       const int zy = e / run16, r = e - zy * run16;
+      const int xpos = r / per, cu = r - xpos * per;
       const long long src =
-          (row0 + ((long long)(zy >> 2) * g.H + (zy & 3)) * g.W + 2 * x0) *
-          g.Ci;
+          (row0 + ((long long)(zy >> 2) * g.H + (zy & 3)) * g.W + 2 * x0 +
+           xpos) * g.Ci + c0;
       reinterpret_cast<uint4*>(Ts)[e] =
-          reinterpret_cast<const uint4*>(x + src)[r];
+          reinterpret_cast<const uint4*>(x + src)[cu];
     }
   } else {
     for (int e = tid; e < 16 * run; e += kThreads) {
       const int zy = e / run, r = e - zy * run;
+      const int xpos = r / cc, c = r - xpos * cc;
       const long long src =
-          (row0 + ((long long)(zy >> 2) * g.H + (zy & 3)) * g.W + 2 * x0) *
-          g.Ci;
-      Ts[e] = x[src + r];
+          (row0 + ((long long)(zy >> 2) * g.H + (zy & 3)) * g.W + 2 * x0 +
+           xpos) * g.Ci + c0;
+      Ts[e] = x[src + c];
     }
   }
   __syncthreads();
@@ -208,7 +214,7 @@ __device__ __forceinline__ void block_coords(const Geometry& g, long long& n,
 __device__ __forceinline__ long long out_offset(const Geometry& g, long long n,
                                                 int z, int y, int xo) {
   return (((n * (g.D - 2) + z) * (g.H - 2) + y) * (long long)(g.W - 2) + xo) *
-         g.Co;
+         g.ldo;
 }
 
 // ------------------------------------------------ bf16 on WMMA tensor cores
@@ -222,14 +228,11 @@ wino_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
   long long n;
   int i, j, x0, mx;
   block_coords(g, n, i, j, x0, mx);
-  const int run = (2 * mx + 2) * g.Ci;
-  const int VLd = g.Cip + 8;    // V row pitch (bf16); fragment rows stay
+  const int VLd = g.Ccp + 8;    // V row pitch (bf16); fragment rows stay
   const int CLd = g.Cop + 4;    // 32-byte aligned; C row pitch (f32)
   bf16* Ts = reinterpret_cast<bf16*>(smem);
   bf16* Vs = reinterpret_cast<bf16*>(smem + g.ts_bytes);
   float* Cs = reinterpret_cast<float*>(Vs + 4 * MP * VLd);
-
-  halo_zy(x, Ts, g, n, i, j, x0, run);
 
   // each warp owns at most one 16 x 16 output tile (MP/16 x Cop/16 <= 8)
   const int warp = threadIdx.x / 32;
@@ -240,11 +243,17 @@ wino_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
 #pragma unroll
   for (int p = 0; p < 8; ++p) wmma::fill_fragment(acc[p], 0.f);
 
+  // the K loop: Cc input channels a pass, each pass's products folded into
+  // the phase accumulators
+  for (int c0 = 0; c0 < g.Ci; c0 += g.Cc) {
+  const int cc = min(g.Cc, g.Ci - c0), ccp = (cc + 15) / 16 * 16;
+  const int run = (2 * mx + 2) * cc;
+  halo_zy(x, Ts, g, n, i, j, x0, c0, cc, run);
 #pragma unroll
   for (int A = 0; A < 4; ++A) {
 #pragma unroll
     for (int B = 0; B < 4; ++B) {
-      stage_x<bf16, MP>(Ts + (A * 4 + B) * run, Vs, mx, g.Ci, g.Cip, VLd);
+      stage_x<bf16, MP>(Ts + (A * 4 + B) * run, Vs, mx, cc, ccp, VLd);
       __syncthreads();
       if (has_tile) {
 #pragma unroll
@@ -252,9 +261,10 @@ wino_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
           const int t = (A * 4 + B) * 4 + C;
           wmma::fragment<wmma::accumulator, 16, 16, 16, float> m;
           wmma::fill_fragment(m, 0.f);
-          const bf16* ut = u + (long long)t * g.Cip * g.Cop + ct * 16;
+          const bf16* ut =
+              u + ((long long)t * g.ldu + c0) * g.Cop + ct * 16;
           const bf16* vt = Vs + (C * MP + rt * 16) * VLd;
-          for (int k0 = 0; k0 < g.Cip; k0 += 16) {
+          for (int k0 = 0; k0 < ccp; k0 += 16) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
             wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
             wmma::load_matrix_sync(af, vt + k0, VLd);
@@ -276,6 +286,7 @@ wino_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
       }
       __syncthreads();  // V consumed before the next (A, B) overwrites it
     }
+  }
   }
 
   // epilogue, one phase at a time through the f32 tile Cs
@@ -309,12 +320,9 @@ wino_fma_kernel(const float* __restrict__ x, const float* __restrict__ u,
   long long n;
   int i, j, x0, mx;
   block_coords(g, n, i, j, x0, mx);
-  const int run = (2 * mx + 2) * g.Ci;
-  const int VLd = g.Cip + 8;
+  const int VLd = g.Ccp + 8;
   float* Ts = reinterpret_cast<float*>(smem);
   float* Vs = reinterpret_cast<float*>(smem + g.ts_bytes);
-
-  halo_zy(x, Ts, g, n, i, j, x0, run);
 
   const int r = threadIdx.x / 16, l = threadIdx.x % 16;
   float acc[8][QN];
@@ -323,21 +331,25 @@ wino_fma_kernel(const float* __restrict__ x, const float* __restrict__ u,
 #pragma unroll
     for (int q = 0; q < QN; ++q) acc[p][q] = 0.f;
 
+  for (int c0 = 0; c0 < g.Ci; c0 += g.Cc) {  // the K loop, as above
+  const int cc = min(g.Cc, g.Ci - c0), ccp = (cc + 15) / 16 * 16;
+  const int run = (2 * mx + 2) * cc;
+  halo_zy(x, Ts, g, n, i, j, x0, c0, cc, run);
 #pragma unroll
   for (int A = 0; A < 4; ++A) {
 #pragma unroll
     for (int B = 0; B < 4; ++B) {
-      stage_x<float, MP>(Ts + (A * 4 + B) * run, Vs, mx, g.Ci, g.Cip, VLd);
+      stage_x<float, MP>(Ts + (A * 4 + B) * run, Vs, mx, cc, ccp, VLd);
       __syncthreads();
 #pragma unroll
       for (int C = 0; C < 4; ++C) {
         const int t = (A * 4 + B) * 4 + C;
-        const float* ut = u + (long long)t * g.Cip * g.Cop + l;
+        const float* ut = u + ((long long)t * g.ldu + c0) * g.Cop + l;
         const float* vr = Vs + (C * MP + r) * VLd;
         float m[QN];
 #pragma unroll
         for (int q = 0; q < QN; ++q) m[q] = 0.f;
-        for (int c = 0; c < g.Ci; ++c) {
+        for (int c = 0; c < cc; ++c) {
           const float a = vr[c];
 #pragma unroll
           for (int q = 0; q < QN; ++q)
@@ -358,6 +370,7 @@ wino_fma_kernel(const float* __restrict__ x, const float* __restrict__ u,
       }
       __syncthreads();  // V consumed before the next (A, B) overwrites it
     }
+  }
   }
 
   if (r >= mx) return;
@@ -384,28 +397,35 @@ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // shared memory of a block: the halo, V and (bf16) the f32 epilogue tile
 int smem_bytes(const Geometry& g, int MP, int elem, bool wmma_path) {
-  return g.ts_bytes + 4 * MP * (g.Cip + 8) * elem +
+  return g.ts_bytes + 4 * MP * (g.Ccp + 8) * elem +
          (wmma_path ? MP * (g.Cop + 4) * 4 : 0);
 }
 
 }  // namespace
 
-// x (N,D,H,W,Ci), u (64,Cip,Cop), b (Co,) and out (N,D-2,H-2,W-2,Co), all
-// contiguous, in one dtype: 0 = float32, 1 = bfloat16.  Cip and Cop are Ci
-// and Co rounded up to multiples of 16 (u's padding is zeros).  Shapes are
-// checked by the Python wrapper (flypylib_tpu_torch/ops/wino_conv.py).
+// x (N,D,H,W,Ci), u (64,Cip,Cop), b (Co,) and out (N,D-2,H-2,W-2,ldo), of
+// which the call writes Co <= 128 channels starting at `out` (a wider layer
+// runs as one call per block of output channels, each with its own u, b and
+// channel offset into out); all contiguous, in one dtype: 0 = float32, 1 =
+// bfloat16.  Cip and Cop are Ci and Co rounded up to multiples of 16 (u's
+// padding is zeros).  Any Ci: the kernels' K loop takes 128 input channels
+// a pass.  Shapes are checked by the Python wrapper
+// (flypylib_tpu_torch/ops/wino_conv.py).
 extern "C" int fpl_wino_conv(const void* x, const void* u, const void* b,
                              void* out, int N, int D, int H, int W, int Ci,
-                             int Co, int relu, int dtype, void* stream) {
+                             int Co, int ldo, int relu, int dtype,
+                             void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
-  if (N < 1 || Ci < 1 || Co < 1 || Ci > 128 || Co > 128 || D < 4 || H < 4 ||
+  if (N < 1 || Ci < 1 || Co < 1 || Co > 128 || ldo < Co || D < 4 || H < 4 ||
       W < 4 || D % 2 || H % 2 || W % 2 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const bool wmma_path = dtype == 1;
   const int elem = wmma_path ? 2 : 4;
   Geometry g;
-  g.D = D; g.H = H; g.W = W; g.Ci = Ci; g.Co = Co;
-  g.Cip = round_up(Ci, 16);
+  g.D = D; g.H = H; g.W = W; g.Ci = Ci; g.Co = Co; g.ldo = ldo;
+  g.Cc = Ci < 128 ? Ci : 128;
+  g.Ccp = round_up(g.Cc, 16);
+  g.ldu = round_up(Ci, 16);
   g.Cop = round_up(Co, 16);
   g.MD = (D - 2) / 2; g.MH = (H - 2) / 2; g.MW = (W - 2) / 2;
   g.relu = relu ? 1 : 0;
@@ -416,14 +436,14 @@ extern "C" int fpl_wino_conv(const void* x, const void* u, const void* b,
   if (MX > g.MW) MX = g.MW;
   for (;;) {
     const int MP = MX > 16 ? 32 : 16;
-    g.ts_bytes = round_up(16 * (2 * MX + 2) * Ci * elem, 128);
+    g.ts_bytes = round_up(16 * (2 * MX + 2) * g.Cc * elem, 128);
     if (smem_bytes(g, MP, elem, wmma_path) <= kSmemBudget || MX <= 1) break;
     MX = (MX + 1) / 2;
   }
   g.nq = (g.MW + MX - 1) / MX;
   g.MX = (g.MW + g.nq - 1) / g.nq;
   const int MP = g.MX > 16 ? 32 : 16;
-  g.ts_bytes = round_up(16 * (2 * g.MX + 2) * Ci * elem, 128);
+  g.ts_bytes = round_up(16 * (2 * g.MX + 2) * g.Cc * elem, 128);
   const int smem = smem_bytes(g, MP, elem, wmma_path);
   g.vec = ((long long)Ci * elem % 16 == 0 &&
            reinterpret_cast<uintptr_t>(x) % 16 == 0)

@@ -45,7 +45,8 @@ _ENTRIES = {
     "fpl_tail_stage_wgmma": [_P] * 8 + [_I] * 12 + [_P],
     "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
     "fpl_parity_split": [_P, _P] + [_I] * 6 + [_P],
-    "fpl_wino_conv": [_P] * 4 + [_I] * 8 + [_P],
+    "fpl_wino_conv": [_P] * 4 + [_I] * 9 + [_P],
+    "fpl_wino_conv_wgmma": [_P] * 5 + [_I] * 12 + [_P],
 }
 
 

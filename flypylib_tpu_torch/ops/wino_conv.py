@@ -7,12 +7,21 @@ inference path calls it: it is a ported op, held against its plain version
 and timed beside K1 at the packed baseline's stage-B shapes by
 ``chip_smoke.py``.
 
-On a CUDA tensor :func:`wino_conv3d_bias_relu` launches the hand-written
-kernel in ``csrc/wino_conv.cu`` (built by ``ops/_build.py`` on first use);
-on a CPU tensor it runs the plain version, :func:`wino_reference`.  There
-is no fallback between the two: a CUDA tensor the kernel cannot take
-raises, and odd spatial extents raise on both devices (the reference's
-"callers fall back to the direct conv" is the caller's business).
+On a CUDA tensor :func:`wino_conv3d_bias_relu` launches a hand-written
+kernel (built by ``ops/_build.py`` on first use); on a CPU tensor it runs
+the plain version, :func:`wino_reference`.  There is no fallback between
+the two: a CUDA tensor the kernel cannot take raises, and odd spatial
+extents raise on both devices (the reference's "callers fall back to the
+direct conv" is the caller's business).
+
+Which kernel takes a CUDA call is a rule on dtype, widths and alignment,
+decided before the launch (:func:`wino_route`): bf16 with Ci and Co
+multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA kernel of
+``csrc/wino_conv_wgmma.cu`` ("wgmma"); ``csrc/wino_conv.cu`` keeps the
+other bf16 calls ("wmma") and f32 ("fma").  Every route takes any Ci and
+Co, as the reference does: a layer wider than a kernel's widest block of
+output channels runs as one launch per block (:func:`wino_chunks`), and
+the kernels loop over Ci themselves.
 
 Rounding points, the reference kernel's (``wino_conv.py:105-178``): the
 input transform runs per axis, z then y then x, each stage one signed sum
@@ -24,10 +33,12 @@ then the f32 of the dtype bias, ReLU and one rounding.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from flypylib_tpu_torch.ops.conv import matmul_f32
+from flypylib_tpu_torch.ops.conv import matmul_f32, weight_images
 
 # F(2, 3) transform matrices (exact in binary floating point)
 BT = np.array(
@@ -45,7 +56,11 @@ _BT_TERMS = [tuple((p, int(BT[r, p])) for p in range(4) if BT[r, p])
 _AT_TERMS = [tuple((g, int(AT[g, r])) for g in range(2) if AT[g, r])
              for r in range(4)]
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_C = 128  # the kernel's limit on Ci and Co
+WINO_ROUTES = ("wgmma", "wmma", "fma")
+WINO_ROWS = 64  # 2^3 output blocks per tile of the wgmma kernel, at most
+WINO_HALO_VOXELS = 1100  # input voxels of a tile's halo it has room for
+WINO_N_TILES = (48, 64)  # the wgmma kernel's N tiles
+WINO_CO_BLOCK = 128  # output channels per launch of the WMMA and FMA kernels
 
 
 def wino_transform_weights(w: torch.Tensor) -> torch.Tensor:
@@ -132,6 +147,52 @@ def wino_reference(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
     return y.reshape(N, Do, Ho, Wo, Co).contiguous()
 
 
+def wino_route(x: torch.Tensor, u: torch.Tensor) -> str:
+    """Which of K4's CUDA kernels takes ``x`` (N, D, H, W, Ci) and ``u``
+    (64, Ci, Co): "fma" for f32; "wgmma" for bf16 with Ci and Co multiples
+    of 8 and ``x`` on a 16-byte boundary (the TMA tensor map's rules; U is
+    repacked, so its alignment does not matter); "wmma" for every other
+    bf16 call."""
+    ci, co = u.shape[1], u.shape[2]
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    if ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def wino_chunks(co: int, widest: int, unit: int) -> list[tuple[int, int]]:
+    """The blocks of output channels ``(first, count)`` a kernel whose
+    widest block is ``widest`` runs ``co`` channels in, one launch each:
+    the fewest blocks, of equal width rounded up to a multiple of ``unit``
+    (Co = 136 runs on the wgmma kernel as 48 + 48 + 40)."""
+    n = -(-co // widest)
+    width = -(-co // (unit * n)) * unit
+    return [(c0, min(width, co - c0)) for c0 in range(0, co, width)]
+
+
+@functools.lru_cache(maxsize=256)
+def wino_box(blocks_dhw: tuple[int, int, int]) -> tuple[int, int, int]:
+    """The tile (mz, my, mx) of 2^3 output blocks one block of the wgmma
+    kernel owns, for a grid of ``blocks_dhw`` output blocks: no side past
+    the grid's, mz*my*mx <= WINO_ROWS and the halo (2mz+2)(2my+2)(2mx+2)
+    <= WINO_HALO_VOXELS; of those the tile that covers the grid in the
+    fewest tiles (the GEMM rows best filled), then the one with the
+    smallest halo."""
+    MD, MH, MW = blocks_dhw
+    best = None
+    for mz in range(1, min(MD, WINO_ROWS) + 1):
+        for my in range(1, min(MH, WINO_ROWS // mz) + 1):
+            for mx in range(1, min(MW, WINO_ROWS // (mz * my)) + 1):
+                halo = (2 * mz + 2) * (2 * my + 2) * (2 * mx + 2)
+                if halo > WINO_HALO_VOXELS:
+                    continue
+                tiles = -(-MD // mz) * -(-MH // my) * -(-MW // mx)
+                if best is None or (tiles, halo) < best[0]:
+                    best = ((tiles, halo), (mz, my, mx))
+    return best[1]
+
+
 def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
                           relu: bool = True) -> torch.Tensor:
     """Fused valid 3^3 conv via Winograd F(2,3)^3 (+ bias + optional ReLU).
@@ -139,8 +200,9 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
     x: (N, D, H, W, Ci) with D, H, W even, bf16 or f32; u: (64, Ci, Co)
     from :func:`wino_transform_weights`; b: (Co,).  Returns (N, D-2, H-2,
     W-2, Co) in ``x.dtype``.  A CPU tensor runs :func:`wino_reference`; a
-    CUDA tensor launches the kernel (and adds one to
-    ``wino_conv3d_bias_relu.launches``) or raises."""
+    CUDA tensor launches the kernel that :func:`wino_route` names (and adds
+    one to ``wino_conv3d_bias_relu.launches`` and to that route's
+    ``wino_conv3d_bias_relu.routes``) or raises."""
     shape = _check(x, u, b)
     if x.device.type == "cpu":
         return wino_reference(x, u, b, relu)
@@ -153,8 +215,6 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NDHWC)")
     ci, co = u.shape[1], u.shape[2]
-    if ci > MAX_C or co > MAX_C:
-        raise ValueError(f"Ci and Co must be <= {MAX_C}, got {ci} and {co}")
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:  # N == 0: a launch with an empty grid is refused
         return out
@@ -162,21 +222,43 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
     from flypylib_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    # U in x's dtype, zero-padded to multiples of 16 for the tensor cores
-    up = torch.zeros((64, -(-ci // 16) * 16, -(-co // 16) * 16),
-                     dtype=x.dtype, device=x.device)
-    up[:, :ci, :co] = u.to(x.dtype)
+    route = wino_route(x, u)
+    ud = u.to(x.dtype)
     bc = b.to(x.dtype).contiguous()
     N, D, H, W, _ = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fpl_wino_conv(x.data_ptr(), up.data_ptr(), bc.data_ptr(),
-                                out.data_ptr(), N, D, H, W, ci, co, int(relu),
-                                int(x.dtype == torch.bfloat16), stream)
+        if route == "wgmma":
+            mz, my, mx = wino_box((shape[1] // 2, shape[2] // 2, shape[3] // 2))
+            for c0, cn in wino_chunks(co, WINO_N_TILES[-1], 8):
+                n_tile = next(n for n in WINO_N_TILES if n >= cn)
+                u32, u16 = weight_images(ud[:, :, c0:c0 + cn], n_tile)
+                err = lib.fpl_wino_conv_wgmma(
+                    x.data_ptr(), u32.data_ptr() if u32.numel() else None,
+                    u16.data_ptr() if u16 is not None else None,
+                    bc[c0:].data_ptr(), out[..., c0:].data_ptr(), N, D, H, W,
+                    ci, cn, co, int(relu), n_tile, mz, my, mx, stream)
+                if err != 0:
+                    break
+        else:
+            for c0, cn in wino_chunks(co, WINO_CO_BLOCK, 16):
+                # the block of U, zero-padded to multiples of 16
+                up = torch.zeros((64, -(-ci // 16) * 16, -(-cn // 16) * 16),
+                                 dtype=x.dtype, device=x.device)
+                up[:, :ci, :cn] = ud[:, :, c0:c0 + cn]
+                err = lib.fpl_wino_conv(
+                    x.data_ptr(), up.data_ptr(), bc[c0:].data_ptr(),
+                    out[..., c0:].data_ptr(), N, D, H, W, ci, cn, co,
+                    int(relu), int(x.dtype == torch.bfloat16), stream)
+                if err != 0:
+                    break
     if err != 0:
-        raise RuntimeError(f"wino_conv kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"wino_conv kernel launch failed ({route} route): "
+                           f"cudaError {err}")
     wino_conv3d_bias_relu.launches += 1
+    wino_conv3d_bias_relu.routes[route] += 1
     return out
 
 
 wino_conv3d_bias_relu.launches = 0
+wino_conv3d_bias_relu.routes = dict.fromkeys(WINO_ROUTES, 0)
