@@ -219,7 +219,7 @@ __device__ __forceinline__ long long out_offset(const Geometry& g, long long n,
 
 // ------------------------------------------------ bf16 on WMMA tensor cores
 template <int MP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)  // 128 registers: two blocks an SM
 wino_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
                  const bf16* __restrict__ b, bf16* __restrict__ out,
                  Geometry g) {

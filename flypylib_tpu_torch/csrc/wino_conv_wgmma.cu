@@ -184,23 +184,32 @@ __device__ __forceinline__ uint32_t swz(int row, int j) {
 }
 
 // V of step (A, B) for one slice of ROW / 2 channels: the calling thread's
-// (row, vector) item, its halo corner at voxel v0
+// (row, vector) item, its halo corner at voxel v0.  Rows two voxels apart
+// lie a multiple of 128 bytes apart, so the lanes of a quarter-warp would
+// meet in half of the banks: every other row (`odd`) reads its four x
+// positions in the order 1, 0, 3, 2 and swaps them back in registers.
 template <int ROW>
 __device__ __forceinline__ void build_v(uint32_t halo, uint32_t vbuf, int A,
-                                        int B, int row, int j, int v0, int hx,
-                                        int hxy) {
+                                        int B, int row, int j, int v0,
+                                        bool odd, int hx, int hxy) {
   const int za = bt_first(A) * hxy, zb = bt_second(A) * hxy;
   const int ya = bt_first(B) * hx, yb = bt_second(B) * hx;
   const uint32_t fa = bt_flip(A), fb = bt_flip(B);
   uint4 t2[4];
 #pragma unroll
   for (int px = 0; px < 4; ++px) {
-    const int v = v0 + px;
+    const int v = v0 + (px ^ (int)odd);
     const uint4 t1a = vsum(lds128(halo + swz<ROW>(v + za + ya, j)),
                            lds128(halo + swz<ROW>(v + zb + ya, j)), fa);
     const uint4 t1b = vsum(lds128(halo + swz<ROW>(v + za + yb, j)),
                            lds128(halo + swz<ROW>(v + zb + yb, j)), fa);
     t2[px] = vsum(t1a, t1b, fb);
+  }
+  if (odd) {
+    uint4 t = t2[0];
+    t2[0] = t2[1], t2[1] = t;
+    t = t2[2];
+    t2[2] = t2[3], t2[3] = t;
   }
   constexpr int kTap = kRows * ROW;
   sts128(vbuf + 0 * kTap + swz<ROW>(row, j), vsum(t2[0], t2[2], 0x80008000u));
@@ -271,8 +280,6 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
   const int n_sl = a.n_full + a.half;
   const int my_tiles = (a.n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
                        (int)gridDim.x;
-  const int Q = my_tiles * n_sl;  // (tile, slice) pairs of this block
-  const int G = Q * 16;           // steps (A, B)
   const int hx = 2 * a.mx + 2, hy = 2 * a.my + 2, hz = 2 * a.mz + 2;
   const int hxy = hx * hy, hvox = hxy * hz;
   const int rows = a.mz * a.my * a.mx;
@@ -289,22 +296,22 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
     bias_s[i] = i < a.Co ? __bfloat162float(a.bias[i]) : 0.f;
   __syncthreads();
 
-  // the loads, all issued by thread 0
-  auto issue_halo = [&](int q) {
-    const int sl = q % n_sl;
-    const Tile t = tile_of((int)blockIdx.x + (q / n_sl) * (int)gridDim.x, a);
+  // the loads, all issued by thread 0: the halo of slice sl of the block's
+  // tile number ti into halo buffer hb, and the four U slices of step ab
+  // (= 4 A + B) of slice sl into U stage us
+  auto issue_halo = [&](int ti, int sl, int hb) {
+    const Tile t = tile_of((int)blockIdx.x + ti * (int)gridDim.x, a);
     const bool full = sl < a.n_full;
-    const uint32_t bar = smem_u32(&h_full[q & 1]);
+    const uint32_t bar = smem_u32(&h_full[hb]);
     mbar_expect_tx(bar, (uint32_t)(hvox * (full ? kRowBytes : kRowBytes / 2)));
-    tma_load_5d(halo0 + (q & 1) * kHaloBytes, full ? &tm.x : &tm.x16, bar,
+    tma_load_5d(halo0 + hb * kHaloBytes, full ? &tm.x : &tm.x16, bar,
                 full ? sl * kKC : a.c_last, 2 * t.ix0, 2 * t.iy0, 2 * t.iz0,
                 t.n);
   };
-  auto issue_u = [&](int g) {
-    const int sl = (g >> 4) % n_sl, ab = g & 15;
+  auto issue_u = [&](int sl, int ab, int us) {
     const bool full = sl < a.n_full;
-    const uint32_t bar = smem_u32(&u_full[g % kUStages]);
-    const uint32_t dst = u0buf + (g % kUStages) * kUBytes;
+    const uint32_t bar = smem_u32(&u_full[us]);
+    const uint32_t dst = u0buf + us * kUBytes;
     mbar_expect_tx(bar, (uint32_t)(4 * 2 * NT *
                                    (full ? kRowBytes : kRowBytes / 2)));
 #pragma unroll
@@ -315,9 +322,10 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
     }
   };
   if (tid == 0) {
-    issue_halo(0);
-    if (Q > 1) issue_halo(1);
-    for (int g = 0; g < kUStages && g < G; ++g) issue_u(g);
+    issue_halo(0, 0, 0);
+    if (n_sl > 1) issue_halo(0, 1, 1);
+    else if (my_tiles > 1) issue_halo(1, 0, 1);
+    for (int ab = 0; ab < kUStages; ++ab) issue_u(0, ab, ab);
   }
 
   // the thread's item of V, for 32-channel slices (row tid / 4, vector
@@ -331,14 +339,14 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
   };
   const int row32 = tid >> 2, row16 = (tid >> 1) & 63;
   const int c32 = corner(row32), c16 = corner(row16);
-  auto build = [&](int g) {
-    const int q = g >> 4, ab = g & 15;
-    const uint32_t halo = halo0 + (q & 1) * kHaloBytes;
-    const uint32_t vbuf = v0buf + (g & 1) * kVBytes;
-    if (q % n_sl < a.n_full) {
-      build_v<64>(halo, vbuf, ab >> 2, ab & 3, row32, tid & 3, c32, hx, hxy);
+  auto build = [&](bool full, int hb, int vb, int A, int B) {
+    const uint32_t halo = halo0 + hb * kHaloBytes;
+    const uint32_t vbuf = v0buf + vb * kVBytes;
+    if (full) {
+      build_v<64>(halo, vbuf, A, B, row32, tid & 3, c32, row32 & 1, hx, hxy);
     } else if (wg == 0) {
-      build_v<32>(halo, vbuf, ab >> 2, ab & 3, row16, tid & 1, c16, hx, hxy);
+      build_v<32>(halo, vbuf, A, B, row16, tid & 1, c16, (row16 >> 1) & 1, hx,
+                  hxy);
     }
     // the writes above, made through the generic proxy, before the wgmma
     // that reads them through the async proxy
@@ -357,100 +365,125 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
   float acc[8][NT / 2];
   float p0[NT / 2], p1[NT / 2];
 
-  if (G > 0) {
-    mbar_wait(smem_u32(&h_full[0]), 0);
-    build(0);
-  }
+  mbar_wait(smem_u32(&h_full[0]), 0);
+  build(a.n_full > 0, 0, 0, 0, 0);
   asm volatile("bar.sync 1, 256;" ::: "memory");
 
-  for (int g = 0; g < G; ++g) {
-    const int q = g >> 4, ab = g & 15, sl = q % n_sl;
-    const int A = ab >> 2, B = ab & 3;
-    mbar_wait(smem_u32(&u_full[g % kUStages]), (g / kUStages) & 1);
-    const uint32_t vbuf = v0buf + (g & 1) * kVBytes;
-    const uint32_t ubuf = u0buf + (g % kUStages) * kUBytes;
-    fence_acc(p0);
-    fence_acc(p1);
-    wgmma_fence();
-    if (sl < a.n_full)
-      products<NT, 64>(p0, p1, vbuf, ubuf + wg * NT * kRowBytes, kUTap);
-    else
-      products<NT, 32>(p0, p1, vbuf, ubuf + wg * NT * (kRowBytes / 2), kUTap);
-    wgmma_commit();
-
-    // the next step's V, under this step's products
-    if (g + 1 < G) {
-      if (((g + 1) & 15) == 0) {
-        const int q1 = (g + 1) >> 4;
-        mbar_wait(smem_u32(&h_full[q1 & 1]), (q1 >> 1) & 1);
+  int q = 0;             // (tile, slice) pairs done: halo buffer q & 1
+  int us = 0, vb = 0;    // the step's U stage and V buffer
+  uint32_t u_phase = 0;  // parity of the U stage's barrier
+  for (int ti = 0; ti < my_tiles; ++ti) {
+    for (int sl = 0; sl < n_sl; ++sl, ++q) {
+      const bool full = sl < a.n_full;
+      const bool last_q = ti == my_tiles - 1 && sl == n_sl - 1;
+      const int sl1 = sl + 1 < n_sl ? sl + 1 : 0;  // the slice after this one
+      if (sl == 0) {
+#pragma unroll
+        for (int ph = 0; ph < 8; ++ph)
+#pragma unroll
+          for (int i = 0; i < NT / 2; ++i) acc[ph][i] = 0.f;
       }
-      build(g + 1);
-    }
+      for (int ab = 0; ab < 16; ++ab) {
+        {
+          const int A = ab >> 2, B = ab & 3;
+          mbar_wait(smem_u32(&u_full[us]), u_phase);
+          const uint32_t vbuf = v0buf + vb * kVBytes;
+          const uint32_t ubuf = u0buf + us * kUBytes;
+          fence_acc(p0);
+          fence_acc(p1);
+          wgmma_fence();
+          if (full)
+            products<NT, 64>(p0, p1, vbuf, ubuf + wg * NT * kRowBytes, kUTap);
+          else
+            products<NT, 32>(p0, p1, vbuf, ubuf + wg * NT * (kRowBytes / 2),
+                             kUTap);
+          wgmma_commit();
 
-    wgmma_wait<0>();
-    fence_acc(p0);
-    fence_acc(p1);
-
-    // the z and y axes of the inverse transform, in registers
-    if (ab == 0 && sl == 0) {
-#pragma unroll
-      for (int ph = 0; ph < 8; ++ph)
-#pragma unroll
-        for (int i = 0; i < NT / 2; ++i) acc[ph][i] = 0.f;
-    }
-#pragma unroll
-    for (int gz = 0; gz < 2; ++gz) {
-      const int cz = at_coef(gz, A);
-      if (cz == 0) continue;
-#pragma unroll
-      for (int gy = 0; gy < 2; ++gy) {
-        const int cy = at_coef(gy, B);
-        if (cy == 0) continue;
-        const float coef = (float)(cz * cy);
-#pragma unroll
-        for (int i = 0; i < NT / 2; ++i) {
-          acc[(gz * 2 + gy) * 2][i] = fmaf(coef, p0[i], acc[(gz * 2 + gy) * 2][i]);
-          acc[(gz * 2 + gy) * 2 + 1][i] =
-              fmaf(coef, p1[i], acc[(gz * 2 + gy) * 2 + 1][i]);
-        }
-      }
-    }
-
-    if (ab == 15 && sl == n_sl - 1) {
-      // --------------------------------------------------------- epilogue
-      // the thread holds, of rows r0 and r0 + 8, channels 8 j + 2 q4 and
-      // + 1 of its warpgroup's half for every j: acc[ph][4 j + 2 h + e]
-      const Tile t = tile_of((int)blockIdx.x + (q / n_sl) * (int)gridDim.x, a);
-      const int Do = 2 * a.MD, Ho = 2 * a.MH, Wo = 2 * a.MW;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int bz = t.iz0 + rz[h], by = t.iy0 + ry[h], bx = t.ix0 + rx[h];
-        if (rz[h] >= a.mz || bz >= a.MD || by >= a.MH || bx >= a.MW) continue;
-#pragma unroll
-        for (int ph = 0; ph < 8; ++ph) {
-          bf16* o = a.out +
-                    ((((long long)t.n * Do + 2 * bz + (ph >> 2)) * Ho + 2 * by +
-                      ((ph >> 1) & 1)) * Wo + 2 * bx + (ph & 1)) * a.ldo;
-#pragma unroll
-          for (int j = 0; j < NT / 8; ++j) {
-            const int col = wg * NT + j * 8 + q4 * 2;
-            if (col >= a.Co) continue;
-            float y0 = acc[ph][4 * j + 2 * h] + bias_s[col];
-            float y1 = acc[ph][4 * j + 2 * h + 1] + bias_s[col + 1];
-            if (a.relu) y0 = fmaxf(y0, 0.f), y1 = fmaxf(y1, 0.f);
-            *reinterpret_cast<__nv_bfloat162*>(o + col) =
-                __floats2bfloat162_rn(y0, y1);
+          // the next step's V, under this step's products
+          if (B < 3) {
+            build(full, q & 1, vb ^ 1, A, B + 1);
+          } else if (A < 3) {
+            build(full, q & 1, vb ^ 1, A + 1, 0);
+          } else if (!last_q) {
+            mbar_wait(smem_u32(&h_full[(q + 1) & 1]), ((q + 1) >> 1) & 1);
+            build(sl1 < a.n_full, (q + 1) & 1, vb ^ 1, 0, 0);
           }
+
+          wgmma_wait<0>();
+          fence_acc(p0);
+          fence_acc(p1);
+
+          // the z and y axes of the inverse transform, in registers
+#pragma unroll
+          for (int gz = 0; gz < 2; ++gz) {
+            const int cz = at_coef(gz, A);
+            if (cz == 0) continue;
+#pragma unroll
+            for (int gy = 0; gy < 2; ++gy) {
+              const int cy = at_coef(gy, B);
+              if (cy == 0) continue;
+              const float coef = (float)(cz * cy);
+#pragma unroll
+              for (int i = 0; i < NT / 2; ++i) {
+                acc[(gz * 2 + gy) * 2][i] =
+                    fmaf(coef, p0[i], acc[(gz * 2 + gy) * 2][i]);
+                acc[(gz * 2 + gy) * 2 + 1][i] =
+                    fmaf(coef, p1[i], acc[(gz * 2 + gy) * 2 + 1][i]);
+              }
+            }
+          }
+
+          if (A == 3 && B == 3 && sl == n_sl - 1) {
+            // ----------------------------------------------------- epilogue
+            // the thread holds, of rows r0 and r0 + 8, channels 8 j + 2 q4
+            // and + 1 of its warpgroup's half for every j:
+            // acc[ph][4 j + 2 h + e]
+            const Tile t = tile_of((int)blockIdx.x + ti * (int)gridDim.x, a);
+            const int Do = 2 * a.MD, Ho = 2 * a.MH, Wo = 2 * a.MW;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int bz = t.iz0 + rz[h], by = t.iy0 + ry[h],
+                        bx = t.ix0 + rx[h];
+              if (rz[h] >= a.mz || bz >= a.MD || by >= a.MH || bx >= a.MW)
+                continue;
+#pragma unroll
+              for (int ph = 0; ph < 8; ++ph) {
+                bf16* o = a.out +
+                          ((((long long)t.n * Do + 2 * bz + (ph >> 2)) * Ho +
+                            2 * by + ((ph >> 1) & 1)) * Wo + 2 * bx + (ph & 1)) *
+                              a.ldo;
+#pragma unroll
+                for (int j = 0; j < NT / 8; ++j) {
+                  const int col = wg * NT + j * 8 + q4 * 2;
+                  if (col >= a.Co) continue;
+                  float y0 = acc[ph][4 * j + 2 * h] + bias_s[col];
+                  float y1 = acc[ph][4 * j + 2 * h + 1] + bias_s[col + 1];
+                  if (a.relu) y0 = fmaxf(y0, 0.f), y1 = fmaxf(y1, 0.f);
+                  *reinterpret_cast<__nv_bfloat162*>(o + col) =
+                      __floats2bfloat162_rn(y0, y1);
+                }
+              }
+            }
+          }
+
+          // every thread has built the next step's V and is done with this
+          // step's V and U stage and, after (A, B) = (3, 2), with the halo
+          asm volatile("bar.sync 1, 256;" ::: "memory");
+          if (tid == 0) {
+            // U of the step three ahead, into the stage just freed
+            const int ab3 = 4 * A + B + kUStages;
+            if (ab3 < 16) issue_u(sl, ab3, us);
+            else if (!last_q) issue_u(sl1, ab3 - 16, us);
+            if (A == 3 && B == 2) {  // the halo two (tile, slice) pairs ahead
+              int ti2 = ti, sl2 = sl + 2;
+              while (sl2 >= n_sl) sl2 -= n_sl, ++ti2;
+              if (ti2 < my_tiles) issue_halo(ti2, sl2, q & 1);
+            }
+          }
+          vb ^= 1;
+          if (++us == kUStages) us = 0, u_phase ^= 1;
         }
       }
-    }
-
-    // every thread has built V of step g + 1 and is done with step g's V,
-    // U stage and, after (A, B) = (3, 2), with the halo
-    asm volatile("bar.sync 1, 256;" ::: "memory");
-    if (tid == 0) {
-      if (g + kUStages < G) issue_u(g + kUStages);
-      if (ab == 14 && q + 2 < Q) issue_halo(q + 2);
     }
   }
 }
@@ -471,8 +504,8 @@ int launch(const WinoMaps& m, WinoArgs a, int N, cudaStream_t stream) {
   a.tiles_y = (a.MH + a.my - 1) / a.my;
   a.tiles_x = (a.MW + a.mx - 1) / a.mx;
   const long long tiles = (long long)N * a.tiles_z * a.tiles_y * a.tiles_x;
-  // the kernel counts its steps, 16 per tile and slice, in an int
-  if (tiles * (a.n_full + a.half) * 16 > 0x7fffffffLL || sms < 1)
+  // the kernel counts its (tile, slice) pairs in an int
+  if (tiles * (a.n_full + a.half) > 0x7fffffffLL || sms < 1)
     return (int)cudaErrorInvalidValue;
   a.n_tiles = (int)tiles;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);

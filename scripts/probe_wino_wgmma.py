@@ -87,7 +87,7 @@ def main():
     _build.load_library()
     log = path.with_suffix(".log").read_text().splitlines()
     for i, ln in enumerate(log):
-        if "wino_wgmma_kernel" in ln and "Compiling" in ln:
+        if "wino_" in ln and "_kernel" in ln and "Compiling" in ln:
             print(ln[-60:], "|", " ".join(log[i + 1:i + 4]))
     n = sum("Performance" in ln and "wino_wgmma_kernel" in ln for ln in log)
     print(f"ptxas performance warnings naming wino_wgmma_kernel: {n}")
