@@ -58,9 +58,11 @@
 //   stores, one per tap C, in the swizzled K-major layout the wgmma
 //   descriptor reads.  V is double-buffered: step s + 1 is built while the
 //   tensor cores run step s.
-// - Epilogue from registers: the f32 bias, ReLU, one rounding, the 8 phases
-//   stored interleaved into NDHWC as bf16 pairs (a quad of lanes writes 16
-//   contiguous bytes); blocks past the grid and channels past Co are masked.
+// - Epilogue from registers: the f32 bias, ReLU, one rounding; the quad of
+//   lanes that holds a row transposes its bf16 pairs by shuffles so that
+//   each lane owns 8 contiguous channels, and the 8 phases go interleaved
+//   into NDHWC as 16-byte stores; blocks past the grid and channels past Co
+//   are masked.
 //
 // What bounds it on an H100: at the packed baseline's stage-B shapes the
 // bytes (0.15 ms) and the tensor cores (0.10-0.15 ms) are far away; the
@@ -444,23 +446,43 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
             for (int h = 0; h < 2; ++h) {
               const int bz = t.iz0 + rz[h], by = t.iy0 + ry[h],
                         bx = t.ix0 + rx[h];
-              if (rz[h] >= a.mz || bz >= a.MD || by >= a.MH || bx >= a.MW)
-                continue;
+              const bool live = rz[h] < a.mz && bz < a.MD && by < a.MH &&
+                                bx < a.MW && wg * NT + 8 * q4 < a.Co &&
+                                8 * q4 < NT;
 #pragma unroll
               for (int ph = 0; ph < 8; ++ph) {
-                bf16* o = a.out +
-                          ((((long long)t.n * Do + 2 * bz + (ph >> 2)) * Ho +
-                            2 * by + ((ph >> 1) & 1)) * Wo + 2 * bx + (ph & 1)) *
-                              a.ldo;
+                // the row's values as bf16 pairs, then a 4 x 4 transpose
+                // across the quad of lanes that holds the row, after which
+                // lane q4 holds channels 8 q4 .. 8 q4 + 7: one 16-byte store
+                uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
                 for (int j = 0; j < NT / 8; ++j) {
                   const int col = wg * NT + j * 8 + q4 * 2;
-                  if (col >= a.Co) continue;
                   float y0 = acc[ph][4 * j + 2 * h] + bias_s[col];
                   float y1 = acc[ph][4 * j + 2 * h + 1] + bias_s[col + 1];
                   if (a.relu) y0 = fmaxf(y0, 0.f), y1 = fmaxf(y1, 0.f);
-                  *reinterpret_cast<__nv_bfloat162*>(o + col) =
-                      __floats2bfloat162_rn(y0, y1);
+                  const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+                  w[j] = *reinterpret_cast<const uint32_t*>(&y);
+                }
+#pragma unroll
+                for (int bit = 1; bit <= 2; bit <<= 1) {
+                  const bool hi = q4 & bit;
+#pragma unroll
+                  for (int k = 0; k < 2; ++k) {
+                    // bit 1 swaps words (0, 1) and (2, 3), bit 2 (0, 2) and (1, 3)
+                    const int lo_w = bit == 1 ? 2 * k : k, hi_w = lo_w + bit;
+                    const uint32_t got = __shfl_xor_sync(
+                        0xffffffffu, hi ? w[lo_w] : w[hi_w], bit);
+                    if (hi) w[lo_w] = got;
+                    else w[hi_w] = got;
+                  }
+                }
+                if (live) {
+                  bf16* o = a.out +
+                            ((((long long)t.n * Do + 2 * bz + (ph >> 2)) * Ho +
+                              2 * by + ((ph >> 1) & 1)) * Wo + 2 * bx +
+                             (ph & 1)) * a.ldo + wg * NT + 8 * q4;
+                  *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
                 }
               }
             }
