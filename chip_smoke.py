@@ -13,13 +13,14 @@ prints no result line):
 3. K1 (``conv3d_bias_relu``) against its plain PyTorch version on the card,
    at the main path's shapes (the baseline's four body layers and the plain
    U-Net's ten convs at ``default_tiling``'s tile and batch for a 256^3
-   volume) and one ``vgg_like`` layer (64 -> 96 channels, dilation 4), in
-   f32 and bf16, with the median times of both and of one cuDNN call.
-   Each case prints the kernel's route (``k1_route``); every bf16 case
-   with Ci > 1 and Ci, Co multiples of 8 must take the wgmma/TMA kernel.
-   Small cases at a dilation of 3 and at Co > 128 (192, 136) run on every
-   route.  One broken output (baseline layer 3, the centre tap's weights
-   zeroed) must fail the same check.
+   volume) and two ``vgg_like`` layers (its first, Ci = 1 into 32, and 64
+   -> 96 channels at dilation 4), in f32 and bf16, with the median times of
+   both and of one cuDNN call.  Each case prints the kernel's route
+   (``k1_route``); every bf16 case with Ci > 1 and Ci, Co multiples of 8
+   must take the wgmma/TMA kernel.  Small cases at a dilation of 3 and at
+   Co > 128 (192, 136) run on every route.  Two broken outputs (baseline
+   layer 3 on the wgmma kernel and layer 0 on the Ci = 1 kernel, the centre
+   tap's weights zeroed) must fail the same check.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
    versions.  Small cases first (ragged box edges, odd extents, one and two
    operands, a 16-channel rest, batch > 1, logits in and out of the
@@ -39,11 +40,15 @@ prints no result line):
    the packed baseline's and ``vgg_like``'s stage-A -> stage-B boundary
    (one tile batch), in f32 and bf16, timed beside the plain version and
    one PyTorch ``permute(...).contiguous()``.
-6. K4 (``wino_conv3d_bias_relu``) against its plain version on the packed
-   baseline's stage-B operands (one tile batch of the 256^3 volume, seed-0
-   weights), in f32 and bf16, timed beside the plain version, K1 and one
-   cuDNN call.  Two broken outputs (a tap dropped, a channel zeroed) must
-   fail the same check.
+6. K4 (``wino_conv3d_bias_relu``) against its plain version: small bf16
+   cases first (ragged tiles, odd block counts, one small tile, Ci = 24, a
+   16-channel rest, Ci = Co = 136, one case on the WMMA route), then on
+   the packed baseline's stage-B operands (one tile batch of the 256^3
+   volume, seed-0 weights), in f32 and bf16, timed beside the plain
+   version, K1 (in bf16 its wgmma route at d = 1), one cuDNN call and, in
+   bf16, the WMMA kernel of ``wino_conv.cu``.  Every bf16 stage-B call must
+   take the wgmma/TMA kernel (``wino_route``).  Two broken outputs (a tap
+   dropped, a channel zeroed) must fail the same check.
 7. The plain baseline path (``packed=False``, K1): on a 48^3 volume in
    24-wide tiles, the logits behind the card's probability map must match
    the CPU's (the plain versions, same weights) in f32 and bf16.  Then

@@ -4,8 +4,9 @@
 on shape, dtype and alignment (``k1_route``).  The wgmma kernel reads the
 weights from images the wrapper lays out (``wgmma_weights``) and one output
 box per block (``wgmma_box``); these are plain PyTorch and Python, so they
-are held here.  The kernels themselves run in ``tests/test_torch_cuda.py``
-on the card.
+are held here, as is the output box and run plan the Ci = 1 kernel is
+handed (``ci1_plan``).  The kernels themselves run in
+``tests/test_torch_cuda.py`` on the card.
 """
 
 import itertools
@@ -15,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from flypylib_tpu_torch.ops.conv import (K1_ROUTES, WGMMA_KC, WGMMA_N_TILES,
-                                         WGMMA_ROWS, conv3d_bias_relu,
-                                         k1_route, wgmma_box, wgmma_slices,
-                                         wgmma_tile, wgmma_weights)
+from flypylib_tpu_torch.ops.conv import (CI1_SMEM_FLOATS, CI1_VOXELS,
+                                         K1_ROUTES, WGMMA_KC, WGMMA_N_TILES,
+                                         WGMMA_ROWS, ci1_plan,
+                                         conv3d_bias_relu, k1_route,
+                                         wgmma_box, wgmma_slices, wgmma_tile,
+                                         wgmma_weights)
 
 
 def _x(ci, dtype=torch.bfloat16, shape=(2, 9, 10, 11)):
@@ -153,3 +156,40 @@ def test_any_co_runs_in_blocks_of_output_channels():
         assert all(n % 8 == 0 and wgmma_tile(n) >= n for _, n in chunks)
         assert len(chunks) == -(-co // WGMMA_N_TILES[-1])
     assert k1_route(_x(96), _w(96, 192)) == "wgmma"
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("out_dhw", [(74, 74, 74), (92, 92, 92), (13, 17, 22),
+                                     (15, 15, 15), (1, 1, 5), (3, 70, 41),
+                                     (5, 5, 300)])
+def test_ci1_plan_covers_the_output_once(out_dhw, d):
+    """The Ci = 1 kernel's blocks and runs, as the kernel indexes them:
+    thread t of 256 owns box voxels t, t + 256, t + 512, t + 768, voxel v
+    at (v // bx // by, v // bx % by, v % bx) of the box, masked past the box
+    and past the output.  Every output voxel is computed exactly once."""
+    bz, by, bx, staged = ci1_plan(out_dhw, d)
+    assert bz * by * bx <= CI1_VOXELS
+    assert bx >= min(out_dhw[2], 32)  # a warp's voxels run along x
+    assert all(b <= e for b, e in zip((bz, by, bx), out_dhw))
+    halo = (bz + 2 * d) * (by + 2 * d) * (bx + 2 * d)
+    assert staged == (halo <= CI1_SMEM_FLOATS)
+    seen = np.zeros(out_dhw, np.int32)
+    v = np.arange(CI1_VOXELS)  # thread t's run j is voxel t + 256 j
+    xx, yy, zz = v % bx, v // bx % by, v // bx // by
+    for z0, y0, x0 in itertools.product(*(range(0, e, b) for e, b in
+                                          zip(out_dhw, (bz, by, bx)))):
+        live = ((zz < bz) & (z0 + zz < out_dhw[0]) & (y0 + yy < out_dhw[1])
+                & (x0 + xx < out_dhw[2]))
+        np.add.at(seen, (z0 + zz[live], y0 + yy[live], x0 + xx[live]), 1)
+    assert (seen == 1).all()
+
+
+def test_ci1_plan_at_the_main_shapes_and_past_shared_memory():
+    """Baseline L0 (74^3 out), vgg_like L0 (92^3) and U-Net conv 0 (294^3)
+    stage their halo; a dilation of 20 does not fit and reads through L1."""
+    for size in (74, 92, 294):
+        bz, by, bx, staged = ci1_plan((size,) * 3, 1)
+        tiles = math.prod(-(-size // b) for b in (bz, by, bx))
+        assert staged and bx >= 32
+        assert size ** 3 / (tiles * CI1_VOXELS) > 0.8  # the runs are filled
+    assert ci1_plan((40, 40, 40), 20)[3] is False

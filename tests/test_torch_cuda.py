@@ -14,18 +14,25 @@ main path's widths at every dilation, Ci = 96 into Co = 96 and 128, the
 16-channel last slice (Ci % 32 <= 16), ragged extents and batch 2.  The
 others pin the old kernels: the element gather of the WMMA kernel (widths
 off the multiples of 8, an input 2 bytes off a 16-byte boundary), both its
-tile widths, the f32 FMA kernel and the Ci = 1 kernel.  Every route takes
-any dilation and any Co, as the reference does: cases at d = 3 and at
-Co = 136, 192 and 264 run on each.
+tile widths, the f32 FMA kernel and the Ci = 1 kernel (d = 1, 2, 3 and a
+dilation whose halo it cannot stage; Co = 7, 24, 32, 129, 136, 192; a box
+wider than the rows; a zeroed tap that must fail).  Every route takes any
+dilation and any Co, as the reference does: cases at d = 3 and at Co = 136,
+192 and 264 run on each.
 
 K5 (``parity_split_kernel``) is a copy: bitwise equal to its plain
 version, at every unit width the kernel picks (16-byte runs down to 2-byte
 elements).  K4 (``wino_conv3d_bias_relu``) is held against its plain version,
 ``wino_reference``, which carries the same rounding points: f32 rtol = atol
 = 1e-4 (the JAX package's own test's), bf16 ``chip_smoke.wino_check``.
-Cases cover both WMMA row tilings (16 and 32 rows), a width whose shared
-memory forces shorter x runs (Ci = Co = 128), the ReLU off, channels off
-the multiples of 16 and several x-chunks per row.
+Every case asserts the route ``wino_route`` names: bf16 with Ci and Co
+multiples of 8 takes the wgmma/TMA kernel (``chip_smoke``'s small cases run
+here too: ragged tiles, Ci = 24, a 16-channel rest, Ci = Co = 136), the
+others pin the kernels of ``wino_conv.cu``: both WMMA row tilings (16 and
+32 rows), the ReLU off, channels off the multiples of 16, several x-chunks
+per row, f32.  Every route takes any Ci and Co, as the reference does: Ci =
+136 into Co = 129 and 192 run on each.  A dropped tap and a zeroed channel
+must fail the check.
 
 K2 and K3 (``packed_tail``, ``packed_tail2``) are held by
 ``chip_smoke.tail_check``: f32 1e-4 max |ref|; bf16 one ulp at each of a
@@ -168,6 +175,28 @@ def test_empty_batch_and_rejections(cuda):
 def test_any_dilation_and_any_co(cuda, ci, co, d, dtype):
     x, w, b = _inputs((15, 16, 21), ci, co, batch=2)
     _check(x.to(dtype).to(cuda), w.to(cuda), b.to(cuda), d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,co,d", [
+    ((9, 40, 41), 32, 1),     # chunks of 16 channels, a box of whole rows
+    ((15, 16, 70), 136, 2),   # two launches: 128 + 8 channels
+    ((13, 17, 22), 48, 3),    # two chunks of 24
+    ((45, 46, 47), 24, 20),   # a halo past shared memory: read through L1
+])
+def test_ci1_kernel_boxes_chunks_and_dilations(cuda, shape, co, d, dtype):
+    x, w, b = _inputs(shape, 1, co, batch=2)
+    _check(x.to(dtype).to(cuda), w.to(cuda), b.to(cuda), d)
+
+
+def test_ci1_kernel_zeroed_tap_fails_the_check(cuda):
+    x, w, b = _inputs((13, 17, 22), 1, 24, batch=2)
+    x, w, b = x.bfloat16().to(cuda), w.to(cuda), b.to(cuda)
+    ref = conv3d_reference(x, w, b, 1)
+    w[1, 1, 1] = 0
+    _, ok = chip_smoke.conv_check(conv3d_bias_relu(x, w, b, 1).cpu(), ref.cpu())
+    assert not ok
 
 
 @pytest.mark.parametrize("make", [
@@ -369,7 +398,16 @@ WINO_CASES = {
     "Co-96": (1, 8, 8, 20, 64, 96),           # Co > 64: 16-row tiles
     "wide": (1, 6, 6, 70, 128, 128),          # shared memory: short x runs
     "odd-widths": (2, 8, 10, 12, 5, 7),       # Ci, Co off the multiples of 16
+    "past-128": (1, 8, 8, 10, 136, 129),      # two K passes, two Co blocks
+    "past-128-by-8": (1, 8, 8, 10, 136, 192),  # wgmma: 5 slices, 3 Co blocks
 }
+
+
+def _wino_route(dtype, ci, co):
+    """The route the rule of ``wino_route`` gives an aligned x, written out."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if ci % 8 == 0 and co % 8 == 0 else "wmma"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -380,14 +418,47 @@ def test_wino_kernel_matches_plain(cuda, case, dtype):
     x, wgt, b = _inputs((d, h, w), ci, co, batch=n)
     x, b = x.to(cuda).to(dtype), b.to(cuda)
     u = wino.wino_transform_weights(wgt.to(cuda))
+    route = _wino_route(dtype, ci, co)
+    assert wino.wino_route(x, u) == route
     before = wino.wino_conv3d_bias_relu.launches
+    routes = dict(wino.wino_conv3d_bias_relu.routes)
     got = wino.wino_conv3d_bias_relu(x, u, b)
     torch.cuda.synchronize()
     assert wino.wino_conv3d_bias_relu.launches == before + 1
+    routes[route] += 1
+    assert wino.wino_conv3d_bias_relu.routes == routes
     ref = wino.wino_reference(x, u, b)
     assert got.shape == ref.shape and got.dtype == dtype
     err, ok = chip_smoke.wino_check(got, ref)
     assert ok, f"max |err| {err}"
+
+
+def test_wino_small_cases_of_the_smoke_run(cuda):
+    """``chip_smoke``'s small K4 cases, each on the route it names."""
+    chip_smoke.check_wino_small("test")
+
+
+def test_wino_unaligned_input_takes_the_wmma_kernel(cuda):
+    x, wgt, b = _inputs((8, 8, 10), 16, 24, batch=1)
+    flat = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = x.reshape(-1).to(cuda, torch.bfloat16)
+    xv = flat[1:].view(x.shape)
+    u = wino.wino_transform_weights(wgt.to(cuda))
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    assert wino.wino_route(xv, u) == "wmma"
+    got = wino.wino_conv3d_bias_relu(xv, u, b.to(cuda))
+    err, ok = chip_smoke.wino_check(got, wino.wino_reference(xv, u, b.to(cuda)))
+    assert ok, f"max |err| {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wino_broken_outputs_fail_the_check(cuda, dtype):
+    x, wgt, b = _inputs((10, 12, 14), 32, 48, batch=2)
+    u = wino.wino_transform_weights(wgt.to(cuda))
+    r = chip_smoke.wino_readings(x.to(cuda).to(dtype), u, b.to(cuda))
+    assert r["sound"][2]
+    assert not r["tap dropped"][2] and not r["channel zeroed"][2]
 
 
 def test_wino_kernel_without_relu_and_rejections(cuda):
@@ -403,9 +474,12 @@ def test_wino_kernel_without_relu_and_rejections(cuda):
         wino.wino_conv3d_bias_relu(x[:, :7], u, b)
     with pytest.raises(TypeError):
         wino.wino_conv3d_bias_relu(x.half(), u, b)
-    with pytest.raises(ValueError, match="Ci and Co"):
-        wino.wino_conv3d_bias_relu(x, torch.zeros((64, 8, 129), device=cuda),
-                                   torch.zeros(129, device=cuda))
+    # no cap on the channels: Co = 129 runs (in two blocks) and is the bias
+    wide = wino.wino_conv3d_bias_relu(x, torch.zeros((64, 8, 129), device=cuda),
+                                      torch.arange(129.0, device=cuda),
+                                      relu=False)
+    assert wide.shape == (1, 6, 6, 6, 129)
+    assert torch.equal(wide[0, 0, 0, 0], torch.arange(129.0, device=cuda))
     with pytest.raises(ValueError, match="same device"):
         wino.wino_conv3d_bias_relu(x, u.cpu(), b)
 

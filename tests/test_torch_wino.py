@@ -58,6 +58,24 @@ def test_wino_reference_matches_jax(rng, shape, block):
     np.testing.assert_allclose(got.numpy(), direct.numpy(), rtol=1e-4, atol=1e-4)
 
 
+def test_wino_reference_past_128_channels_matches_jax(rng):
+    """Ci = 136 into Co = 192: the reference takes any Ci and Co, and so
+    does the port (on the card each route runs them in blocks of output
+    channels and a K loop; here the plain version).  The sums are 136 x 64
+    terms long: the same rtol = atol = 1e-4, at weights scaled to keep the
+    outputs at unit size."""
+    x, wgt, b = _inputs(rng, (1, 6, 6, 8, 136, 192), w_std=(27 * 136) ** -0.5)
+    u = twino.wino_transform_weights(torch.from_numpy(wgt))
+    want = np.asarray(j_wino(jnp.asarray(x), jnp.asarray(u.numpy()),
+                             jnp.asarray(b), block=(2, 4), interpret=True))
+    got = twino.wino_conv3d_bias_relu(torch.from_numpy(x), u, torch.from_numpy(b))
+    assert got.shape == want.shape == (1, 4, 4, 6, 192)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    direct = conv3d_reference(torch.from_numpy(x), torch.from_numpy(wgt),
+                              torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), direct.numpy(), rtol=1e-4, atol=1e-4)
+
+
 def test_wino_reference_without_relu(rng):
     x, wgt, _ = _inputs(rng, (1, 8, 8, 8, 4, 4))
     b = np.zeros(4, np.float32)
