@@ -15,35 +15,42 @@
 //     being the inverse transform's coefficient;
 //   - then acc[g] + f32(b), ReLU, and one rounding to T.
 //
-// What bounds it on an H100: at the packed baseline's stage-B shapes
+// This file holds the first versions: f32 (wino_fma_kernel) and the bf16
+// calls the wgmma kernel of wino_conv_wgmma.cu does not take (Ci or Co off
+// the multiples of 8, or x off a 16-byte boundary: wino_wmma_kernel); the
+// Python wrapper picks (ops/wino_conv.py::wino_route).
+//
+// What bounds them on an H100: at the packed baseline's stage-B shapes
 // ((64,36^3,32) -> (64,34^3,48) and (64,34^3,48) -> (64,32^3,64), bf16)
 // the Winograd products are 6.2e10 and 1.03e11 FLOP against 191 + 226 MB
 // and 226 + 268 MB in and out, about 160-210 FLOP per byte: under the
 // card's bf16 ridge of ~295, so the floor is the bytes.  Each input value
 // is read by up to 8 blocks (the 4^3 tiles of neighbouring 2^3 output
 // blocks overlap by 2 on each axis), so the halo loads, which L2 serves in
-// part, and the transforms in shared memory are what this first version
-// spends its time on.
+// part, and the transforms in shared memory are what these kernels spend
+// their time on.
 //
 // Design, simple first: a block owns one z-block and one y-block of 2^3
-// output blocks and a run of up to MX of them along x (MX <= 32).
-//   1. It loads the 4 x 4 x (2 MX + 2) x Ci halo into shared memory.
+// output blocks and a run of up to MX of them along x (MX <= 32), and up
+// to 128 output channels (a wider layer runs as one launch per block of
+// output channels).  Per pass of its K loop (128 input channels):
+//   1. It loads the pass's channels of the 4 x 4 x (2 MX + 2) halo into
+//      shared memory.
 //   2. It runs the z and the y stages of B^T in place (each column of four
 //      values becomes its four transform rows), leaving T2[A][B] per x
 //      position.
-//   3. For each (A, B), it runs the x stage into a (4, MP, Cip) tile V
+//   3. For each (A, B), it runs the x stage into a (4, MP, Ccp) tile V
 //      (MP: MX rounded up to 16; padding rows and channels are zeros), then
-//      for each of the four taps (A, B, C) takes the (MP, Cip) @ (Cip, Cop)
+//      for each of the four taps (A, B, C) takes the (MP, Ccp) @ (Ccp, Cop)
 //      product with f32 accumulation -- bf16 on WMMA tensor cores (U read
 //      straight from device memory, where it stays in L2), f32 on CUDA-core
 //      FMAs -- and folds it with the inverse transform's signs into eight
 //      f32 phase accumulators held in registers (WMMA accumulator
 //      fragments for bf16).
-//   4. The epilogue adds the bias, applies ReLU, rounds once and writes the
-//      eight phases interleaved into the NDHWC output (the reference writes
-//      phase-major and transposes afterwards, a Mosaic workaround).
-// wgmma, TMA, double buffering and a larger share of the card per block
-// are later work.
+//   4. After the last pass the epilogue adds the bias, applies ReLU, rounds
+//      once and writes the eight phases interleaved into the NDHWC output
+//      (the reference writes phase-major and transposes afterwards, a
+//      Mosaic workaround).
 //
 // C entry: fpl_wino_conv(...) launches on the given stream and returns
 // cudaGetLastError(); it allocates nothing and does not synchronise.

@@ -148,13 +148,15 @@ def wgmma_tile(co: int) -> int:
     return n_tile
 
 
-def wgmma_chunks(co: int) -> list[tuple[int, int]]:
-    """The blocks of output channels ``(first, count)`` the wgmma kernel
-    runs ``co`` (a multiple of 8) in, one launch each: one block up to the
-    widest N tile; above it the fewest blocks, of equal width rounded up to
-    a multiple of 8 (Co = 192 runs as 96 + 96, not 128 + 64)."""
-    n = -(-co // WGMMA_N_TILES[-1])
-    width = -(-co // (8 * n)) * 8
+def wgmma_chunks(co: int, widest: int = WGMMA_N_TILES[-1],
+                 unit: int = 8) -> list[tuple[int, int]]:
+    """The blocks of output channels ``(first, count)`` a kernel whose
+    widest block is ``widest`` runs ``co`` channels in, one launch each (by
+    default K1's wgmma kernel and its widest N tile): one block up to
+    ``widest``; above it the fewest blocks, of equal width rounded up to a
+    multiple of ``unit`` (Co = 192 runs as 96 + 96, not 128 + 64)."""
+    n = -(-co // widest)
+    width = -(-co // (unit * n)) * unit
     return [(c0, min(width, co - c0)) for c0 in range(0, co, width)]
 
 

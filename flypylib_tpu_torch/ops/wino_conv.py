@@ -20,7 +20,8 @@ multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA kernel of
 ``csrc/wino_conv_wgmma.cu`` ("wgmma"); ``csrc/wino_conv.cu`` keeps the
 other bf16 calls ("wmma") and f32 ("fma").  Every route takes any Ci and
 Co, as the reference does: a layer wider than a kernel's widest block of
-output channels runs as one launch per block (:func:`wino_chunks`), and
+output channels runs as one launch per block (``ops/conv.py::
+wgmma_chunks``: Co = 136 on the wgmma kernel as 48 + 48 + 40), and
 the kernels loop over Ci themselves.
 
 Rounding points, the reference kernel's (``wino_conv.py:105-178``): the
@@ -28,7 +29,11 @@ input transform runs per axis, z then y then x, each stage one signed sum
 of two ``x.dtype`` values rounded to ``x.dtype``; ``U`` is rounded to
 ``x.dtype`` once; each tap's products are summed in f32 and folded into the
 eight output phases with the inverse transform's +-1 in f32, tap by tap;
-then the f32 of the dtype bias, ReLU and one rounding.
+then the f32 of the dtype bias, ReLU and one rounding.  The wgmma kernel
+rounds at the same points and takes the f32 sums in another order (the x
+axis of the inverse transform inside the products' own accumulation, per
+32-channel slice); ``tests/test_torch_wino_route.py`` holds a model of that
+order against :func:`wino_reference`.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import functools
 import numpy as np
 import torch
 
-from flypylib_tpu_torch.ops.conv import matmul_f32, weight_images
+from flypylib_tpu_torch.ops.conv import (matmul_f32, weight_images,
+                                         wgmma_chunks)
 
 # F(2, 3) transform matrices (exact in binary floating point)
 BT = np.array(
@@ -161,16 +167,6 @@ def wino_route(x: torch.Tensor, u: torch.Tensor) -> str:
     return "wmma"
 
 
-def wino_chunks(co: int, widest: int, unit: int) -> list[tuple[int, int]]:
-    """The blocks of output channels ``(first, count)`` a kernel whose
-    widest block is ``widest`` runs ``co`` channels in, one launch each:
-    the fewest blocks, of equal width rounded up to a multiple of ``unit``
-    (Co = 136 runs on the wgmma kernel as 48 + 48 + 40)."""
-    n = -(-co // widest)
-    width = -(-co // (unit * n)) * unit
-    return [(c0, min(width, co - c0)) for c0 in range(0, co, width)]
-
-
 @functools.lru_cache(maxsize=256)
 def wino_box(blocks_dhw: tuple[int, int, int]) -> tuple[int, int, int]:
     """The tile (mz, my, mx) of 2^3 output blocks one block of the wgmma
@@ -230,7 +226,7 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             mz, my, mx = wino_box((shape[1] // 2, shape[2] // 2, shape[3] // 2))
-            for c0, cn in wino_chunks(co, WINO_N_TILES[-1], 8):
+            for c0, cn in wgmma_chunks(co, WINO_N_TILES[-1]):
                 n_tile = next(n for n in WINO_N_TILES if n >= cn)
                 u32, u16 = weight_images(ud[:, :, c0:c0 + cn], n_tile)
                 err = lib.fpl_wino_conv_wgmma(
@@ -241,7 +237,7 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
                 if err != 0:
                     break
         else:
-            for c0, cn in wino_chunks(co, WINO_CO_BLOCK, 16):
+            for c0, cn in wgmma_chunks(co, WINO_CO_BLOCK, 16):
                 # the block of U, zero-padded to multiples of 16
                 up = torch.zeros((64, -(-ci // 16) * 16, -(-cn // 16) * 16),
                                  dtype=x.dtype, device=x.device)

@@ -5,7 +5,7 @@ the CPU.
 rule on dtype, widths and alignment (``wino_route``).  The wgmma kernel
 reads U from K-major images (``weight_images`` with 64 taps), owns one tile
 of 2^3 output blocks per block (``wino_box``) and one block of output
-channels per launch (``wino_chunks``); these are plain PyTorch and Python,
+channels per launch (``wgmma_chunks``); these are plain PyTorch and Python,
 so they are held here.  The kernel also sums in f32 in another order than
 the plain version: per 16-channel K step and pair (A, B) of z and y
 transform rows it forms p0 = V0 U0 + V1 U1 + V2 U2 and p1 = V1 U1 - V2 U2
@@ -28,7 +28,7 @@ import torch
 import chip_smoke
 from flypylib_tpu_torch.ops import wino_conv as wino
 from flypylib_tpu_torch.ops.conv import (WGMMA_KC, matmul_f32, weight_images,
-                                         wgmma_slices)
+                                         wgmma_chunks, wgmma_slices)
 
 
 def _x(ci, dtype=torch.bfloat16, shape=(2, 8, 10, 12)):
@@ -143,7 +143,7 @@ def test_stage_b_tiles_fill_the_gemm_rows():
     (7, 128, 16, [(0, 7)]),
 ])
 def test_output_channel_blocks(co, widest, unit, want):
-    got = wino.wino_chunks(co, widest, unit)
+    got = wgmma_chunks(co, widest, unit)
     assert got == want
     assert all(n <= widest and c0 % unit == 0 for c0, n in got)
     assert sum(n for _, n in got) == co
