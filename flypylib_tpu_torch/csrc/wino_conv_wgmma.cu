@@ -48,9 +48,9 @@
 // - Per (tile, slice) one TMA load brings the (2mz+2, 2my+2, 2mx+2) voxel
 //   halo of the slice's channels into one of two halo buffers (64-byte
 //   swizzle; zeros past the volume and past Ci), issued two (tile, slice)
-//   pairs ahead.  Per step (A, B) four TMA loads bring the taps' (2 NT x 32)
-//   slices of U from the K-major images the wrapper lays out
-//   (ops/conv.py::weight_images with 64 taps), three steps ahead.  Thread 0
+//   pairs ahead.  Per step (A, B) one TMA load brings the four taps' (2 NT x
+//   32) slices of U from the K-major images the wrapper lays out
+//   (ops/wino_conv.py::wino_images), three steps ahead.  Thread 0
 //   issues the loads after the block barrier that frees their buffer.
 // - V is built by all 256 threads, one (row, 8-channel vector) each: 16
 //   16-byte loads from the halo (4 x positions x the two z and two y
@@ -316,12 +316,9 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
     const uint32_t dst = u0buf + us * kUBytes;
     mbar_expect_tx(bar, (uint32_t)(4 * 2 * NT *
                                    (full ? kRowBytes : kRowBytes / 2)));
-#pragma unroll
-    for (int C = 0; C < 4; ++C) {
-      const int t = ab * 4 + C;
-      tma_load_2d(dst + C * kUTap, full ? &tm.u : &tm.u16, bar, 0,
-                  (full ? t * a.n_full + sl : t) * 2 * NT);
-    }
+    // one box of 4 x 2 NT rows: the images keep a step's four taps together
+    tma_load_2d(dst, full ? &tm.u : &tm.u16, bar, 0,
+                (full ? ab * a.n_full + sl : ab) * 4 * 2 * NT);
   };
   if (tid == 0) {
     issue_halo(0, 0, 0);
@@ -398,7 +395,7 @@ wino_wgmma_kernel(const __grid_constant__ WinoMaps tm,
             products<NT, 64>(p0, p1, vbuf, ubuf + wg * NT * kRowBytes, kUTap);
           else
             products<NT, 32>(p0, p1, vbuf, ubuf + wg * NT * (kRowBytes / 2),
-                             kUTap);
+                             kUTap / 2);
           wgmma_commit();
 
           // the next step's V, under this step's products
@@ -542,9 +539,10 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // x (N,D,H,W,Ci) bf16, 16-byte aligned, D, H, W even.  The transform-domain
-// weights as the wrapper lays them out (ops/conv.py::weight_images of the
-// (64, Ci, Co) block of U): u32 (64, n_full, n_tile, 32) for the 32-channel
-// slices (null if none), u16 (64, n_tile, 16) for the 16-channel slice that
+// weights as the wrapper lays them out (ops/wino_conv.py::wino_images of the
+// (64, Ci, Co) block of U): u32 (16, n_full, 4, n_tile, 32), step (A, B),
+// slice, tap C, for the 32-channel slices (null if none), u16 (64, n_tile,
+// 16), tap 16 A + 4 B + C, for the 16-channel slice that
 // holds a rest of 1-16 channels (null if none); bf16, zero past Ci and Co
 // and where a 32-channel slice holds the channel.  b (Co,) bf16; out
 // (N, D-2, H-2, W-2, ldo) bf16, of which the call writes Co channels
@@ -580,10 +578,10 @@ extern "C" int fpl_wino_conv_wgmma(const void* x, const void* u32,
   bool ok = true;
   if (a.n_full)
     ok = encode_x(encode, &m.x, x, N, D, H, W, Ci, kKC, hz, hy, hx) &&
-         encode_w(encode, &m.u, u32, 64 * a.n_full * n_tile, kKC, n_tile);
+         encode_w(encode, &m.u, u32, 64 * a.n_full * n_tile, kKC, 4 * n_tile);
   if (a.half)
     ok = ok && encode_x(encode, &m.x16, x, N, D, H, W, Ci, kKC / 2, hz, hy, hx) &&
-         encode_w(encode, &m.u16, u16, 64 * n_tile, kKC / 2, n_tile);
+         encode_w(encode, &m.u16, u16, 64 * n_tile, kKC / 2, 4 * n_tile);
   if (!ok) return (int)cudaErrorInvalidValue;
 
   a.bias = static_cast<const bf16*>(b);

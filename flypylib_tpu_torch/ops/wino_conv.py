@@ -167,6 +167,18 @@ def wino_route(x: torch.Tensor, u: torch.Tensor) -> str:
     return "wmma"
 
 
+def wino_images(u: torch.Tensor,
+                n_tile: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The images of ``u`` (64, Ci, Co) the wgmma kernel loads, one box per
+    step (A, B) and K slice: ``weight_images(u, n_tile)`` with the four
+    taps C of a step side by side, ``u32[4 A + B, s, C] = w32[16 A + 4 B +
+    C, s]`` of shape (16, n_full, 4, n_tile, 32); ``u16`` (64, n_tile, 16)
+    already keeps them so."""
+    u32, u16 = weight_images(u, n_tile)
+    u32 = u32.view(16, 4, *u32.shape[1:]).transpose(1, 2).contiguous()
+    return u32, u16
+
+
 @functools.lru_cache(maxsize=256)
 def wino_box(blocks_dhw: tuple[int, int, int]) -> tuple[int, int, int]:
     """The tile (mz, my, mx) of 2^3 output blocks one block of the wgmma
@@ -228,7 +240,7 @@ def wino_conv3d_bias_relu(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
             mz, my, mx = wino_box((shape[1] // 2, shape[2] // 2, shape[3] // 2))
             for c0, cn in wgmma_chunks(co, WINO_N_TILES[-1]):
                 n_tile = next(n for n in WINO_N_TILES if n >= cn)
-                u32, u16 = weight_images(ud[:, :, c0:c0 + cn], n_tile)
+                u32, u16 = wino_images(ud[:, :, c0:c0 + cn], n_tile)
                 err = lib.fpl_wino_conv_wgmma(
                     x.data_ptr(), u32.data_ptr() if u32.numel() else None,
                     u16.data_ptr() if u16 is not None else None,

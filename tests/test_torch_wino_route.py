@@ -3,7 +3,8 @@ the CPU.
 
 ``wino_conv3d_bias_relu`` on a CUDA tensor picks one of three kernels by a
 rule on dtype, widths and alignment (``wino_route``).  The wgmma kernel
-reads U from K-major images (``weight_images`` with 64 taps), owns one tile
+reads U from K-major images (``wino_images``: ``weight_images`` with 64
+taps, a step's four taps side by side), owns one tile
 of 2^3 output blocks per block (``wino_box``) and one block of output
 channels per launch (``wgmma_chunks``); these are plain PyTorch and Python,
 so they are held here.  The kernel also sums in f32 in another order than
@@ -82,9 +83,16 @@ def test_u_images_hold_every_tap_slice(ci, co, n_tile):
     rng = np.random.default_rng(0)
     u = torch.from_numpy(rng.normal(0, 1, (64, ci, co)).astype(np.float32))
     u = u.bfloat16()
-    u32, u16 = weight_images(u, n_tile)
+    u32, u16 = wino.wino_images(u, n_tile)
     n_full, c0 = wgmma_slices(ci)
-    assert u32.shape == (64, n_full, n_tile, WGMMA_KC)
+    # one box per step (A, B) and slice holds the step's four taps C
+    assert u32.shape == (16, n_full, 4, n_tile, WGMMA_KC)
+    assert u32.is_contiguous()
+    w32, w16 = weight_images(u, n_tile)
+    for ab, s, C in itertools.product(range(16), range(n_full), range(4)):
+        assert torch.equal(u32[ab, s, C], w32[4 * ab + C, s])
+    u32 = w32
+    assert (u16 is None and w16 is None) or torch.equal(u16, w16)
     assert (u16 is None) == (c0 is None)
     assert (n_full, c0) == {24: (1, None), 48: (1, 32), 32: (1, None),
                             40: (1, 24), 136: (4, 120), 8: (0, 0)}[ci]
