@@ -342,13 +342,14 @@ def median_s(fn, iters: int = 3) -> float:
 # K1 past the widths and dilations of the zoo's defaults, small, one per
 # route and dtype: a dilation of 3 (a baseline with dilations (1, 1, 3, 3)),
 # Co = 192 (the three-level U-Net's bottleneck, two 96-wide N blocks on the
-# wgmma route), Co = 192 at d = 3 on the Ci = 1 kernel (two launches of at
-# most 128 channels) and widths off the multiples of 8 (bf16: the WMMA
+# wgmma route), Co = 192 at d = 3 and Co = 136 at d = 2 on the Ci = 1 kernel
+# (two launches of at most 128 channels) and widths off the multiples of 8 (bf16: the WMMA
 # kernel's N blocks; f32: the FMA kernel's).  (label, B, size, Ci, Co, d)
 WIDE_CONV_CASES = (
     ("wide d=3", 2, 21, 32, 48, 3),
     ("wide Co=192", 2, 15, 96, 192, 1),
     ("wide Ci=1 Co=192 d=3", 2, 21, 1, 192, 3),
+    ("wide Ci=1 Co=136 d=2", 2, 17, 1, 136, 2),
     ("wide Ci=12 Co=136 d=3", 2, 19, 12, 136, 3),
 )
 
