@@ -146,13 +146,24 @@ conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int hx = a.bx + 2 * a.d, hy = a.by + 2 * a.d, hz = a.bz + 2 * a.d;
   const T* xn = x + (long long)n * a.D * a.H * a.W;
   if (STAGED) {
-    // a warp per halo row, lanes along x; zeros past the input
-    for (int r = tid / 32; r < hz * hy; r += kCi1Threads / 32) {
-      const int zz = z0 + r / hy, yy = y0 + r % hy;
-      const bool row = zz < a.D && yy < a.H;
-      const T* src = xn + ((long long)zz * a.H + yy) * a.W + x0;
-      for (int xx = tid % 32; xx < hx; xx += 32)
-        xs[r * hx + xx] = row && x0 + xx < a.W ? to_f32(src[xx]) : 0.f;
+    // halo values e = (zz * hy + yy) * hx + xx, zeros past the input; eight
+    // loads a thread are issued before the first is stored, so that their
+    // latencies overlap
+    const int hv = hz * hy * hx;
+    constexpr int kBatch = 8;
+    for (int e0 = tid; e0 < hv; e0 += kBatch * kCi1Threads) {
+      float v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int e = e0 + k * kCi1Threads;
+        const int r = e / hx, xx = e - r * hx;
+        const int zz = z0 + r / hy, yy = y0 + r % hy;
+        const bool in = e < hv && zz < a.D && yy < a.H && x0 + xx < a.W;
+        v[k] = in ? to_f32(xn[((long long)zz * a.H + yy) * a.W + x0 + xx]) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (e0 + k * kCi1Threads < hv) xs[e0 + k * kCi1Threads] = v[k];
     }
   }
   __syncthreads();
