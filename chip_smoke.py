@@ -76,6 +76,25 @@ prints no result line):
    the Ci = 1 kernel, convs 1-9 on the wgmma route), no kernel
    of the others.  The lists must equal the host reference; times, peak
    memory and the infer's phases follow.
+10. The staged whole-volume engine, ``FplNetwork.detect_large``.  (a) On
+   the 256^3 volume, the packed and plain baseline and packed ``vgg_like``
+   run ``forward="roi"`` and ``"shared"`` for ``method`` "nms",
+   "components" and "both" at ``default_tiling``'s tile and batch; every
+   list must equal ``detect``'s on the scaled f32 volume ``vol * f32(1/255)``
+   (the values the staged engine feeds the model), and each call must launch
+   K5 once per tile batch (packed) or K1 four times (plain) and nothing
+   else.  (b) The U-Net's default engine in shared mode: its lists must equal
+   the host reference's on the volume's part of the shell ``shared_prob``
+   wrote.  Then the high-water of one tile batch's forward per input voxel
+   (the figures behind ``_StreamPlan.act_bytes_per_voxel``).  (c) The north
+   star: a 1024^3 uint8 volume (``make_volume_u8(1024, 128)``), the packed
+   baseline at core 512, ``method="both"``, ``forward="auto"``, the
+   threshold the 0.9999 quantile of a 128^3 cutout's map; staged once with
+   ``stage_volume_chunked`` and reused by three timed calls (Mvox/s, the
+   upload and the upload plus pad on the card, peak memory, the shared grid,
+   the launches, one call split into forward and postprocess); both lists
+   must equal ``detect``'s on the scaled volume at the shared grid's tile and
+   batch.
 
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
@@ -1454,6 +1473,312 @@ def profile_detect(net, vol: np.ndarray, thr: float, card_str: str,
               flush=True)
 
 
+# phase 10, the staged whole-volume engine (FplNetwork.detect_large)
+STAGED_MODELS = (  # (label, zoo name, FplNetwork kwargs)
+    ("packed baseline", "baseline", {}),
+    ("plain baseline", "baseline", {"packed": False}),
+    ("packed vgg_like", "vgg_like", {}),
+)
+STAGED_METHODS = ("nms", "components", "both")
+NORTH_STAR = 1024        # the reference bench's staged_1k volume ...
+NORTH_STAR_BLOBS = 128   # ... its blob count ...
+NORTH_STAR_CORE = 512    # ... its ROI core ...
+NORTH_STAR_PROBE = 128   # ... and the cutout its threshold comes from,
+NORTH_STAR_QUANTILE = 0.9999  # at this quantile of the cutout's map
+
+
+def scaled(vol: np.ndarray) -> np.ndarray:
+    """The f32 volume a uint8 volume becomes inside ``detect_large``:
+    ``x * f32(1/255)`` (``detect`` feeds raw values)."""
+    return vol.astype(np.float32) * np.float32(1.0 / 255.0)
+
+
+def by_method(result, method: str) -> dict:
+    """``detect_large``'s result as ``{"nms": ..., "components": ...}``."""
+    if method == "both":
+        return {"nms": result[0], "components": result[1]}
+    return {method: result}
+
+
+def same_lists(got: dict, want: dict, what: str) -> None:
+    for m, dets in got.items():
+        same_list(dets, want[m], 0.0 if m == "nms" else CENTROID_TOL,
+                  f"{what} {m}")
+
+
+def staged_batches(plan, forward: str) -> int:
+    """Tile batches (module calls) one detect_large runs in ``forward``."""
+    if forward == "shared":
+        return plan.full_pipe().n_batches
+    return len(plan.grid) * plan.pipe.n_batches
+
+
+def staged_launch_want(packed: bool, n: int) -> dict:
+    """Launches of a staged detect over ``n`` tile batches: K5 once per
+    batch on the packed engines, K1 four times (layers 1-3 on the wgmma
+    route, layer 0 on the Ci = 1 kernel) on the plain baseline."""
+    want = dict.fromkeys(launch_counts(), 0)
+    if packed:
+        want["parity_split_kernel"] = n
+    else:
+        want.update({"conv3d_bias_relu": 4 * n,
+                     "conv3d_bias_relu:wgmma": 3 * n,
+                     "conv3d_bias_relu:ci1": n})
+    return want
+
+
+def check_staged_256(port, card_str: str, vol: np.ndarray) -> dict:
+    """10(a): ``detect_large`` in roi and shared modes, for every method,
+    on the packed and plain baseline and packed ``vgg_like``, at
+    ``default_tiling``'s tile and batch for ``detect``; every list must
+    equal ``detect``'s on the scaled f32 volume, and each run must launch
+    exactly its kernels.  Returns the launch counts per model and mode."""
+    from flypylib_tpu_torch.infer.large import make_stream_plan
+    from flypylib_tpu_torch.infer.tiled import default_tiling
+
+    volf = scaled(vol)
+    mvox = vol.size / 1e6
+    counts = {}
+    for label, name, kw in STAGED_MODELS:
+        net = port.FplNetwork(name, device="cuda", seed=0, **kw)
+        tiling = default_tiling(net.infer_spec, vol.shape)
+        prob = net.infer(volf, *tiling, keep_on_device=True)
+        thr = float(torch.topk(prob.reshape(-1), N_CAND).values[-1])
+        want = {"nms": net.nms(prob, window=NMS_WINDOW, threshold=thr),
+                "components": net.components(prob, threshold=thr)}
+        del prob
+        packed = kw.get("packed", "auto") is not False
+        for forward in ("roi", "shared"):
+            for method in STAGED_METHODS:
+                plan = make_stream_plan(net.infer_spec, None, vol.shape,
+                                        core=256, tile_out=tiling[0],
+                                        tile_batch=tiling[1],
+                                        window=NMS_WINDOW, threshold=thr,
+                                        method=method)
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = net.detect_large(vol, threshold=thr, method=method,
+                                       forward=forward, plan=plan)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got_counts = launch_counts()
+                n = staged_batches(plan, forward)
+                what = f"{label} detect_large({forward}, {method})"
+                require(got_counts == staged_launch_want(packed, n),
+                        f"{what}: launches {got_counts}, expected "
+                        f"{staged_launch_want(packed, n)}")
+                same_lists(by_method(got, method), want,
+                           f"{what} vs detect on the scaled volume:")
+                counts[(label, forward, method)] = got_counts
+                print(f"{what}: {VOLUME}^3 uint8, tiles {tiling[0]} in "
+                      f"batches of {tiling[1]}, {n} tile batches, launches "
+                      f"K1 {got_counts['conv3d_bias_relu']} K5 "
+                      f"{got_counts['parity_split_kernel']}; nms "
+                      f"{len(want['nms'])}, components "
+                      f"{len(want['components'])}: equal to detect's; "
+                      f"{dt * 1e3:.2f} ms, {mvox / dt:.3f} Mvox/s (first "
+                      f"call of its plan) [{card_str}]", flush=True)
+        del net
+        torch.cuda.empty_cache()
+    return counts
+
+
+def check_staged_unet(port, card_str: str, vol: np.ndarray) -> None:
+    """10(b): the U-Net (default packed engine) in shared mode: the lists
+    of ``method="both"`` must equal the host reference's on the volume's
+    part of the shell ``shared_prob`` wrote."""
+    from flypylib_tpu_torch.infer.large import make_stream_plan, stage_volume
+    from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
+
+    net = port.FplNetwork("unet", device="cuda", seed=0)
+    plan = make_stream_plan(net.infer_spec, None, vol.shape, window=NMS_WINDOW,
+                            method="both")
+    staged = stage_volume(vol, plan=plan)
+    shell = plan.shared_prob(staged)
+    h = plan.h
+    prob = shell[h:h + vol.shape[0], h:h + vol.shape[1], h:h + vol.shape[2]]
+    require(bool(torch.isfinite(prob).all()), "unet shared shell: the "
+                                              "volume's part is not finite")
+    thr = float(torch.topk(prob.reshape(-1), N_CAND).values[-1])
+    host = prob.cpu().numpy()
+    del shell, prob
+    reset_launch_counts()
+    got = net.detect_large(vol, threshold=thr, method="both",
+                           forward="shared", plan=plan, staged=staged)
+    counts = launch_counts()
+    same_lists(by_method(got, "both"),
+               {"nms": nms_host(host, window=NMS_WINDOW, threshold=thr),
+                "components": components_host(host, threshold=thr)},
+               "unet detect_large(shared, both) vs the host reference on "
+               "its shell:")
+    require(not any(counts.values()), f"unet (unfused tail): launches {counts}")
+    fp = plan.full_pipe()
+    print(f"unet detect_large(shared, both): {VOLUME}^3, shared grid tile "
+          f"{fp._tiled.tile_out} (in {fp._tin}) batch {fp._tiled.tile_batch}, "
+          f"shell {plan._shell_shape()}; nms {len(got[0])}, components "
+          f"{len(got[1])}: equal to the host reference [{card_str}]",
+          flush=True)
+    del net, staged
+    torch.cuda.empty_cache()
+
+
+def activation_bytes(port, card_str: str) -> dict:
+    """High-water of one bf16 tile-batch forward per tile-input voxel
+    (``torch.cuda.max_memory_allocated`` less what was allocated before):
+    the packed U-Net at its 1024^3 shared tile and packed ``vgg_like`` at
+    its shared tile and batch; the figures behind ``_StreamPlan
+    .act_bytes_per_voxel``."""
+    from flypylib_tpu_torch.infer.large import make_stream_plan
+
+    out = {}
+    for regime, name in (("cover", "unet"), ("grid", "vgg_like")):
+        net = port.FplNetwork(name, device="cuda", seed=0)
+        plan = make_stream_plan(net.infer_spec, None, (NORTH_STAR,) * 3,
+                                core=NORTH_STAR_CORE)
+        fp = plan.full_pipe()
+        B, tin = fp._tiled.tile_batch, fp._tin
+        x = torch.rand((B, tin, tin, tin, 1), device="cuda")
+        with torch.no_grad():
+            net.infer_spec.module(x)  # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            net.infer_spec.module(x)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[regime] = peak / (B * tin**3)
+        print(f"activations: {net.infer_spec.name} batch {B} x {tin}^3: "
+              f"{peak / 2**30:.3f} GiB, {out[regime]:.2f} bytes per input "
+              f"voxel (plan constant {plan.act_bytes_per_voxel[regime]}) "
+              f"[{card_str}]", flush=True)
+        del net, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def north_star(port, card_str: str) -> dict:
+    """10(c): a 1024^3 uint8 volume through the packed baseline's
+    ``detect_large(core=512, method="both")`` with ``forward="auto"``,
+    staged once by ``stage_volume_chunked`` and reused by three timed
+    calls; the lists must equal ``detect``'s (its infer, then its nms and
+    components verbs) on the scaled f32 volume at the shared grid's tile
+    and batch."""
+    from flypylib_tpu_torch.infer.large import (make_stream_plan,
+                                                stage_volume,
+                                                stage_volume_chunked)
+
+    t0 = time.perf_counter()
+    vol = make_volume_u8(NORTH_STAR, NORTH_STAR_BLOBS, seed=0)
+    t_make = time.perf_counter() - t0
+    net = port.FplNetwork("baseline", device="cuda", seed=0)
+    p = NORTH_STAR_PROBE
+    cut = net.infer(scaled(vol[:p, :p, :p]))
+    thr = float(np.quantile(cut, NORTH_STAR_QUANTILE))
+    plan = make_stream_plan(net.infer_spec, None, vol.shape,
+                            core=NORTH_STAR_CORE, window=NMS_WINDOW,
+                            threshold=thr, method="both")
+    fp = plan.full_pipe()
+    # upload plus the reflect pad on the card, once, for its time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big, _ = stage_volume(vol, plan=plan)
+    torch.cuda.synchronize()
+    t_pad = time.perf_counter() - t0
+    del big
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = stage_volume_chunked(vol, plan=plan)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    mode = "shared" if plan.shared_auto() else "roi"
+    kw = dict(threshold=thr, core=NORTH_STAR_CORE, method="both",
+              staged=staged, plan=plan)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    nms_det, cc_det = net.detect_large(vol, **kw)
+    counts = launch_counts()
+    n = staged_batches(plan, mode)
+    require(counts == staged_launch_want(True, n),
+            f"1024^3 detect_large: launches {counts}, expected "
+            f"{staged_launch_want(True, n)}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = net.detect_large(vol, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same_lists(by_method(again, "both"), {"nms": nms_det, "components": cc_det},
+               "1024^3 detect_large, a timed call vs the first:")
+    # where one call's time goes: the shared forward, then the boxes
+    split = {}
+    if mode == "shared":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shell = plan.shared_prob(staged)
+        torch.cuda.synchronize()
+        split["forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan.consume_shared(shell)
+        split["postprocess"] = time.perf_counter() - t0
+        del shell
+    del staged
+    torch.cuda.empty_cache()
+    # detect's lists at the shared grid's tiling, on the scaled volume
+    t0 = time.perf_counter()
+    prob = net.infer(scaled(vol), fp._tiled.tile_out, fp._tiled.tile_batch,
+                     keep_on_device=True)
+    want = {"nms": net.nms(prob, window=NMS_WINDOW, threshold=thr),
+            "components": net.components(prob, threshold=thr)}
+    t_ref = time.perf_counter() - t0
+    del prob
+    torch.cuda.empty_cache()
+    same_lists({"nms": nms_det, "components": cc_det}, want,
+               "1024^3 detect_large(both) vs detect on the scaled volume:")
+    mv = [vol.size / 1e6 / t for t in times]
+    res = {"mode": mode, "mvox_s": statistics.median(mv), "mvox_s_all": mv,
+           "seconds": times, "upload_s": t_up, "upload_pad_s": t_pad,
+           "peak_gib": peak, "tile_out": fp._tiled.tile_out,
+           "tile_batch": fp._tiled.tile_batch, "launches": counts,
+           "tile_batches": n, "threshold": thr, "n_nms": len(nms_det),
+           "n_cc": len(cc_det), "split_s": split}
+    print(f"north star: {NORTH_STAR}^3 uint8 (made in {t_make:.1f} s), packed "
+          f"baseline, core {NORTH_STAR_CORE}, method both, forward auto -> "
+          f"{mode}; shared grid tile {res['tile_out']} batch "
+          f"{res['tile_batch']} ({n} tile batches); threshold {thr:.9g} "
+          f"(the {NORTH_STAR_QUANTILE} quantile of a {p}^3 cutout); nms "
+          f"{len(nms_det)}, components {len(cc_det)}: equal to detect's "
+          f"(reference {t_ref:.1f} s) [{card_str}]", flush=True)
+    print(f"north star: detect_large {statistics.median(mv):.3f} Mvox/s "
+          f"median of {', '.join(f'{m:.3f}' for m in mv)} "
+          f"({', '.join(f'{t:.3f}' for t in times)} s); chunked upload "
+          f"{t_up:.3f} s; upload plus reflect pad on the card "
+          f"{t_pad:.3f} s; peak device memory {peak:.3f} GiB; launches "
+          f"K5 {counts['parity_split_kernel']}; one call split: "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in split.items())} "
+          f"[{card_str}]", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return res
+
+
+def staged_phase(port, card_str: str) -> dict:
+    """Phase 10: 10(a) at 256^3, 10(b) the U-Net's shell, the activation
+    high-water behind ``shared_auto``, 10(c) the 1024^3 north star."""
+    t0 = time.perf_counter()
+    vol = make_volume_u8(VOLUME, N_BLOBS, seed=0)
+    res = {"256": check_staged_256(port, card_str, vol)}
+    check_staged_unet(port, card_str, vol)
+    res["act"] = activation_bytes(port, card_str)
+    res["1k"] = north_star(port, card_str)
+    print(f"phase 10 (staged engine): {time.perf_counter() - t0:.1f} s "
+          f"[{card_str}]", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1592,6 +1917,9 @@ def main(argv=None) -> int:
         del net
         torch.cuda.empty_cache()
 
+    # 10. the staged whole-volume engine: detect_large
+    staged = staged_phase(port, card_str)
+
     k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu"}
     k1_routes = k1.pop("routes")
     kernels = [{
@@ -1606,6 +1934,10 @@ def main(argv=None) -> int:
                            r, "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu"),
                        **k1_routes.get(r, {})}
                    for r in ("wgmma", "wmma", "ci1", "fma")},
+        "staged_launches": {
+            f"plain baseline {fwd} {m} 256^3": staged["256"][
+                ("plain baseline", fwd, m)]["conv3d_bias_relu"]
+            for fwd in ("roi", "shared") for m in STAGED_METHODS},
         "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
               "on the wgmma route, layer 0 on ci1; routes splits launches "
               "and times by route); launches from the plain baseline path",
@@ -1655,6 +1987,13 @@ def main(argv=None) -> int:
         "replaces": "flypylib_tpu/ops/pallas_split.py:158",
         "launches": packed_runs["baseline"]["launches"]["parity_split_kernel"],
         **k5,
+        "staged_launches": {
+            **{f"{lab} {fwd} {m} 256^3": staged["256"][(lab, fwd, m)][
+                "parity_split_kernel"]
+               for lab in ("packed baseline", "packed vgg_like")
+               for fwd in ("roi", "shared") for m in STAGED_METHODS},
+            f"north star {NORTH_STAR}^3 {staged['1k']['mode']} both":
+                staged["1k"]["launches"]["parity_split_kernel"]},
         "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
               "batch; launches from the packed baseline path",
     })

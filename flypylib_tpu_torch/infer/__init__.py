@@ -3,6 +3,35 @@ from flypylib_tpu_torch.infer.tiled import (
     infer_volume,
     tiling_regime,
     default_tiling,
+    grid_tiling_min_cost,
+)
+from flypylib_tpu_torch.infer.pipeline import DetectPipeline
+from flypylib_tpu_torch.infer.large import (
+    array_reader,
+    detect_h5,
+    detect_staged,
+    detect_streaming,
+    dvid_reader,
+    h5_reader,
+    make_stream_plan,
+    stage_volume,
+    stage_volume_chunked,
 )
 
-__all__ = ["TiledInference", "infer_volume", "tiling_regime", "default_tiling"]
+__all__ = [
+    "TiledInference",
+    "infer_volume",
+    "tiling_regime",
+    "default_tiling",
+    "grid_tiling_min_cost",
+    "DetectPipeline",
+    "array_reader",
+    "detect_h5",
+    "detect_staged",
+    "detect_streaming",
+    "dvid_reader",
+    "h5_reader",
+    "make_stream_plan",
+    "stage_volume",
+    "stage_volume_chunked",
+]

@@ -1,0 +1,758 @@
+"""Whole-volume detection with the volume resident on the device.
+
+Counterpart of the staged half of ``flypylib_tpu/infer/large.py``:
+:func:`detect_staged`, the plan it runs (:class:`_StreamPlan`,
+:func:`make_stream_plan`) and the staging helpers (:func:`stage_volume`,
+:func:`stage_volume_chunked`).  The raw volume is uploaded once (uint8
+stays uint8) and reflect-padded on the device; then either
+
+- ``forward="roi"``: each core ROI of a disjoint grid runs its own forward
+  over its window of the staged volume, with a halo of ``context +
+  window // 2`` true neighbour voxels (so every probability a core voxel's
+  NMS window reads is computed from real data), or
+- ``forward="shared"``: the whole volume runs one forward, written straight
+  into a map with a -inf shell (the voxels outside the volume, the rule
+  ``mask_valid_region`` applies per ROI, applied once), and each
+  postprocess box is a window of that map.
+
+A postprocess box keeps the candidates of its own core only, so a detection
+at a seam is reported exactly once, with exactly the whole-volume decision:
+NMS candidates (local maximum over a ``window`` box, -inf outside the
+volume, and >= threshold) and, for CC, every above-threshold core voxel.
+Each box costs one device -> host copy.  The host merges the NMS lists and
+labels the CC candidates' union by 6-connectivity
+(``ops/components.components_from_candidates``).  The lists equal the host
+reference's on the whole-volume map, in every mode.
+
+Left out, as the reference's TPU and XLA workarounds: the compile caches,
+the dispatch-ahead pipelining and ``copy_to_host_async``, the donated
+buffers, and the slot caps with their grow-and-retry:
+``max_detections_per_roi`` and ``max_components_per_roi`` are accepted
+under their reference names and bound nothing (``torch.nonzero`` compacts
+every candidate).  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP item: ``cc_impl="device"``, ``fused_impl="nbr"``,
+``devices=``, :func:`detect_streaming`, :func:`detect_h5`,
+:func:`h5_reader` and :func:`dvid_reader`.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from flypylib_tpu_torch.infer.pipeline import (DetectPipeline, as_wire,
+                                               reflect_pad, to_host,
+                                               zero_extend)
+from flypylib_tpu_torch.infer.tiled import (default_tiling,
+                                            grid_tiling_min_cost,
+                                            tiling_regime)
+from flypylib_tpu_torch.io.synapses import Tbars
+from flypylib_tpu_torch.models.zoo import ModelSpec
+from flypylib_tpu_torch.ops.components import (compact_true_indices,
+                                               components_from_candidates)
+from flypylib_tpu_torch.ops.host_reference import sort_detections
+from flypylib_tpu_torch.ops.nms import mask_valid_region, max_filter
+from flypylib_tpu_torch.utils import round_up, to3d
+
+_STREAMING = "ROADMAP.md queue 1, item 4 (streaming, device CC, detect_h5)"
+_MULTI = "ROADMAP.md queue 1, item 7 (multi-GPU)"
+
+
+def _not_ported(what: str, item: str = _STREAMING):
+    return NotImplementedError(f"{what} is not ported to flypylib_tpu_torch "
+                               f"yet: {item}")
+
+
+def array_reader(vol: np.ndarray):
+    """In-RAM adapter with the same (shape, read_fn) interface."""
+    vol = np.asarray(vol)
+
+    def read(lo, hi):
+        return vol[tuple(slice(a, b) for a, b in zip(lo, hi))]
+
+    return vol.shape, read
+
+
+def h5_reader(path: str, dataset: str | None = None):
+    raise _not_ported("h5_reader")
+
+
+def dvid_reader(client, instance: str, shape, offset=(0, 0, 0)):
+    raise _not_ported("dvid_reader")
+
+
+def detect_streaming(*args, **kwargs):
+    raise _not_ported("detect_streaming (out-of-core ROI streaming)")
+
+
+def detect_h5(*args, **kwargs):
+    raise _not_ported("detect_h5")
+
+
+def _default_tile(extent: int, spec: ModelSpec, target: int = 64,
+                  cap: int = 176) -> int:
+    """Default ROI tile: the valid, phase-aligned divisor of the ROI extent
+    nearest ``target`` (within [target // 2, cap]), so that the tile grid
+    covers the ROI exactly; the extent itself when it is at most
+    ``2 target``; without such a divisor, the largest valid tile under
+    ``cap`` (an overshooting grid).  The reference's rule and numbers,
+    which were chosen on a TPU."""
+    if extent <= cap:
+        if extent <= 2 * target:
+            return extent
+    mult = max(spec.size_multiple, 1)
+    best = None
+    for d in range(max(target // 2, mult), min(cap, extent) + 1):
+        if extent % d == 0 and d % mult == 0 and spec.is_valid_size(
+            d + 2 * spec.context
+        ):
+            if best is None or abs(d - target) < abs(best - target):
+                best = d
+    if best is not None:
+        return best
+    for d in range(min(cap, extent), mult - 1, -1):
+        if d % mult == 0 and spec.is_valid_size(d + 2 * spec.context):
+            return d
+    return extent  # degenerate (extent < size_multiple): nothing to split
+
+
+def memory_bytes(device) -> tuple[int, int]:
+    """(available, total) bytes of ``device``'s memory.  CUDA: the free
+    bytes ``torch.cuda.mem_get_info`` reports plus the caching allocator's
+    reserved but unallocated bytes, and the card's total; the CPU: the
+    host's available and physical memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return free + cached, total
+    page = os.sysconf("SC_PAGE_SIZE")
+    return (os.sysconf("SC_AVPHYS_PAGES") * page,
+            os.sysconf("SC_PHYS_PAGES") * page)
+
+
+def staged_fits(vol: np.ndarray, device, headroom: float = 0.6) -> bool:
+    """True when the staged mode fits ``device``: the volume at its wire
+    dtype plus the f32 probability shell within ``headroom`` of the
+    device's total memory (the reference's ``_staged_fits_hbm``
+    arithmetic, against the card's own size)."""
+    return vol.nbytes + 4 * vol.size <= headroom * memory_bytes(device)[1]
+
+
+class _StreamPlan:
+    """Geometry and per-box postprocess/merge engine of the staged modes."""
+
+    # high-water of one tile batch's forward, bytes per tile-input voxel
+    # (torch.cuda.max_memory_allocated over one bf16 forward, less what was
+    # allocated before it; chip_smoke.py phase 10 on an NVIDIA H100 80GB
+    # HBM3): "cover" the packed U-Net at its 1024^3 shared tile (in 388),
+    # "grid" the widest zoo conv stack, packed vgg_like (in 94, batch 16)
+    act_bytes_per_voxel = {"cover": 267.69, "grid": 292.47}
+
+    def __init__(self, spec: ModelSpec, variables, shape, core,
+                 tile_out: int | None, tile_batch: int | None, window,
+                 threshold: float, max_detections_per_roi: int,
+                 max_components_per_roi: int, method: str,
+                 cc_impl: str = "sparse", fused_impl: str = "filter"):
+        if method not in ("nms", "components", "both"):
+            raise ValueError(f"unknown method {method!r}")
+        if cc_impl not in ("sparse", "device"):
+            raise ValueError(f"unknown cc_impl {cc_impl!r}")
+        if fused_impl not in ("nbr", "filter"):
+            raise ValueError(f"unknown fused_impl {fused_impl!r}")
+        if cc_impl == "device":
+            raise _not_ported("cc_impl='device' (device CC with a seam "
+                              "union-find)")
+        if fused_impl == "nbr":
+            raise _not_ported("fused_impl='nbr'")
+        self.want_nms = method in ("nms", "both")
+        self.want_cc = method in ("components", "both")
+        self.method = method
+        self.cc_impl = cc_impl
+        self.threshold = threshold
+
+        self.shape = shape = to3d(shape)
+        self.window = win = to3d(window)
+        ctx = spec.context
+        h = ctx + (max(win) // 2 if self.want_nms else 0)
+        mult = spec.size_multiple
+        # a model whose valid input sizes step by size_multiple computes a
+        # voxel the same way only at the same phase modulo size_multiple:
+        # the U-Net's pooling, and the packed engines' space-to-depth (the
+        # order of a packed conv's sums depends on the output voxel's
+        # parity, so an ROI forward at another phase differs in the last
+        # bits).  An ROI forward keeps the whole-volume phase iff corner -
+        # h = 0 (mod size_multiple), so h is rounded up and the core
+        # snapped below.  The reference does this for pooling ("cover")
+        # models only.
+        phased = mult > 1
+        if phased:
+            h = round_up(h, mult)
+        self.ctx, self.h = ctx, h
+        self.fetch_halo = h + ctx  # plus the context of the halo's own probs
+
+        self.core = int(core) if np.isscalar(core) else tuple(to3d(core))
+        core3 = [round_up(c, mult) if phased else c for c in to3d(core)]
+        self.core_dims = [min(c, s) for c, s in zip(core3, shape)]
+        starts = [list(range(0, s, c)) for s, c in zip(shape, self.core_dims)]
+        self.grid = [
+            ((iz, iy, ix), (z0, y0, x0))
+            for iz, z0 in enumerate(starts[0])
+            for iy, y0 in enumerate(starts[1])
+            for ix, x0 in enumerate(starts[2])
+        ]
+
+        self.req_tile = (tile_out, tile_batch)  # as passed (for _check_plan)
+        roi_extent = max(self.core_dims) + 2 * h
+        if tiling_regime(spec) == "cover":
+            d_out, d_batch = default_tiling(spec, (roi_extent,) * 3)
+            tile_out = d_out if tile_out is None else tile_out
+            tile_batch = d_batch if tile_batch is None else tile_batch
+        if tile_out is None:
+            tile_out = _default_tile(roi_extent, spec)
+        if tile_batch is None:
+            tile_batch = min(16, max(1, (roi_extent // tile_out) ** 2))
+        self.pipe = DetectPipeline(
+            spec, variables, vol_shape=tuple(c + 2 * h for c in self.core_dims),
+            tile_out=min(tile_out, roi_extent), tile_batch=tile_batch,
+            window=window, threshold=threshold,
+            max_detections=max_detections_per_roi, run_cc=False,
+            pre_padded=True,
+        )
+        self._fp = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.pipe.device
+
+    def region(self, corner):
+        """(lo_want, vlo, vhi) for an ROI corner: the wanted fetch box and
+        the map coordinates of the true-volume box (voxels outside are
+        masked to -inf: the whole-volume boundary rule)."""
+        lo_want = [c - self.fetch_halo for c in corner]
+        region0 = [v + self.ctx for v in lo_want]
+        vlo = [max(0, -r0) for r0 in region0]
+        vhi = [
+            min(cd + 2 * self.h, s - r0)
+            for cd, s, r0 in zip(self.core_dims, self.shape, region0)
+        ]
+        return lo_want, vlo, vhi
+
+    # -- the postprocess of one box ---------------------------------------
+    def _box(self, prob: torch.Tensor, at, dims) -> dict:
+        """Candidates of the box ``prob[at : at + dims]`` (``prob`` holds
+        the window's halo around it, -inf outside the volume), in ONE
+        device -> host copy: ``idx`` (box-local flat indices, ascending),
+        ``conf`` and, for ``method="both"``, ``is_max``.
+
+        NMS candidates (local maximum over the window and >= threshold)
+        are a subset of the CC candidates (>= threshold), so ``"both"``
+        compacts the CC set once and gathers each candidate's local-max
+        bit.  The max filter runs on the box +- window // 2 only: no
+        suppression reaches farther into the box."""
+        thr = self.threshold
+        lo = [w // 2 for w in self.window] if self.want_nms else [0, 0, 0]
+        hi = [w - 1 - w // 2 for w in self.window] if self.want_nms else [0] * 3
+        sub = prob[at[0] - lo[0]:at[0] + dims[0] + hi[0],
+                   at[1] - lo[1]:at[1] + dims[1] + hi[1],
+                   at[2] - lo[2]:at[2] + dims[2] + hi[2]]
+        core = sub[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+                   lo[2]:lo[2] + dims[2]].reshape(-1)
+        if self.want_nms:
+            cand = (sub == max_filter(sub, self.window)) & (sub >= thr)
+            cand = cand[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+                        lo[2]:lo[2] + dims[2]].reshape(-1)
+        if self.want_cc:
+            idx = compact_true_indices(core >= thr)
+            parts = [idx, core[idx]]
+            if self.want_nms:
+                parts.append(cand[idx])
+        else:
+            idx = compact_true_indices(cand)
+            parts = [idx, core[idx]]
+        host = to_host(*parts)
+        out = {"idx": host[0].astype(np.int64), "conf": host[1]}
+        if len(host) > 2:
+            out["is_max"] = host[2].astype(bool)
+        return out
+
+    def _dispatch(self, key, corner, out, vlo, vhi) -> dict:
+        """One ROI's postprocess over its own map ``out`` (ROI mode)."""
+        vz, vy, vx = self.pipe.vol_shape
+        prob, _ = mask_valid_region(out[:vz, :vy, :vx], vlo, vhi)
+        h = self.h
+        return {"key": key, "corner": corner, "dims": tuple(self.core_dims),
+                **self._box(prob, (h, h, h), self.core_dims)}
+
+    def _dispatch_shared(self, key, corner, shell, dims=None) -> dict:
+        """One box's postprocess over the shared shell (no masking: the
+        shell is -inf outside the volume)."""
+        dims = tuple(self.core_dims if dims is None else dims)
+        h = self.h
+        at = tuple(c + h for c in corner)
+        return {"key": key, "corner": corner, "dims": dims,
+                **self._box(shell, at, dims)}
+
+    def _collect(self, rec: dict) -> None:
+        """Merge one box's candidates, made global (int64 flat indices)."""
+        corner, (cz, cy, cx) = rec["corner"], rec["dims"]
+        idx = rec["idx"]
+        gz = idx // (cy * cx) + corner[0]
+        rem = idx % (cy * cx)
+        gy = rem // cx + corner[1]
+        gx = rem % cx + corner[2]
+        conf = rec["conf"].astype(np.float32)
+        if self.want_nms:
+            own = rec.get("is_max", np.ones(idx.shape, bool))
+            self._all_locs.append(
+                np.stack([gz, gy, gx], axis=1).astype(np.float64)[own])
+            self._all_conf.append(conf[own])
+        if self.want_cc:
+            vz, vy, vx = self.shape
+            self._cc_rois[rec["key"]] = {"gflat": (gz * vy + gy) * vx + gx,
+                                         "prob": conf}
+
+    def _start(self) -> None:
+        self._all_locs, self._all_conf = [], []
+        self._cc_rois = {}
+
+    def _finalize(self):
+        results = []
+        empty = Tbars(locs=np.zeros((0, 3)), conf=np.zeros((0,)))
+        if self.want_nms:
+            results.append(sort_detections(np.concatenate(self._all_locs),
+                                           np.concatenate(self._all_conf))
+                           if self._all_locs else empty)
+        if self.want_cc:
+            if self._cc_rois:
+                gflat = np.concatenate(
+                    [r["gflat"] for r in self._cc_rois.values()])
+                probs = np.concatenate(
+                    [r["prob"] for r in self._cc_rois.values()])
+                order = np.argsort(gflat)
+                results.append(components_from_candidates(
+                    gflat[order], probs[order], self.shape))
+            else:
+                results.append(empty)
+        if self.method == "both":
+            return tuple(results)
+        return results[0]
+
+    def consume(self, outs):
+        """Postprocess and merge an iterator of ``(key, corner, out, vlo,
+        vhi)`` ROI forwards (ROI mode), one ROI at a time, so one ROI map is
+        held at once."""
+        self._start()
+        for item in outs:
+            self._collect(self._dispatch(*item))
+        return self._finalize()
+
+    # -- shared whole-volume forward ----------------------------------------
+    def full_pipe(self) -> DetectPipeline:
+        """The whole-volume forward pipeline of the shared mode (one per
+        plan)."""
+        if self._fp is None:
+            self._fp = self._make_shared_pipe(self.shape)
+        return self._fp
+
+    def _make_shared_pipe(self, vol_shape) -> DetectPipeline:
+        """Forward-only pipeline over ``vol_shape`` with the shared mode's
+        tiles: the cost-minimal grid for "cover" models, the ROI rule over
+        the whole extent for conv stacks, or the caller's explicit
+        ``make_stream_plan(tile_out=, tile_batch=)``."""
+        spec = self.pipe.spec
+        if tiling_regime(spec) == "cover":
+            t_out, t_batch = grid_tiling_min_cost(spec, vol_shape)
+        else:
+            ext = max(vol_shape)
+            t_out = _default_tile(ext, spec)
+            t_batch = min(16, max(1, (ext // t_out) ** 2))
+        if self.req_tile[0] is not None:
+            t_out = min(int(self.req_tile[0]), max(vol_shape))
+        if self.req_tile[1] is not None:
+            t_batch = int(self.req_tile[1])
+        return DetectPipeline(spec, None, vol_shape=vol_shape, tile_out=t_out,
+                              tile_batch=t_batch, window=self.window,
+                              threshold=self.threshold, max_detections=1,
+                              run_cc=False, pre_padded=True)
+
+    def _shell_ext(self):
+        """Per-axis high-side -inf slack so every box of the shell stays in
+        bounds (the last core may overhang a non-divisible volume)."""
+        return [
+            max(0, max(c[d] for _, c in self.grid) + self.core_dims[d] - s)
+            for d, s in enumerate(self.shape)
+        ]
+
+    def _shell_shape(self):
+        """Shell dims: volume + h low halo + max(h + overhang slack, the
+        forward's grid extension) high side."""
+        h = self.h
+        os_ = self.full_pipe()._out_shape
+        return tuple(
+            max(s + 2 * h + e, h + o)
+            for s, e, o in zip(self.shape, self._shell_ext(), os_)
+        )
+
+    @torch.no_grad()
+    def shared_prob(self, staged) -> torch.Tensor:
+        """Forward the whole volume once, from a staged upload of either
+        form, straight into the -inf-shelled shared map; the volume's voxel
+        (z, y, x) sits at shell (z + h, y + h, x + h)."""
+        fp = self.full_pipe()
+        ctx, h = self.ctx, self.h
+        tin = fp._tin
+        _, py, px = fp.padded_shape
+        if isinstance(staged, _StagedChunks):
+            off = staged.halo - ctx
+            fetch = staged.window
+        else:
+            big, halo = staged
+            off = halo - ctx
+            z_top = max(zs for zs, _ in fp._slabs) + tin
+            # the zero extension feeds only voxels outside the volume,
+            # -inf'd below
+            big = zero_extend(big, [max(s, off + p) for s, p in
+                                    zip(big.shape, (z_top, py, px))])
+
+            def fetch(start, size):
+                return big[start[0]:start[0] + size[0],
+                           start[1]:start[1] + size[1],
+                           start[2]:start[2] + size[2]]
+        if off < 0:
+            raise ValueError(f"staged halo {off + ctx} < context {ctx}")
+        shell = torch.full(self._shell_shape(), -torch.inf,
+                           dtype=torch.float32, device=self.device)
+        fp.forward_slabs(lambda zs: fetch((off + zs, off, off), (tin, py, px)),
+                         out=shell, offset=(h, h, h))
+        # restore -inf outside the volume: grid-extension tiles wrote there
+        for axis, s in enumerate(self.shape):
+            shell.narrow(axis, 0, h).fill_(-torch.inf)
+            shell.narrow(axis, h + s, shell.shape[axis] - h - s).fill_(
+                -torch.inf)
+        return shell
+
+    def _shared_boxes(self, entries=None):
+        """The shared sweep's postprocess boxes: the base ROI grid with
+        consecutive cores grouped into boxes of about ``shared_box_target``
+        (512) per axis; coverage, and so the lists, stay the base grid's.
+        Returns ``[(key, corner, dims)]``."""
+        grid = self.grid if entries is None else entries
+        base = [(k, c, tuple(self.core_dims)) for k, c in grid]
+        if not grid:
+            return base
+        target = getattr(self, "shared_box_target", 512)
+        ks = [max(1, target // c) for c in self.core_dims]
+        if all(k == 1 for k in ks):
+            return base
+        starts = [sorted({c[d] for _, c in grid}) for d in range(3)]
+        ext = [s[-1] + cd for s, cd in zip(starts, self.core_dims)]
+        boxes = []
+        for d in range(3):
+            grp = [starts[d][i:i + ks[d]]
+                   for i in range(0, len(starts[d]), ks[d])]
+            boxes.append([
+                (g[0], min(g[-1] + self.core_dims[d], ext[d]) - g[0])
+                for g in grp
+            ])
+        return [
+            ((z0, y0, x0), (z0, y0, x0), (dz, dy, dx))
+            for z0, dz in boxes[0]
+            for y0, dy in boxes[1]
+            for x0, dx in boxes[2]
+        ]
+
+    def consume_shared(self, shell: torch.Tensor):
+        """Postprocess sweep over the shared shell, box by box."""
+        self._start()
+        for key, corner, dims in self._shared_boxes():
+            self._collect(self._dispatch_shared(key, corner, shell, dims))
+        return self._finalize()
+
+    def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1) -> bool:
+        """True when the shared forward's peak fits the device now: the -inf
+        shell, one tile batch's activations (``act_bytes_per_voxel``) and
+        the largest postprocess box's temporaries (~6 f32 copies of it)
+        within 90% of the device's available memory (``memory_bytes``).
+        ``staged_bytes`` is accepted under the reference's signature and not
+        added: the staged volume is resident already, so the available
+        memory excludes it.  For
+        "cover" models also only when the shared grid cuts the conv input
+        voxels by 15% or more against the per-ROI sweep, as the
+        reference."""
+        if n_devices > 1:
+            raise _not_ported("shared_auto over several devices", _MULTI)
+        fp = self.full_pipe()
+        shell = 4 * int(np.prod(self._shell_shape()))
+        cover = tiling_regime(self.pipe.spec) == "cover"
+        act = int(self.act_bytes_per_voxel["cover" if cover else "grid"]
+                  * fp._tiled.tile_batch * fp._tin ** 3)
+        if cover:
+            n_sh = fp.n_batches * fp._tiled.tile_batch
+            n_roi = self.pipe.n_batches * self.pipe._tiled.tile_batch
+            if n_sh * fp._tin ** 3 > 0.85 * len(self.grid) * n_roi * \
+                    self.pipe._tin ** 3:
+                return False
+        w = [w - 1 if self.want_nms else 0 for w in self.window]
+        post = 6 * 4 * max(int(np.prod([d + e for d, e in zip(dims, w)]))
+                           for _, _, dims in self._shared_boxes())
+        return shell + act + post <= 0.9 * memory_bytes(self.device)[0]
+
+
+def _default_core(spec: ModelSpec, window, grid_default: int,
+                  shape=None) -> int:
+    """Model-aware default ROI core: conv stacks keep ``grid_default``;
+    pooling ("cover") models take the core that minimises the processed
+    voxels (ROI count x covering tile volume) under the reference's tile
+    input cap of 428 (chosen on a TPU), preferring the larger core on
+    ties."""
+    if tiling_regime(spec) != "cover":
+        return grid_default
+    ctx = spec.context
+    mult = max(spec.size_multiple, 1)
+    h = round_up(ctx + max(to3d(window)) // 2, mult)
+    over = 2 * (h + ctx)
+    max_core = (428 - over) // mult * mult
+    while max_core > mult and spec.valid_size(max_core + over) > 428:
+        max_core -= mult
+    if shape is None:
+        return max(max_core, mult)
+    dims = to3d(shape)
+    best, best_cost = max_core, float("inf")
+    for core in range(mult, max_core + 1, mult):
+        tin = spec.valid_size(min(core, max(dims)) + over)
+        cost = tin**3
+        for d in dims:
+            cost *= -(-d // min(core, d))
+        if cost <= best_cost:
+            best, best_cost = core, cost
+    return best
+
+
+def make_stream_plan(spec: ModelSpec, variables, shape, core: int | None = None,
+                     tile_out: int | None = None, tile_batch: int | None = None,
+                     window=5, threshold: float = 0.5,
+                     max_detections_per_roi: int = 4096,
+                     max_components_per_roi: int = 4096, method: str = "nms",
+                     cc_impl: str = "sparse", fused_impl: str = "filter"):
+    """The reusable staged-detection engine (ROI grid and pipelines) for
+    :func:`detect_staged`.  ``core`` is the ROI ownership box, an int or a
+    ``(z, y, x)`` triple; ``None`` picks :func:`_default_core` (128 for
+    conv stacks).  For models with a ``size_multiple`` above 1 (pooling,
+    and the packed engines) the core and the NMS halo are snapped up to
+    it, so every ROI forward keeps the whole-volume phase.  ``tile_out`` /
+    ``tile_batch`` apply to both the per-ROI and the shared forward.
+    ``variables`` must be None (the port's modules hold their own
+    weights); the ``max_*_per_roi`` slot caps are accepted and unused."""
+    if tile_out is not None and int(tile_out) < spec.size_multiple:
+        raise ValueError(
+            f"tile_out={tile_out} is below the model's size_multiple "
+            f"({spec.size_multiple}); the tile forward cannot keep the "
+            "pooling phase at that size")
+    if tile_batch is not None and int(tile_batch) < 1:
+        raise ValueError(f"tile_batch must be >= 1, got {tile_batch}")
+    if core is None:
+        core = _default_core(spec, window, 128, shape)
+    return _StreamPlan(spec, variables, shape, core, tile_out, tile_batch,
+                       window, threshold, max_detections_per_roi,
+                       max_components_per_roi, method, cc_impl, fused_impl)
+
+
+def _check_plan(plan, shape, window, method, threshold, cc_impl=None,
+                core=None, tile_out=None, tile_batch=None):
+    """Geometry arguments are baked into a plan: reject a mismatch, and
+    retarget the threshold.  ``core`` / ``tile_out`` / ``tile_batch`` are
+    checked only when the caller passed them."""
+    if plan.shape != to3d(shape):
+        raise ValueError(f"plan shape {plan.shape} != volume {to3d(shape)}")
+    if plan.window != to3d(window):
+        raise ValueError(f"plan window {plan.window} != {to3d(window)}")
+    if plan.method != method:
+        raise ValueError(f"plan method {plan.method!r} != {method!r}")
+    if cc_impl is not None and plan.cc_impl != cc_impl:
+        raise ValueError(f"plan cc_impl {plan.cc_impl!r} != {cc_impl!r}")
+    if core is not None and tuple(to3d(core)) != tuple(to3d(plan.core)):
+        raise ValueError(f"plan core {plan.core} != caller core {core}")
+    for name, want, have in (("tile_out", tile_out, plan.req_tile[0]),
+                             ("tile_batch", tile_batch, plan.req_tile[1])):
+        if want is not None and want != have:
+            raise ValueError(f"plan {name} {have} != caller {name} {want} "
+                             "(rebuild the plan with the desired tiling)")
+    plan.threshold = threshold
+    plan.pipe.threshold = float(threshold)
+    return plan
+
+
+class _StagedChunks:
+    """Disjoint raw z-chunks of a volume on the device (see
+    :func:`stage_volume_chunked`); each window of the reflect-padded volume
+    is assembled from the chunks it covers."""
+
+    __slots__ = ("chunks", "halo", "bounds")
+
+    def __init__(self, chunks, halo, bounds):
+        self.chunks = chunks
+        self.halo = halo
+        self.bounds = bounds
+
+    def window(self, start, size) -> torch.Tensor:
+        """``B[start : start + size]`` on the device, where ``B`` is the
+        volume reflect-padded by ``halo`` and zero-extended on the high
+        side: bitwise :func:`stage_volume`'s ``big`` there.  Per axis the
+        window's padded indices map to volume indices by one reflection;
+        z gathers only the chunks it covers."""
+        H = self.halo
+        shape = (self.bounds[-1],) + tuple(self.chunks[0].shape[1:3])
+        dev = self.chunks[0].device
+        idx, n_real = [], []
+        for c, P, S in zip(start, size, shape):
+            i = torch.arange(c - H, c - H + P)
+            n = int((i < S + H).sum())  # past the back reflection: zeros
+            i = i[:n]
+            i = torch.where(i < 0, -i, torch.where(i >= S, 2 * (S - 1) - i, i))
+            idx.append(i)
+            n_real.append(n)
+        out = self.chunks[0].new_zeros(tuple(size))
+        if min(n_real) == 0:
+            return out
+        z_lo, z_hi = int(idx[0].min()), int(idx[0].max()) + 1
+        b = self.bounds
+        parts = [self.chunks[k][max(z_lo, b[k]) - b[k]:min(z_hi, b[k + 1]) - b[k]]
+                 for k in range(len(self.chunks))
+                 if b[k] < z_hi and b[k + 1] > z_lo]
+        raw = parts[0] if len(parts) == 1 else torch.cat(parts)
+        raw = raw.index_select(0, (idx[0] - z_lo).to(dev))
+        raw = raw.index_select(1, idx[1].to(dev)).index_select(2, idx[2].to(dev))
+        out[:n_real[0], :n_real[1], :n_real[2]] = raw
+        return out
+
+
+def _staging_device(plan, device):
+    if device is not None:
+        return torch.device(device)
+    return plan.device if plan is not None else torch.device("cuda")
+
+
+def stage_volume(volume, plan=None, halo: int | None = None, device=None):
+    """Upload a whole volume with its reflect halo: ``(big, halo)`` for
+    :func:`detect_staged`'s ``staged=``, reusable across calls.  ``halo``
+    must be >= the plan's ``fetch_halo``.  Only the raw volume crosses the
+    bus; the halo is built on the device (:func:`reflect_pad`, bitwise
+    ``np.pad``), or on the host when an extent is <= ``halo`` (more than
+    one reflection).  ``device`` defaults to the plan's, else CUDA."""
+    if plan is None and halo is None:
+        raise ValueError(
+            "stage_volume needs a plan (from make_stream_plan) or an "
+            "explicit halo to size the staged reflect border")
+    h = plan.fetch_halo if halo is None else halo
+    vol = as_wire(volume)
+    dev = _staging_device(plan, device)
+    if min(vol.shape) > h:
+        return reflect_pad(torch.from_numpy(vol).to(dev), h), h
+    return torch.from_numpy(np.pad(vol, h, mode="reflect")).to(dev), h
+
+
+def stage_volume_chunked(volume, plan=None, halo: int | None = None,
+                         chunk: int = 128, device=None):
+    """Upload a volume as disjoint raw z-chunks of ``chunk`` planes for
+    :func:`detect_staged`: only the raw bytes are uploaded and each window
+    of the padded volume is assembled on the device from its own chunks
+    (bitwise :func:`stage_volume`'s).  Falls back to :func:`stage_volume`
+    when an extent is <= the halo."""
+    if plan is None and halo is None:
+        raise ValueError(
+            "stage_volume_chunked needs a plan (from make_stream_plan) "
+            "or an explicit halo to size the reflect border")
+    h = plan.fetch_halo if halo is None else halo
+    vol = as_wire(volume)
+    if min(vol.shape) <= h:
+        return stage_volume(vol, halo=h, device=_staging_device(plan, device))
+    dev = _staging_device(plan, device)
+    vz = vol.shape[0]
+    bounds = list(range(0, vz, max(1, chunk))) + [vz]
+    chunks = [torch.from_numpy(vol[b0:b1]).to(dev)
+              for b0, b1 in zip(bounds, bounds[1:])]
+    return _StagedChunks(chunks, h, bounds)
+
+
+def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
+                  tile_out: int | None = None, tile_batch: int | None = None,
+                  window=5, threshold: float = 0.5,
+                  max_detections_per_roi: int = 4096,
+                  max_components_per_roi: int = 4096, method: str = "nms",
+                  cc_impl: str = "sparse", staged=None,
+                  plan: "_StreamPlan | None" = None, devices=None,
+                  forward: str = "auto"):
+    """Detection over a whole volume staged on the spec's device.
+
+    ``method`` is ``"nms"``, ``"components"`` or ``"both"`` (an ``(nms,
+    components)`` tuple).  ``staged`` (from :func:`stage_volume` or
+    :func:`stage_volume_chunked`) reuses an upload and ``plan`` (from
+    :func:`make_stream_plan`) the engine across calls; ``volume`` then
+    gives only the shape.  ``forward`` is ``"roi"`` (a forward per ROI),
+    ``"shared"`` (one whole-volume forward into the -inf shell) or
+    ``"auto"``: shared when :meth:`_StreamPlan.shared_auto` says its peak
+    fits the device.  The lists are the same in every mode and equal the
+    host reference's on the whole-volume map.  ``core=None`` takes 256 for
+    conv stacks."""
+    if forward not in ("roi", "shared", "auto"):
+        raise ValueError(f"unknown forward mode {forward!r}")
+    if devices is not None:
+        raise _not_ported("detect_staged(devices=...)", _MULTI)
+    shape = np.shape(volume)
+    if plan is None:
+        plan = make_stream_plan(
+            spec, variables, shape,
+            core=_default_core(spec, window, 256, shape) if core is None
+            else core,
+            tile_out=tile_out, tile_batch=tile_batch, window=window,
+            threshold=threshold, max_detections_per_roi=max_detections_per_roi,
+            max_components_per_roi=max_components_per_roi, method=method,
+            cc_impl=cc_impl)
+    else:
+        plan = _check_plan(plan, shape, window, method, threshold, cc_impl,
+                           core, tile_out, tile_batch)
+    if staged is None:
+        staged = stage_volume(volume, plan=plan)
+    halo = staged.halo if isinstance(staged, _StagedChunks) else staged[1]
+    if halo < plan.fetch_halo:
+        raise ValueError(f"staged halo {halo} < required {plan.fetch_halo} "
+                         "(stage with the same window and method)")
+    if forward == "shared" or (forward == "auto" and plan.shared_auto()):
+        return plan.consume_shared(plan.shared_prob(staged))
+    if isinstance(staged, _StagedChunks):
+        return _detect_staged_chunked(plan, staged)
+    big = staged[0]
+    off = halo - plan.fetch_halo  # the staged halo may be generous
+    # zero-extend so the highest ROI's window fits: the extension feeds
+    # only voxels outside the volume, masked by [vlo, vhi) before use
+    big = zero_extend(big, [
+        max(big.shape[d], max(c[d] for _, c in plan.grid) + off
+            + plan.pipe.padded_shape[d])
+        for d in range(3)])
+
+    def outs():
+        for key, corner in plan.grid:
+            _, vlo, vhi = plan.region(corner)
+            origin = tuple(c + off for c in corner)
+            yield key, corner, plan.pipe.forward_from(big, origin), vlo, vhi
+
+    return plan.consume(outs())
+
+
+def _detect_staged_chunked(plan, staged: _StagedChunks):
+    """ROI sweep over a chunk-staged volume: each ROI's padded window is
+    assembled from its chunks, then runs the same per-ROI forward."""
+    off = staged.halo - plan.fetch_halo
+    P = plan.pipe.padded_shape
+
+    def outs():
+        for key, corner in plan.grid:
+            _, vlo, vhi = plan.region(corner)
+            win = staged.window(tuple(c + off for c in corner), P)
+            yield key, corner, plan.pipe.forward_from(win), vlo, vhi
+
+    return plan.consume(outs())

@@ -158,3 +158,36 @@ def default_tiling(spec: ModelSpec, vol_shape,
     for d in dims:
         n_tiles *= max(1, -(-d // tile))
     return tile, max(1, min(8, n_tiles))
+
+
+def grid_tiling_min_cost(spec: ModelSpec, vol_shape,
+                         max_tile_in: int = 428) -> tuple[int, int]:
+    """``(tile_out, tile_batch)`` minimising the total tile input voxels
+    (tile count x tile_in^3) of a whole-volume grid, over the valid,
+    phase-aligned tiles with ``tile_in <= max_tile_in``; batch 1.  The
+    reference's choice for the shared whole-volume forward of "cover"
+    models (the U-Net), unchanged, including the TPU-chosen 428 cap; on
+    ties the larger tile wins.  Falls back to :func:`default_tiling` when
+    no tile fits under the cap."""
+    dims = to3d(vol_shape)
+    ctx = spec.context
+    mult = max(spec.size_multiple, 1)
+    best, best_cost = None, None
+    t = mult
+    while True:
+        tin = spec.valid_size(t + 2 * ctx)
+        if tin > max_tile_in:
+            break
+        tout = tin - 2 * ctx
+        stride = (tout // mult) * mult
+        if stride > 0:
+            n = 1
+            for d in dims:
+                n *= max(0, ceil_div(max(0, d - tout), stride)) + 1
+            cost = n * tin**3
+            if best is None or cost <= best_cost:
+                best, best_cost = tout, cost
+        t = tout + mult  # the next distinct valid size
+    if best is None:
+        return default_tiling(spec, vol_shape, max_tile_in)
+    return best, 1

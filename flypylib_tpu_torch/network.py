@@ -1,7 +1,8 @@
 """FplNetwork — the flypylib-compatible public API surface, in PyTorch.
 
 Counterpart of ``flypylib_tpu/network.py`` for the inference verbs:
-``infer``, ``nms``, ``components`` and ``detect``, with the reference's
+``infer``, ``nms``, ``components``, ``detect`` and ``detect_large`` (the
+staged whole-volume engine, ``infer/large.py``), with the reference's
 defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
 threshold 0.5, ``default_tiling`` and ``packed="auto"``, which runs every
 model with a packed engine through it: ``PackedConvStack`` for the conv
@@ -146,3 +147,48 @@ class FplNetwork:
         if method == "nms":
             return nms(prob, window=window, threshold=threshold)
         return label_components(prob, threshold=threshold)
+
+    def detect_large(
+        self,
+        volume,
+        window=5,
+        threshold: float = 0.5,
+        core: int | None = None,
+        method: str = "nms",
+        staged=None,
+        **kw,
+    ):
+        """Detection over a whole in-RAM volume with exact whole-volume
+        semantics, the volume staged on the network's device
+        (:func:`~flypylib_tpu_torch.infer.large.detect_staged`; ``kw`` goes
+        to it: ``forward``, ``tile_out``, ``tile_batch``, ``plan``, ...).
+        ``method`` is ``"nms"``, ``"components"`` or ``"both"``.
+
+        ``staged=None`` stages when the volume and its f32 map fit the
+        device (:func:`~flypylib_tpu_torch.infer.large.staged_fits`, the
+        reference's arithmetic against the card's memory); ``True`` stages
+        in any case; a staged upload (from ``stage_volume`` or
+        ``stage_volume_chunked``) is reused as it is.  Note that a uint8
+        volume enters the model as ``x * f32(1/255)`` here, where
+        :meth:`detect` feeds its raw values, as in the reference.  The
+        reference's streaming form (an HDF5 path, a ``(shape, read_fn)``
+        pair, ``staged=False``, or a volume that does not fit) is not
+        ported yet and raises ``NotImplementedError``."""
+        from flypylib_tpu_torch.infer.large import (_not_ported,
+                                                    detect_staged, staged_fits)
+
+        if isinstance(volume, str):
+            raise _not_ported("detect_large on an HDF5 path")
+        if isinstance(volume, tuple) and len(volume) == 2 and callable(volume[1]):
+            raise _not_ported("detect_large on a (shape, read_fn) pair")
+        vol = np.asarray(volume)
+        if staged is False:
+            raise _not_ported("detect_large(staged=False) (ROI streaming)")
+        if staged is None and not staged_fits(vol, self.device):
+            raise _not_ported(f"detect_large on a {vol.shape} {vol.dtype} "
+                              "volume that does not fit the device "
+                              "(ROI streaming)")
+        upload = None if staged is None or staged is True else staged
+        return detect_staged(self.infer_spec, None, vol, window=window,
+                             threshold=threshold, core=core, method=method,
+                             staged=upload, **kw)

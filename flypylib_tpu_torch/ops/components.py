@@ -13,6 +13,11 @@ label starts as its own flat index and each sweep takes the min over the
 above-threshold voxels only.  Coordinate sums are integers, so the f64
 centroids equal scipy's ``center_of_mass`` bit for bit.  PyTorch has no
 static-shape limit, so there is no ``max_components`` cap to grow.
+
+For the staged whole-volume engine (``infer/large.py``) this module also
+holds :func:`compact_true_indices` (the candidates of one postprocess box,
+on its device) and :func:`components_from_candidates` (the host CC over the
+union of every box's candidates).
 """
 
 from __future__ import annotations
@@ -59,12 +64,23 @@ def label_volume(mask: torch.Tensor) -> torch.Tensor:
         lab = new
 
 
+def compact_true_indices(mask: torch.Tensor) -> torch.Tensor:
+    """Flat indices of every True voxel of ``mask``, ascending, int64, on
+    ``mask``'s device.
+
+    Counterpart of the reference's ``compact_true_indices``, without its
+    ``size`` cap: that cap, and the three-level compaction behind it, exist
+    because XLA needs static shapes.  ``torch.nonzero`` returns the whole
+    list in one pass (and waits for the device to count it)."""
+    return torch.nonzero(mask.reshape(-1))[:, 0]
+
+
 def components_device(prob: torch.Tensor, threshold=0.5):
     """CC on ``prob``'s device: returns (centroids (K,3) f64, conf (K,) f32),
     one row per component, ordered by the component's smallest flat index."""
     prob = prob.float()
     mask = prob >= threshold
-    cand = torch.nonzero(mask.reshape(-1))[:, 0]  # ascending
+    cand = compact_true_indices(mask)
     if cand.numel() == 0:
         return (torch.zeros((0, 3), dtype=torch.float64, device=prob.device),
                 torch.zeros((0,), dtype=torch.float32, device=prob.device))
@@ -87,3 +103,62 @@ def label_components(prob, threshold: float = 0.5) -> Tbars:
     centroids, conf = components_device(torch.as_tensor(prob), float(threshold))
     return sort_detections(centroids.cpu().numpy(),
                            conf.cpu().numpy().astype(np.float64))
+
+
+def components_from_candidates(
+    flat_idx: np.ndarray, prob: np.ndarray, shape
+) -> Tbars:
+    """Exact 6-connectivity CC from the sparse set of above-threshold
+    voxels (ascending unique flat indices into a ``shape`` volume).
+
+    Semantically identical to ``scipy.ndimage.label`` + centroid/max-conf
+    extraction on the dense mask (the host reference): connectivity is
+    evaluated on the candidate set itself, which IS the thresholded mask.
+    Built for the sparse masks synapse detection produces (~0.01-1%
+    occupancy): work scales with candidate count, not volume size —
+    neighbor lookups are searchsorted into the sorted index list and the
+    components come from one ``scipy.sparse.csgraph`` pass.  Used by the
+    streaming detection path (infer/large.py cc_impl="sparse"), where
+    each ROI ships only its compacted core candidates.
+    """
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as _cc
+
+    a = np.asarray(flat_idx, np.int64)
+    p = np.asarray(prob, np.float64)
+    n = a.shape[0]
+    if n == 0:
+        return Tbars(locs=np.zeros((0, 3)), conf=np.zeros((0,)))
+    vz, vy, vx = shape
+    x = a % vx
+    y = (a // vx) % vy
+    z = a // (vy * vx)
+    ri, ci = [], []
+    for delta, guard in (
+        (1, x != vx - 1),
+        (vx, y != vy - 1),
+        (vy * vx, z != vz - 1),
+    ):
+        b = a + delta
+        pos = np.searchsorted(a, b)
+        ok = guard & (pos < n)
+        ok[ok] = a[pos[ok]] == b[ok]
+        ri.append(np.nonzero(ok)[0])
+        ci.append(pos[ok])
+    ri = np.concatenate(ri + [np.arange(n)])
+    ci = np.concatenate(ci + [np.arange(n)])
+    g = sp.coo_matrix(
+        (np.ones(ri.shape[0], np.int8), (ri, ci)), shape=(n, n)
+    )
+    ncomp, lab = _cc(g, directed=False)
+    count = np.bincount(lab, minlength=ncomp).astype(np.float64)
+    cents = np.stack(
+        [
+            np.bincount(lab, weights=c, minlength=ncomp) / count
+            for c in (z, y, x)
+        ],
+        axis=1,
+    )
+    conf = np.full(ncomp, -np.inf)
+    np.maximum.at(conf, lab, p)
+    return sort_detections(cents, conf)

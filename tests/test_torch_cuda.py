@@ -45,6 +45,11 @@ channel counts in multiples of 8 takes the wgmma/TMA kernel, whose last
 stage computes the logits in its epilogue; ``chip_smoke``'s small cases
 (ragged boxes, odd extents, a 16-channel rest, batch 3, more logits than
 the epilogue takes) run here too.
+
+The staged engine (``FplNetwork.detect_large``) runs on the card in roi and
+shared modes, and its lists must equal ``detect``'s on the scaled volume at
+the same tiling, exactly (the map is the same function of the same
+values).
 """
 
 import numpy as np
@@ -505,3 +510,35 @@ def test_packed_convstack_on_the_card_matches_the_cpu(cuda, name):
     assert parity_split_kernel.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, "auto"], ids=["plain", "packed"])
+def test_detect_large_on_the_card_equals_detect(cuda, packed):
+    """``detect_large`` on a 64^3 uint8 volume, roi and shared, every
+    method, against ``detect`` on ``vol * f32(1/255)`` at the same tile and
+    batch; K1 (plain) or K5 (packed) launched on the way."""
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.infer.tiled import default_tiling
+
+    net = FplNetwork("baseline", device="cuda", seed=0, packed=packed)
+    vol = chip_smoke.make_volume_u8(64, 4, seed=2)
+    scaled = chip_smoke.scaled(vol)
+    tiling = default_tiling(net.infer_spec, vol.shape)
+    prob = net.infer(scaled, *tiling, keep_on_device=True)
+    thr = float(torch.topk(prob.reshape(-1), 300).values[-1])
+    want = {"nms": net.nms(prob, window=5, threshold=thr),
+            "components": net.components(prob, threshold=thr)}
+    kernel = conv3d_bias_relu if packed is False else parity_split_kernel
+    for forward in ("roi", "shared"):
+        for method in ("nms", "components", "both"):
+            before = kernel.launches
+            got = net.detect_large(vol, threshold=thr, method=method,
+                                   forward=forward, tile_out=tiling[0],
+                                   tile_batch=tiling[1])
+            assert kernel.launches > before
+            got = chip_smoke.by_method(got, method)
+            for m, dets in got.items():
+                assert len(dets) > 0
+                assert len(dets) == len(want[m])
+                np.testing.assert_array_equal(dets.locs, want[m].locs)
+                np.testing.assert_array_equal(dets.conf, want[m].conf)

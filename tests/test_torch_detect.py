@@ -271,14 +271,15 @@ def test_network_matches_jax_end_to_end(rng, packed):
 
 
 def test_verbs_keep_the_reference_defaults():
-    for verb in ("__init__", "infer", "nms", "components", "detect"):
+    for verb in ("__init__", "infer", "nms", "components", "detect",
+                 "detect_large"):
         mine = inspect.signature(getattr(tpt.FplNetwork, verb)).parameters
         ref = inspect.signature(getattr(JaxNetwork, verb)).parameters
         for name, p in mine.items():
             if name in ref:
                 assert p.default == ref[name].default, (verb, name)
-    assert inspect.signature(tpt.FplNetwork.detect).parameters[
-        "window"].default == 5
+    for verb in (tpt.FplNetwork.detect, tpt.FplNetwork.detect_large):
+        assert inspect.signature(verb).parameters["window"].default == 5
     assert inspect.signature(tpt.FplNetwork).parameters[
         "packed"].default == "auto"
 
