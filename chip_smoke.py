@@ -95,6 +95,26 @@ prints no result line):
    the launches, one call split into forward and postprocess); both lists
    must equal ``detect``'s on the scaled volume at the shared grid's tile and
    batch.
+11. Out-of-core streaming, ``detect_large`` on a ``(shape, read_fn)`` pair
+   or with ``staged=False`` (``detect_streaming``: windows read and padded
+   by a prefetch thread).  (a) On 10(a)'s volume, with its thresholds and
+   plans, the same three engines run ``method="both"`` in roi and shared
+   (z-band) mode; the packed baseline also with ``cc_impl="device"`` (both
+   modes) and ``fused_impl="nbr"`` (roi), and through bands of one and of
+   two ROI rows (core 64).  Every list must equal 10(a)'s ``detect`` lists
+   and each call must launch K5 once per tile batch (packed) or K1 four
+   times (plain), per ROI or per band, and nothing else.  (b) 10(c)'s
+   volume, written once to a ``.npy`` file and read back through
+   ``np.load(mmap_mode="r")`` one window at a time: ``forward="auto"`` and
+   ``"shared"`` at the streaming default tiling, three calls each, and one
+   ``auto`` call at 10(c)'s tile and batch.  The shared lists and those at
+   10(c)'s tiling must equal 10(c)'s; ``auto`` at the default tiling takes
+   the roi mode, whose ROI tile (66) is not 10(c)'s (64), and cuDNN sums
+   in another order at another tile shape, so its lists must equal
+   ``detect``'s at the ROI tile and batch.  Printed: Mvox/s, the mode
+   ``auto`` chose and why (the band that fits, the cost gate), the bands,
+   the prefetch thread's read seconds beside each call's, the peak device
+   memory and the launches.
 
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
@@ -1532,13 +1552,14 @@ def check_staged_256(port, card_str: str, vol: np.ndarray) -> dict:
     on the packed and plain baseline and packed ``vgg_like``, at
     ``default_tiling``'s tile and batch for ``detect``; every list must
     equal ``detect``'s on the scaled f32 volume, and each run must launch
-    exactly its kernels.  Returns the launch counts per model and mode."""
+    exactly its kernels.  Returns the launch counts per model and mode, and
+    per model the threshold and ``detect``'s lists."""
     from flypylib_tpu_torch.infer.large import make_stream_plan
     from flypylib_tpu_torch.infer.tiled import default_tiling
 
     volf = scaled(vol)
     mvox = vol.size / 1e6
-    counts = {}
+    counts, refs = {}, {}
     for label, name, kw in STAGED_MODELS:
         net = port.FplNetwork(name, device="cuda", seed=0, **kw)
         tiling = default_tiling(net.infer_spec, vol.shape)
@@ -1547,6 +1568,7 @@ def check_staged_256(port, card_str: str, vol: np.ndarray) -> dict:
         want = {"nms": net.nms(prob, window=NMS_WINDOW, threshold=thr),
                 "components": net.components(prob, threshold=thr)}
         del prob
+        refs[label] = (thr, want)
         packed = kw.get("packed", "auto") is not False
         for forward in ("roi", "shared"):
             for method in STAGED_METHODS:
@@ -1581,7 +1603,7 @@ def check_staged_256(port, card_str: str, vol: np.ndarray) -> dict:
                       f"call of its plan) [{card_str}]", flush=True)
         del net
         torch.cuda.empty_cache()
-    return counts
+    return counts, refs
 
 
 def check_staged_unet(port, card_str: str, vol: np.ndarray) -> None:
@@ -1657,8 +1679,8 @@ def activation_bytes(port, card_str: str) -> dict:
     return out
 
 
-def north_star(port, card_str: str) -> dict:
-    """10(c): a 1024^3 uint8 volume through the packed baseline's
+def north_star(port, card_str: str, vol: np.ndarray) -> dict:
+    """10(c): the 1024^3 uint8 volume ``vol`` through the packed baseline's
     ``detect_large(core=512, method="both")`` with ``forward="auto"``,
     staged once by ``stage_volume_chunked`` and reused by three timed
     calls; the lists must equal ``detect``'s (its infer, then its nms and
@@ -1668,9 +1690,6 @@ def north_star(port, card_str: str) -> dict:
                                                 stage_volume,
                                                 stage_volume_chunked)
 
-    t0 = time.perf_counter()
-    vol = make_volume_u8(NORTH_STAR, NORTH_STAR_BLOBS, seed=0)
-    t_make = time.perf_counter() - t0
     net = port.FplNetwork("baseline", device="cuda", seed=0)
     p = NORTH_STAR_PROBE
     cut = net.infer(scaled(vol[:p, :p, :p]))
@@ -1744,8 +1763,9 @@ def north_star(port, card_str: str) -> dict:
            "peak_gib": peak, "tile_out": fp._tiled.tile_out,
            "tile_batch": fp._tiled.tile_batch, "launches": counts,
            "tile_batches": n, "threshold": thr, "n_nms": len(nms_det),
-           "n_cc": len(cc_det), "split_s": split}
-    print(f"north star: {NORTH_STAR}^3 uint8 (made in {t_make:.1f} s), packed "
+           "n_cc": len(cc_det), "split_s": split,
+           "lists": {"nms": nms_det, "components": cc_det}}
+    print(f"north star: {NORTH_STAR}^3 uint8, packed "
           f"baseline, core {NORTH_STAR_CORE}, method both, forward auto -> "
           f"{mode}; shared grid tile {res['tile_out']} batch "
           f"{res['tile_batch']} ({n} tile batches); threshold {thr:.9g} "
@@ -1767,15 +1787,257 @@ def north_star(port, card_str: str) -> dict:
 
 def staged_phase(port, card_str: str) -> dict:
     """Phase 10: 10(a) at 256^3, 10(b) the U-Net's shell, the activation
-    high-water behind ``shared_auto``, 10(c) the 1024^3 north star."""
+    high-water behind ``shared_auto``, 10(c) the 1024^3 north star.  The
+    256^3 and 1024^3 volumes and 10(a)'s references are returned for
+    phase 11 (``vol``, ``vol_1k``, ``refs``)."""
     t0 = time.perf_counter()
     vol = make_volume_u8(VOLUME, N_BLOBS, seed=0)
-    res = {"256": check_staged_256(port, card_str, vol)}
+    res = {"vol": vol}
+    res["256"], res["refs"] = check_staged_256(port, card_str, vol)
     check_staged_unet(port, card_str, vol)
     res["act"] = activation_bytes(port, card_str)
-    res["1k"] = north_star(port, card_str)
+    t1 = time.perf_counter()
+    res["vol_1k"] = make_volume_u8(NORTH_STAR, NORTH_STAR_BLOBS, seed=0)
+    print(f"north star: {NORTH_STAR}^3 uint8 volume made in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    res["1k"] = north_star(port, card_str, res["vol_1k"])
     print(f"phase 10 (staged engine): {time.perf_counter() - t0:.1f} s "
           f"[{card_str}]", flush=True)
+    return res
+
+
+# phase 11, out-of-core streaming (detect_streaming through detect_large)
+STREAM_BAND_CORE = 64  # 11(a)'s forced bands: four ROI rows of 256^3
+
+
+def streaming_batches(plan, forward: str, rpb: int | None = None) -> int:
+    """Tile batches (module calls) one streaming call runs: per ROI in roi
+    mode, per band of ``rpb`` ROI rows in shared mode."""
+    if forward == "roi":
+        return len(plan.grid) * plan.pipe.n_batches
+    return len(plan._band_starts(rpb)) * plan.band_pipe(rpb).n_batches
+
+
+def check_streaming_256(port, card_str: str, vol: np.ndarray,
+                        refs: dict) -> dict:
+    """11(a): ``detect_large(vol, staged=False)`` (roi and shared) with
+    10(a)'s plans, thresholds and lists, for every engine; the packed
+    baseline also with device CC, ``fused_impl="nbr"`` and forced bands of
+    one and two rows.  Returns the launch counts per run."""
+    from flypylib_tpu_torch.infer.large import (_detect_streaming_shared,
+                                                array_reader,
+                                                make_stream_plan)
+    from flypylib_tpu_torch.infer.tiled import default_tiling
+
+    mvox = vol.size / 1e6
+    shape, read = array_reader(vol)
+    counts = {}
+    for label, name, kw in STAGED_MODELS:
+        net = port.FplNetwork(name, device="cuda", seed=0, **kw)
+        tiling = default_tiling(net.infer_spec, vol.shape)
+        thr, want = refs[label]
+        packed = kw.get("packed", "auto") is not False
+        runs = [("roi", {}, None), ("shared", {}, None)]
+        if label == "packed baseline":
+            runs += [("roi", {"cc_impl": "device"}, None),
+                     ("shared", {"cc_impl": "device"}, None),
+                     ("roi", {"fused_impl": "nbr"}, None),
+                     ("shared", {"core": STREAM_BAND_CORE}, 1),
+                     ("shared", {"core": STREAM_BAND_CORE}, 2)]
+        for forward, opts, forced in runs:
+            plan = make_stream_plan(
+                net.infer_spec, None, vol.shape, core=opts.get("core", 256),
+                tile_out=tiling[0], tile_batch=tiling[1], window=NMS_WINDOW,
+                threshold=thr, method="both",
+                cc_impl=opts.get("cc_impl", "sparse"),
+                fused_impl=opts.get("fused_impl", "filter"))
+            rpb = forced
+            if forward == "shared" and rpb is None:
+                rpb = plan.band_rpb(itemsize=1, cost_gate=False)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if forced:
+                got = _detect_streaming_shared(plan, read, forced)
+            else:
+                got = net.detect_large(vol, staged=False, threshold=thr,
+                                       method="both", forward=forward,
+                                       plan=plan, cc_impl=plan.cc_impl)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got_counts = launch_counts()
+            n = streaming_batches(plan, forward, rpb)
+            tag = ", ".join(f"{k}={v}" for k, v in opts.items())
+            what = (f"{label} detect_large(staged=False, {forward}"
+                    + (f", {tag}" if tag else "")
+                    + (f", bands of {forced} rows" if forced else "") + ")")
+            require(got_counts == staged_launch_want(packed, n),
+                    f"{what}: launches {got_counts}, expected "
+                    f"{staged_launch_want(packed, n)}")
+            same_lists(by_method(got, "both"), want,
+                       f"{what} vs detect on the scaled volume:")
+            counts[(label, forward, tag, forced)] = got_counts
+            bands = (f"{len(plan._band_starts(rpb))} bands of {rpb} rows, "
+                     if forward == "shared" else f"{len(plan.grid)} ROIs, ")
+            fs = plan.fetch_seconds
+            print(f"{what}: {VOLUME}^3 uint8, {bands}{n} tile batches, "
+                  f"launches K1 {got_counts['conv3d_bias_relu']} K5 "
+                  f"{got_counts['parity_split_kernel']}; nms "
+                  f"{len(want['nms'])}, components {len(want['components'])}: "
+                  f"equal to detect's; {dt * 1e3:.2f} ms, {mvox / dt:.3f} "
+                  f"Mvox/s (first call of its plan; prefetch read "
+                  f"{fs['read'] * 1e3:.2f} ms, pad {fs['pad'] * 1e3:.2f} ms) "
+                  f"[{card_str}]", flush=True)
+        del net
+        torch.cuda.empty_cache()
+    return counts
+
+
+def auto_choice(plan) -> tuple[str, str]:
+    """The mode ``forward="auto"`` takes for a uint8 volume streamed with
+    ``plan``, and why."""
+    fit = plan.band_rpb(itemsize=1, cost_gate=False)
+    if fit is None:
+        return "roi", "no band fits the card"
+    nb = len(plan._band_starts(fit))
+    gate = plan._shared_cost_ok(plan.band_pipe(fit), nb)
+    why = (f"the largest band that fits is {fit} of "
+           f"{len({c[0] for _, c in plan.grid})} ROI rows ({nb} band(s), "
+           f"tile {plan.band_pipe(fit)._tiled.tile_out}); its grid reads "
+           f"{'<=' if gate else '>'} 0.85 x the roi sweep's conv input "
+           f"voxels (roi tile {plan.pipe._tiled.tile_out}), so the cost gate "
+           f"{'passes' if gate else 'fails'}")
+    return ("shared" if gate else "roi"), why
+
+
+def streaming_north_star(port, card_str: str, vol: np.ndarray,
+                         ns: dict) -> dict:
+    """11(b): 10(c)'s volume written once to a ``.npy`` file and read back
+    through ``np.load(mmap_mode="r")``, each window copied out of the file:
+    ``detect_large((shape, read_fn), core=512, method="both")`` with
+    ``forward="auto"`` and ``"shared"`` at the streaming default tiling,
+    three calls each, then one ``auto`` call at 10(c)'s tile and batch.
+    The shared lists and those at 10(c)'s tiling must equal 10(c)'s.  At
+    the default tiling ``auto`` runs the roi mode, whose ROI tile differs
+    from 10(c)'s, and cuDNN's bf16 sums follow the tile shape: its lists
+    must equal ``detect``'s at the ROI tile and batch on the scaled
+    volume."""
+    import tempfile
+
+    from flypylib_tpu_torch.infer.large import make_stream_plan
+
+    net = port.FplNetwork("baseline", device="cuda", seed=0)
+    thr = ns["threshold"]
+    mvox = vol.size / 1e6
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "north_star.npy"
+        t0 = time.perf_counter()
+        np.save(path, vol)
+        t_write = time.perf_counter() - t0
+        mm = np.load(path, mmap_mode="r")
+        shape = tuple(mm.shape)
+
+        def read(lo, hi):
+            return np.array(mm[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]])
+
+        kw = dict(window=NMS_WINDOW, threshold=thr, method="both")
+        plan = make_stream_plan(net.infer_spec, None, shape,
+                                core=NORTH_STAR_CORE, **kw)
+        plan_10c = make_stream_plan(net.infer_spec, None, shape,
+                                    core=NORTH_STAR_CORE,
+                                    tile_out=ns["tile_out"],
+                                    tile_batch=ns["tile_batch"], **kw)
+        auto_mode, why = auto_choice(plan)
+        print(f"streaming north star: {NORTH_STAR}^3 uint8 written to .npy in "
+              f"{t_write:.2f} s; at the streaming default tiling forward auto "
+              f"-> {auto_mode}: {why} [{card_str}]", flush=True)
+        want = {"auto": None, "shared": ns["lists"], "auto 10(c) tiling":
+                ns["lists"]}
+        if auto_mode == "roi":
+            pt = plan.pipe._tiled
+            t0 = time.perf_counter()
+            prob = net.infer(scaled(vol), pt.tile_out, pt.tile_batch,
+                             keep_on_device=True)
+            want["auto"] = {"nms": net.nms(prob, window=NMS_WINDOW,
+                                           threshold=thr),
+                            "components": net.components(prob, threshold=thr)}
+            del prob
+            torch.cuda.empty_cache()
+            d = {m: len(want["auto"][m]) - len(ns["lists"][m])
+                 for m in ("nms", "components")}
+            print(f"streaming north star: detect at the ROI tile "
+                  f"{pt.tile_out} batch {pt.tile_batch}: nms "
+                  f"{len(want['auto']['nms'])}, components "
+                  f"{len(want['auto']['components'])} ({d['nms']:+d}, "
+                  f"{d['components']:+d} against 10(c)'s tile "
+                  f"{ns['tile_out']}) in {time.perf_counter() - t0:.1f} s "
+                  f"[{card_str}]", flush=True)
+        else:
+            want["auto"] = ns["lists"]
+        runs = (("auto", plan, "auto", 3), ("shared", plan, "shared", 3),
+                ("auto 10(c) tiling", plan_10c, "auto", 1))
+        for label, p, forward, n_calls in runs:
+            mode = auto_choice(p)[0] if forward == "auto" else "shared"
+            rpb = (p.band_rpb(itemsize=1, cost_gate=forward == "auto")
+                   if mode == "shared" else None)
+            n = streaming_batches(p, mode, rpb)
+            times, fetch, peaks = [], [], []
+            for _ in range(n_calls):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = net.detect_large((shape, read), threshold=thr,
+                                       core=NORTH_STAR_CORE, method="both",
+                                       forward=forward, plan=p)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                fetch.append(p.fetch_seconds["read"] + p.fetch_seconds["pad"])
+                counts = launch_counts()
+                require(counts == staged_launch_want(True, n),
+                        f"1024^3 streaming {label}: launches {counts}, "
+                        f"expected {staged_launch_want(True, n)}")
+                same_lists(by_method(got, "both"), want[label],
+                           f"1024^3 streaming {label} ({mode}):")
+            mv = [mvox / t for t in times]
+            out[label] = {"mode": mode, "mvox_s": statistics.median(mv),
+                          "mvox_s_all": mv, "seconds": times,
+                          "fetch_s": fetch, "peak_gib": max(peaks),
+                          "rpb": rpb, "launches": counts, "tile_batches": n}
+            where = (f"{len(p._band_starts(rpb))} band(s) of {rpb} rows"
+                     if mode == "shared" else f"{len(p.grid)} ROIs")
+            tile = (p.band_pipe(rpb) if mode == "shared" else p.pipe)._tiled
+            ref = ("10(c)'s" if want[label] is ns["lists"]
+                   else "detect's at the ROI tiling")
+            print(f"streaming north star {label} -> {mode} ({where}, tile "
+                  f"{tile.tile_out} batch {tile.tile_batch}, {n} tile "
+                  f"batches, K5 {counts['parity_split_kernel']}): "
+                  f"{statistics.median(mv):.3f} Mvox/s median of "
+                  f"{', '.join(f'{m:.3f}' for m in mv)} "
+                  f"({', '.join(f'{t:.3f}' for t in times)} s); prefetch "
+                  f"thread reading {', '.join(f'{f:.3f}' for f in fetch)} s "
+                  f"of those; peak device memory {max(peaks):.3f} GiB; nms "
+                  f"{len(got[0])}, components {len(got[1])}: equal to {ref} "
+                  f"[{card_str}]", flush=True)
+        del mm
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def streaming_phase(port, card_str: str, staged: dict) -> dict:
+    """Phase 11: 11(a) at 256^3, 11(b) the 1024^3 north star from a file."""
+    t0 = time.perf_counter()
+    res = {"256": check_streaming_256(port, card_str, staged["vol"],
+                                      staged["refs"]),
+           "1k": streaming_north_star(port, card_str, staged["vol_1k"],
+                                      staged["1k"])}
+    print(f"phase 11 (out-of-core streaming): {time.perf_counter() - t0:.1f} "
+          f"s [{card_str}]", flush=True)
     return res
 
 
@@ -1920,6 +2182,10 @@ def main(argv=None) -> int:
     # 10. the staged whole-volume engine: detect_large
     staged = staged_phase(port, card_str)
 
+    # 11. out-of-core streaming: detect_large on a reader or staged=False
+    stream = streaming_phase(port, card_str, staged)
+    del staged["vol"], staged["vol_1k"]
+
     k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu"}
     k1_routes = k1.pop("routes")
     kernels = [{
@@ -1938,6 +2204,10 @@ def main(argv=None) -> int:
             f"plain baseline {fwd} {m} 256^3": staged["256"][
                 ("plain baseline", fwd, m)]["conv3d_bias_relu"]
             for fwd in ("roi", "shared") for m in STAGED_METHODS},
+        "streaming_launches": {
+            f"plain baseline streaming {fwd} both 256^3": stream["256"][
+                ("plain baseline", fwd, "", None)]["conv3d_bias_relu"]
+            for fwd in ("roi", "shared")},
         "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
               "on the wgmma route, layer 0 on ci1; routes splits launches "
               "and times by route); launches from the plain baseline path",
@@ -1994,6 +2264,16 @@ def main(argv=None) -> int:
                for fwd in ("roi", "shared") for m in STAGED_METHODS},
             f"north star {NORTH_STAR}^3 {staged['1k']['mode']} both":
                 staged["1k"]["launches"]["parity_split_kernel"]},
+        "streaming_launches": {
+            **{f"{lab} streaming {fwd}"
+               + (f" {tag}" if tag else "")
+               + (f" bands of {rpb}" if rpb else "") + " both 256^3":
+               c["parity_split_kernel"]
+               for (lab, fwd, tag, rpb), c in stream["256"].items()
+               if lab != "plain baseline"},
+            **{f"north star {NORTH_STAR}^3 streaming {lab} ({r['mode']}) "
+               "both": r["launches"]["parity_split_kernel"]
+               for lab, r in stream["1k"].items()}},
         "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
               "batch; launches from the packed baseline path",
     })

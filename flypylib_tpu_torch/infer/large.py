@@ -1,43 +1,56 @@
-"""Whole-volume detection with the volume resident on the device.
+"""Whole-volume detection, staged on the device or streamed from the host.
 
-Counterpart of the staged half of ``flypylib_tpu/infer/large.py``:
-:func:`detect_staged`, the plan it runs (:class:`_StreamPlan`,
-:func:`make_stream_plan`) and the staging helpers (:func:`stage_volume`,
-:func:`stage_volume_chunked`).  The raw volume is uploaded once (uint8
-stays uint8) and reflect-padded on the device; then either
+Counterpart of ``flypylib_tpu/infer/large.py``.  Two transports share one
+plan and postprocess engine (:class:`_StreamPlan`, :func:`make_stream_plan`):
+
+- :func:`detect_staged`: the raw volume is uploaded once (uint8 stays
+  uint8; :func:`stage_volume`, :func:`stage_volume_chunked`) and
+  reflect-padded on the device;
+- :func:`detect_streaming` (out of core): windows are read on the host
+  through a ``(shape, read_fn)`` pair (:func:`h5_reader`,
+  :func:`dvid_reader`, :func:`array_reader`; :func:`detect_h5`) by a
+  prefetch thread, uploaded one at a time and reflect-padded on the
+  device, so host and device memory stay bounded.
+
+Either runs one of two forward modes:
 
 - ``forward="roi"``: each core ROI of a disjoint grid runs its own forward
-  over its window of the staged volume, with a halo of ``context +
-  window // 2`` true neighbour voxels (so every probability a core voxel's
-  NMS window reads is computed from real data), or
-- ``forward="shared"``: the whole volume runs one forward, written straight
-  into a map with a -inf shell (the voxels outside the volume, the rule
-  ``mask_valid_region`` applies per ROI, applied once), and each
-  postprocess box is a window of that map.
+  over its window, with a halo of ``context + window // 2`` true neighbour
+  voxels (so every probability a core voxel's NMS window reads is computed
+  from real data), or
+- ``forward="shared"``: the whole volume (staged) or each z-band of whole
+  ROI rows (streaming, :meth:`_StreamPlan.band_rpb` rows a band) runs one
+  forward, written straight into a map with a -inf shell (the voxels
+  outside the volume, the rule ``mask_valid_region`` applies per ROI,
+  applied once), and each postprocess box is a window of that map.
 
 A postprocess box keeps the candidates of its own core only, so a detection
 at a seam is reported exactly once, with exactly the whole-volume decision:
 NMS candidates (local maximum over a ``window`` box, -inf outside the
-volume, and >= threshold) and, for CC, every above-threshold core voxel.
-Each box costs one device -> host copy.  The host merges the NMS lists and
-labels the CC candidates' union by 6-connectivity
-(``ops/components.components_from_candidates``).  The lists equal the host
-reference's on the whole-volume map, in every mode.
+volume, and >= threshold) and, for CC, every above-threshold core voxel
+(``cc_impl="sparse"``: the host labels their union by 6-connectivity,
+``ops/components.components_from_candidates``) or the core box labelled on
+the device (``cc_impl="device"``: component stats and the labels on the
+box's six faces, merged across seams on the host by
+``ops/components.merge_component_fragments``).  Each box costs one device ->
+host copy.  The lists equal the host reference's on the whole-volume map,
+in every mode and transport.
 
 Left out, as the reference's TPU and XLA workarounds: the compile caches,
 the dispatch-ahead pipelining and ``copy_to_host_async``, the donated
 buffers, and the slot caps with their grow-and-retry:
 ``max_detections_per_roi`` and ``max_components_per_roi`` are accepted
 under their reference names and bound nothing (``torch.nonzero`` compacts
-every candidate).  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP item: ``cc_impl="device"``, ``fused_impl="nbr"``,
-``devices=``, :func:`detect_streaming`, :func:`detect_h5`,
-:func:`h5_reader` and :func:`dvid_reader`.
+every candidate).  Not ported yet: ``devices=`` with more than one device,
+which raises ``NotImplementedError`` with its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import time
 
 import numpy as np
 import torch
@@ -51,16 +64,22 @@ from flypylib_tpu_torch.infer.tiled import (default_tiling,
 from flypylib_tpu_torch.io.synapses import Tbars
 from flypylib_tpu_torch.models.zoo import ModelSpec
 from flypylib_tpu_torch.ops.components import (compact_true_indices,
-                                               components_from_candidates)
+                                               component_stats,
+                                               components_from_candidates,
+                                               label_volume,
+                                               merge_component_fragments)
 from flypylib_tpu_torch.ops.host_reference import sort_detections
 from flypylib_tpu_torch.ops.nms import mask_valid_region, max_filter
 from flypylib_tpu_torch.utils import round_up, to3d
 
-_STREAMING = "ROADMAP.md queue 1, item 4 (streaming, device CC, detect_h5)"
+# the dataset h5_reader opens when none is named and the file has it (the
+# reference's io/hdf5.py default)
+DEFAULT_DATASET = "main"
+
 _MULTI = "ROADMAP.md queue 1, item 7 (multi-GPU)"
 
 
-def _not_ported(what: str, item: str = _STREAMING):
+def _not_ported(what: str, item: str = _MULTI):
     return NotImplementedError(f"{what} is not ported to flypylib_tpu_torch "
                                f"yet: {item}")
 
@@ -76,19 +95,37 @@ def array_reader(vol: np.ndarray):
 
 
 def h5_reader(path: str, dataset: str | None = None):
-    raise _not_ported("h5_reader")
+    """(shape, read_fn) for an HDF5 dataset; read_fn(lo, hi) -> array.
+    ``dataset=None`` opens ``DEFAULT_DATASET`` when the file has it, else
+    its first dataset.  The file stays open while ``read_fn`` lives."""
+    import h5py
+
+    f = h5py.File(path, "r")
+    if dataset is None:
+        dataset = DEFAULT_DATASET if DEFAULT_DATASET in f else next(iter(f))
+    ds = f[dataset]
+
+    def read(lo, hi):
+        return ds[tuple(slice(a, b) for a, b in zip(lo, hi))]
+
+    return tuple(ds.shape), read
 
 
 def dvid_reader(client, instance: str, shape, offset=(0, 0, 0)):
-    raise _not_ported("dvid_reader")
+    """(shape, read_fn) streaming grayscale from a DVID node through
+    ``client.get_gray3d(instance, size=, offset=)``, one cutout per window,
+    so the whole volume is never held in host RAM.  ``shape``/``offset``
+    are (z, y, x): the box of the DVID volume to treat as the detection
+    domain."""
+    shape = to3d(shape)
+    offset = to3d(offset)
 
+    def read(lo, hi):
+        size = tuple(int(b - a) for a, b in zip(lo, hi))
+        off = tuple(int(o + a) for o, a in zip(offset, lo))
+        return client.get_gray3d(instance, size=size, offset=off)
 
-def detect_streaming(*args, **kwargs):
-    raise _not_ported("detect_streaming (out-of-core ROI streaming)")
-
-
-def detect_h5(*args, **kwargs):
-    raise _not_ported("detect_h5")
+    return tuple(int(s) for s in shape), read
 
 
 def _default_tile(extent: int, spec: ModelSpec, target: int = 64,
@@ -163,11 +200,7 @@ class _StreamPlan:
             raise ValueError(f"unknown cc_impl {cc_impl!r}")
         if fused_impl not in ("nbr", "filter"):
             raise ValueError(f"unknown fused_impl {fused_impl!r}")
-        if cc_impl == "device":
-            raise _not_ported("cc_impl='device' (device CC with a seam "
-                              "union-find)")
-        if fused_impl == "nbr":
-            raise _not_ported("fused_impl='nbr'")
+        self.fused_impl = fused_impl
         self.want_nms = method in ("nms", "both")
         self.want_cc = method in ("components", "both")
         self.method = method
@@ -223,6 +256,10 @@ class _StreamPlan:
             pre_padded=True,
         )
         self._fp = None
+        self._band_pipes = {}
+        # seconds the last detect_streaming call's prefetch thread spent
+        # reading windows and padding them
+        self.fetch_seconds = {"read": 0.0, "pad": 0.0}
 
     @property
     def device(self) -> torch.device:
@@ -242,78 +279,179 @@ class _StreamPlan:
         return lo_want, vlo, vhi
 
     # -- the postprocess of one box ---------------------------------------
-    def _box(self, prob: torch.Tensor, at, dims) -> dict:
+    def _box(self, prob: torch.Tensor, at, dims, nbr=None) -> dict:
         """Candidates of the box ``prob[at : at + dims]`` (``prob`` holds
         the window's halo around it, -inf outside the volume), in ONE
-        device -> host copy: ``idx`` (box-local flat indices, ascending),
-        ``conf`` and, for ``method="both"``, ``is_max``.
+        device -> host copy: ``idx`` (box-local flat indices, ascending)
+        and ``conf`` of the NMS candidates, or with sparse CC of every
+        above-threshold core voxel, plus ``is_max`` for ``method="both"``;
+        with device CC, ``cc`` (:meth:`_cc_core_export`).
 
         NMS candidates (local maximum over the window and >= threshold)
         are a subset of the CC candidates (>= threshold), so ``"both"``
-        compacts the CC set once and gathers each candidate's local-max
-        bit.  The max filter runs on the box +- window // 2 only: no
-        suppression reaches farther into the box."""
+        with sparse CC compacts the CC set once and gathers each
+        candidate's local-max bit: from a max filter over the box +-
+        window // 2 only (no suppression reaches farther into the box) or,
+        with ``nbr`` (``(raw, vlo, vhi)``, ROI mode and ``fused_impl=
+        "nbr"``), from each candidate's own neighbourhood
+        (:meth:`_nbr_is_max`)."""
         thr = self.threshold
-        lo = [w // 2 for w in self.window] if self.want_nms else [0, 0, 0]
-        hi = [w - 1 - w // 2 for w in self.window] if self.want_nms else [0] * 3
-        sub = prob[at[0] - lo[0]:at[0] + dims[0] + hi[0],
-                   at[1] - lo[1]:at[1] + dims[1] + hi[1],
-                   at[2] - lo[2]:at[2] + dims[2] + hi[2]]
-        core = sub[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
-                   lo[2]:lo[2] + dims[2]].reshape(-1)
-        if self.want_nms:
+        sparse = self.want_cc and self.cc_impl == "sparse"
+        fused_nbr = nbr is not None and self.want_nms and sparse
+        core3 = prob[at[0]:at[0] + dims[0], at[1]:at[1] + dims[1],
+                     at[2]:at[2] + dims[2]]
+        core = core3.reshape(-1)
+        if self.want_nms and not fused_nbr:
+            lo = [w // 2 for w in self.window]
+            hi = [w - 1 - w // 2 for w in self.window]
+            sub = prob[at[0] - lo[0]:at[0] + dims[0] + hi[0],
+                       at[1] - lo[1]:at[1] + dims[1] + hi[1],
+                       at[2] - lo[2]:at[2] + dims[2] + hi[2]]
             cand = (sub == max_filter(sub, self.window)) & (sub >= thr)
             cand = cand[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
                         lo[2]:lo[2] + dims[2]].reshape(-1)
-        if self.want_cc:
+        parts = []
+        if sparse:
             idx = compact_true_indices(core >= thr)
             parts = [idx, core[idx]]
-            if self.want_nms:
+            if fused_nbr:
+                parts.append(self._nbr_is_max(*nbr, at, dims, idx, core[idx]))
+            elif self.want_nms:
                 parts.append(cand[idx])
-        else:
+        elif self.want_nms:
             idx = compact_true_indices(cand)
             parts = [idx, core[idx]]
+        n_own = len(parts)
+        if self.want_cc and not sparse:
+            parts += self._cc_core_export(core3, thr)
         host = to_host(*parts)
-        out = {"idx": host[0].astype(np.int64), "conf": host[1]}
-        if len(host) > 2:
+        out = {}
+        if n_own:
+            out = {"idx": host[0].astype(np.int64), "conf": host[1]}
+        if n_own > 2:
             out["is_max"] = host[2].astype(bool)
+        if len(host) > n_own:
+            out["cc"] = host[n_own:]
         return out
+
+    def _nbr_is_max(self, raw: torch.Tensor, vlo, vhi, at, dims,
+                    idx: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
+        """``fused_impl="nbr"``: each compacted candidate's local-max bit
+        from a gather of its window neighbourhood in the ROI's raw map
+        (``raw``, map coordinates; the box sits at ``at``), neighbours
+        outside the true volume ``[vlo, vhi)`` read as -inf by a coordinate
+        compare.  A candidate is a maximum iff no neighbour is strictly
+        larger, so plateau ties count, as the max filter's ``==`` does."""
+        dev = raw.device
+        cz, cy, cx = dims
+        pos = torch.stack([idx // (cy * cx) + at[0], (idx // cx) % cy + at[1],
+                           idx % cx + at[2]], 1)
+        offs = torch.stack(torch.meshgrid(
+            *[torch.arange(-(w // 2), w - w // 2, device=dev)
+              for w in self.window], indexing="ij"), -1).reshape(-1, 3)
+        nb = pos[:, None, :] + offs[None]
+        lo = torch.tensor(vlo, device=dev)
+        hi = torch.tensor(vhi, device=dev)
+        inb = ((nb >= lo) & (nb < hi)).all(-1)
+        size = torch.tensor(raw.shape, device=dev)
+        nb = torch.minimum(torch.clamp(nb, min=0), size - 1)
+        flat = (nb[..., 0] * raw.shape[1] + nb[..., 1]) * raw.shape[2] \
+            + nb[..., 2]
+        nval = torch.where(inb, raw.reshape(-1)[flat], -torch.inf)
+        return (nval <= conf[:, None]).all(1)
+
+    def _cc_core_export(self, corep: torch.Tensor, thr) -> list:
+        """Device CC of one core box ``corep`` (``core_dims``): labelled by
+        ``label_volume``, exported as ``[uniq, sums, count, conf]``
+        (:func:`component_stats`: ascending local roots, int64 coordinate
+        sums) and then, for each of the 6 faces (z-lo, z-hi, y-lo, y-hi,
+        x-lo, x-hi), the face-local flat positions of its labelled voxels
+        and their labels, compacted by ``torch.nonzero`` (no slot cap)."""
+        mask = corep >= thr
+        lab = label_volume(mask)
+        parts = list(component_stats(corep, lab, compact_true_indices(mask)))
+        n = mask.numel()
+        for plane in (lab[0], lab[-1], lab[:, 0], lab[:, -1], lab[:, :, 0],
+                      lab[:, :, -1]):
+            flat = plane.reshape(-1)
+            pos = compact_true_indices(flat < n)
+            parts += [pos, flat[pos]]
+        return parts
+
+    def _dense_faces(self, faces):
+        """Dense face label planes from the sparse export (host side;
+        ``merge_component_fragments`` consumes dense planes)."""
+        cz, cy, cx = self.core_dims
+        sentinel = cz * cy * cx
+        shapes = [(cy, cx), (cy, cx), (cz, cx), (cz, cx), (cz, cy),
+                  (cz, cy)]
+        dense = []
+        for (idx, labs), shp in zip(faces, shapes):
+            d = np.full(shp[0] * shp[1], sentinel, np.int32)
+            d[np.asarray(idx, np.int64)] = labs
+            dense.append(d.reshape(shp))
+        return dense
 
     def _dispatch(self, key, corner, out, vlo, vhi) -> dict:
         """One ROI's postprocess over its own map ``out`` (ROI mode)."""
         vz, vy, vx = self.pipe.vol_shape
-        prob, _ = mask_valid_region(out[:vz, :vy, :vx], vlo, vhi)
+        raw = out[:vz, :vy, :vx]
+        prob, _ = mask_valid_region(raw, vlo, vhi)
         h = self.h
+        nbr = (raw, vlo, vhi) if self.fused_impl == "nbr" else None
         return {"key": key, "corner": corner, "dims": tuple(self.core_dims),
-                **self._box(prob, (h, h, h), self.core_dims)}
+                **self._box(prob, (h, h, h), self.core_dims, nbr)}
 
-    def _dispatch_shared(self, key, corner, shell, dims=None) -> dict:
-        """One box's postprocess over the shared shell (no masking: the
-        shell is -inf outside the volume)."""
+    def _dispatch_shared(self, key, corner, shell, dims=None,
+                         corner_local=None) -> dict:
+        """One box's postprocess over a shared shell (no masking: the shell
+        is -inf outside the volume).  ``corner`` is the box's global
+        corner, ``corner_local`` (band shells) the same corner in the
+        shell's own coordinates.  ``fused_impl="nbr"`` falls back to the
+        max filter here, as in the reference."""
         dims = tuple(self.core_dims if dims is None else dims)
         h = self.h
-        at = tuple(c + h for c in corner)
+        local = corner if corner_local is None else corner_local
+        at = tuple(c + h for c in local)
         return {"key": key, "corner": corner, "dims": dims,
                 **self._box(shell, at, dims)}
 
-    def _collect(self, rec: dict) -> None:
-        """Merge one box's candidates, made global (int64 flat indices)."""
+    def _collect(self, rec: dict, progress=None) -> None:
+        """Merge one box's candidates, made global (int64 flat indices),
+        or its device-CC fragments; then ``progress(corner, n_nms)``."""
         corner, (cz, cy, cx) = rec["corner"], rec["dims"]
-        idx = rec["idx"]
-        gz = idx // (cy * cx) + corner[0]
-        rem = idx % (cy * cx)
-        gy = rem // cx + corner[1]
-        gx = rem % cx + corner[2]
-        conf = rec["conf"].astype(np.float32)
-        if self.want_nms:
-            own = rec.get("is_max", np.ones(idx.shape, bool))
-            self._all_locs.append(
-                np.stack([gz, gy, gx], axis=1).astype(np.float64)[own])
-            self._all_conf.append(conf[own])
-        if self.want_cc:
-            vz, vy, vx = self.shape
-            self._cc_rois[rec["key"]] = {"gflat": (gz * vy + gy) * vx + gx,
-                                         "prob": conf}
+        n_own = 0
+        if "idx" in rec:
+            idx = rec["idx"]
+            gz = idx // (cy * cx) + corner[0]
+            rem = idx % (cy * cx)
+            gy = rem // cx + corner[1]
+            gx = rem % cx + corner[2]
+            conf = rec["conf"].astype(np.float32)
+            if self.want_nms:
+                own = rec.get("is_max", np.ones(idx.shape, bool))
+                self._all_locs.append(
+                    np.stack([gz, gy, gx], axis=1).astype(np.float64)[own])
+                self._all_conf.append(conf[own])
+                n_own = int(own.sum())
+            if self.want_cc and self.cc_impl == "sparse":
+                vz, vy, vx = self.shape
+                self._cc_rois[rec["key"]] = {
+                    "gflat": (gz * vy + gy) * vx + gx, "prob": conf}
+        if "cc" in rec:
+            uniq, sums, count, conf, *faces = rec["cc"]
+            count = count.astype(np.int64)
+            self._cc_rois[rec["key"]] = {
+                "uniq": uniq.astype(np.int64),
+                # globalised by the corner, in integers (exact centroids)
+                "sums": (sums.astype(np.int64)
+                         + np.asarray(corner, np.int64) * count[:, None]),
+                "count": count, "conf": conf,
+                "valid": np.ones(count.shape, bool),
+                "faces": self._dense_faces(zip(faces[::2], faces[1::2])),
+            }
+        if progress:
+            progress(corner, n_own)
 
     def _start(self) -> None:
         self._all_locs, self._all_conf = [], []
@@ -326,7 +464,11 @@ class _StreamPlan:
             results.append(sort_detections(np.concatenate(self._all_locs),
                                            np.concatenate(self._all_conf))
                            if self._all_locs else empty)
-        if self.want_cc:
+        if self.want_cc and self.cc_impl == "device":
+            cz, cy, cx = self.core_dims
+            results.append(merge_component_fragments(self._cc_rois,
+                                                     cz * cy * cx))
+        elif self.want_cc:
             if self._cc_rois:
                 gflat = np.concatenate(
                     [r["gflat"] for r in self._cc_rois.values()])
@@ -341,13 +483,13 @@ class _StreamPlan:
             return tuple(results)
         return results[0]
 
-    def consume(self, outs):
+    def consume(self, outs, progress=None):
         """Postprocess and merge an iterator of ``(key, corner, out, vlo,
         vhi)`` ROI forwards (ROI mode), one ROI at a time, so one ROI map is
         held at once."""
         self._start()
         for item in outs:
-            self._collect(self._dispatch(*item))
+            self._collect(self._dispatch(*item), progress)
         return self._finalize()
 
     # -- shared whole-volume forward ----------------------------------------
@@ -428,21 +570,32 @@ class _StreamPlan:
                            dtype=torch.float32, device=self.device)
         fp.forward_slabs(lambda zs: fetch((off + zs, off, off), (tin, py, px)),
                          out=shell, offset=(h, h, h))
-        # restore -inf outside the volume: grid-extension tiles wrote there
-        for axis, s in enumerate(self.shape):
-            shell.narrow(axis, 0, h).fill_(-torch.inf)
-            shell.narrow(axis, h + s, shell.shape[axis] - h - s).fill_(
-                -torch.inf)
+        return self._mask_shell(shell, -h)
+
+    def _mask_shell(self, shell: torch.Tensor, z0: int) -> torch.Tensor:
+        """Restore -inf outside the volume in a shell whose index 0 sits at
+        global ``(z0, -h, -h)`` (grid-extension tiles wrote there): the
+        whole-volume shell (``z0 = -h``) or a z-band's (``z0 = b0 - h``)."""
+        h = self.h
+        for axis, (s, g0) in enumerate(zip(self.shape, (z0, -h, -h))):
+            n = shell.shape[axis]
+            lo = min(max(0, -g0), n)
+            hi = min(max(lo, s - g0), n)
+            shell.narrow(axis, 0, lo).fill_(-torch.inf)
+            shell.narrow(axis, hi, n - hi).fill_(-torch.inf)
         return shell
 
     def _shared_boxes(self, entries=None):
         """The shared sweep's postprocess boxes: the base ROI grid with
         consecutive cores grouped into boxes of about ``shared_box_target``
         (512) per axis; coverage, and so the lists, stay the base grid's.
-        Returns ``[(key, corner, dims)]``."""
+        Device CC keeps the base grid: its face exports are sized by
+        ``core_dims`` and keyed by grid position.  ``entries`` restricts
+        the partition to a full sub-grid (a band's rows).  Returns ``[(key,
+        corner, dims)]``."""
         grid = self.grid if entries is None else entries
         base = [(k, c, tuple(self.core_dims)) for k, c in grid]
-        if not grid:
+        if not grid or (self.want_cc and self.cc_impl == "device"):
             return base
         target = getattr(self, "shared_box_target", 512)
         ks = [max(1, target // c) for c in self.core_dims]
@@ -465,11 +618,142 @@ class _StreamPlan:
             for x0, dx in boxes[2]
         ]
 
-    def consume_shared(self, shell: torch.Tensor):
+    def consume_shared(self, shell: torch.Tensor, progress=None):
         """Postprocess sweep over the shared shell, box by box."""
         self._start()
         for key, corner, dims in self._shared_boxes():
-            self._collect(self._dispatch_shared(key, corner, shell, dims))
+            self._collect(self._dispatch_shared(key, corner, shell, dims),
+                          progress)
+        return self._finalize()
+
+    # -- z-bands: the out-of-core shared forward ----------------------------
+    # The grid's z-rows split into contiguous bands of ``rpb`` rows; each
+    # band forwards its rows plus the +-h NMS halo (so boxes at a band seam
+    # read real probabilities) into a band-local -inf shell, and each box is
+    # postprocessed on its own band.  The band grid anchors at b0 - h, which
+    # is 0 modulo size_multiple (core and h are rounded to it), so every
+    # probability is the whole-volume map's, bit for bit.
+
+    def _band_partition(self, n_devices: int):
+        """``(rows_per_band, n_bands, band_z0s)`` splitting the grid's
+        z-rows across ``n_devices``: uniform bands, the last shifted down
+        (:meth:`_band_starts`)."""
+        n_rows = len({c[0] for _, c in self.grid}) or 1
+        nb = max(1, min(int(n_devices), n_rows))
+        rpb = -(-n_rows // nb)
+        b0s = self._band_starts(rpb)
+        return rpb, len(b0s), b0s
+
+    def _band_starts(self, rpb: int):
+        """Band z0s (global voxel coordinates) for ``rpb`` rows a band, the
+        last band shifted down to keep one band extent (its shell overlaps
+        the previous band's; each box is still postprocessed once, on its
+        own band)."""
+        cz = self.core_dims[0]
+        n_rows = len({c[0] for _, c in self.grid}) or 1
+        nb = -(-n_rows // rpb)
+        return [min(i * rpb, n_rows - rpb) * cz for i in range(nb)]
+
+    def band_pipe(self, rows_per_band: int) -> DetectPipeline:
+        """Forward pipeline of one z-band (one per band extent)."""
+        fp = self._band_pipes.get(rows_per_band)
+        if fp is None:
+            bz = rows_per_band * self.core_dims[0] + 2 * self.h
+            fp = self._band_pipes[rows_per_band] = self._make_shared_pipe(
+                (bz, self.shape[1], self.shape[2]))
+        return fp
+
+    def _band_shell_shape(self, fp: DetectPipeline):
+        """Band shell dims: the band's forward span (and grid overshoot) in
+        z, shell index 0 at global ``b0 - h``; the whole-volume shell's y
+        and x."""
+        h = self.h
+        _, sy, sx = self._shell_shape()
+        return (max(fp.vol_shape[0], fp._out_shape[0]),
+                max(sy, h + fp._out_shape[1]), max(sx, h + fp._out_shape[2]))
+
+    @torch.no_grad()
+    def shared_prob_band_local(self, W: torch.Tensor, b0: int,
+                               fp: DetectPipeline) -> torch.Tensor:
+        """Forward one z-band from its band-local padded window ``W`` (from
+        :func:`_band_window`: index 0 at global ``(b0 - h - ctx, -ctx,
+        -ctx)``) into a -inf band shell on ``W``'s device."""
+        h, tin = self.h, fp._tin
+        _, py, px = fp.padded_shape
+        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
+                           dtype=torch.float32, device=W.device)
+        fp.forward_slabs(lambda zs: W[zs:zs + tin, :py, :px], out=shell,
+                         offset=(0, h, h))
+        return self._mask_shell(shell, b0 - h)
+
+    def _post_bytes(self) -> int:
+        """Bytes of the largest postprocess box's temporaries (~6 f32
+        copies of it and its window halo)."""
+        w = [w - 1 if self.want_nms else 0 for w in self.window]
+        return 6 * 4 * max(int(np.prod([d + e for d, e in zip(dims, w)]))
+                           for _, _, dims in self._shared_boxes())
+
+    def _act_bytes(self, fp: DetectPipeline) -> int:
+        """One tile batch's activation high-water of ``fp``'s forward."""
+        regime = tiling_regime(self.pipe.spec)
+        return int(self.act_bytes_per_voxel[regime] * fp._tiled.tile_batch
+                   * fp._tin ** 3)
+
+    def _shared_cost_ok(self, fp: DetectPipeline, n_grids: int = 1) -> bool:
+        """The reference's cost gate: ``n_grids`` sweeps of ``fp``'s tile
+        grid read at most 0.85 times the conv input voxels of the per-ROI
+        sweep (the 0.85 was chosen on a TPU)."""
+        n_sh = n_grids * fp.n_batches * fp._tiled.tile_batch
+        n_roi = self.pipe.n_batches * self.pipe._tiled.tile_batch
+        return (n_sh * fp._tin ** 3
+                <= 0.85 * len(self.grid) * n_roi * self.pipe._tin ** 3)
+
+    def band_rpb(self, itemsize: int = 4, cost_gate: bool = True):
+        """Rows per band of the out-of-core shared forward: the largest
+        whose peak fits the device now, or ``None`` when none fits or, with
+        ``cost_gate``, when the band grids would not cut the conv input
+        voxels against the per-ROI sweep (:meth:`_shared_cost_ok`).  The
+        peak holds two band shells, two band windows of ``itemsize`` bytes a
+        voxel, one tile batch's activations (``act_bytes_per_voxel``) and
+        the largest box's temporaries, within 90% of the device's available
+        memory (``memory_bytes``), as :meth:`shared_auto` counts."""
+        n_rows = len({c[0] for _, c in self.grid}) or 1
+        avail = 0.9 * memory_bytes(self.device)[0]
+        post = self._post_bytes()
+        for rpb in range(n_rows, 0, -1):
+            nb = -(-n_rows // rpb)
+            if -(-n_rows // nb) != rpb:
+                continue  # nb bands of fewer rows cover the grid as well
+            fp = self.band_pipe(rpb)
+            shell = 4 * int(np.prod(self._band_shell_shape(fp)))
+            z_top = max(zs for zs, _ in fp._slabs) + fp._tin
+            _, py, px = fp.padded_shape
+            window = int(itemsize) * z_top * py * px
+            if 2 * shell + 2 * window + self._act_bytes(fp) + post > avail:
+                continue
+            if cost_gate and not self._shared_cost_ok(fp, nb):
+                return None
+            return rpb
+        return None
+
+    def consume_shared_stream(self, shell_for, rpb: int, progress=None):
+        """:meth:`consume_shared` over band shells built lazily:
+        ``shell_for(band, b0)`` runs once per band, in grid z-row order, and
+        the previous band's shell is dropped first, so one band shell is
+        held at a time.  Grid order is kept, so the merge is the
+        whole-volume sweep's."""
+        b0s = self._band_starts(rpb)
+        nb = len(b0s)
+        self._start()
+        for band, b0 in enumerate(b0s):
+            entries = [(k, c) for k, c in self.grid
+                       if min(k[0] // rpb, nb - 1) == band]
+            shell = None  # the previous band's, dropped before the forward
+            shell = shell_for(band, b0)
+            for key, corner, dims in self._shared_boxes(entries):
+                local = (corner[0] - b0, corner[1], corner[2])
+                self._collect(self._dispatch_shared(key, corner, shell, dims,
+                                                    local), progress)
         return self._finalize()
 
     def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1) -> bool:
@@ -484,22 +768,14 @@ class _StreamPlan:
         voxels by 15% or more against the per-ROI sweep, as the
         reference."""
         if n_devices > 1:
-            raise _not_ported("shared_auto over several devices", _MULTI)
+            raise _not_ported("shared_auto over several devices")
         fp = self.full_pipe()
         shell = 4 * int(np.prod(self._shell_shape()))
-        cover = tiling_regime(self.pipe.spec) == "cover"
-        act = int(self.act_bytes_per_voxel["cover" if cover else "grid"]
-                  * fp._tiled.tile_batch * fp._tin ** 3)
-        if cover:
-            n_sh = fp.n_batches * fp._tiled.tile_batch
-            n_roi = self.pipe.n_batches * self.pipe._tiled.tile_batch
-            if n_sh * fp._tin ** 3 > 0.85 * len(self.grid) * n_roi * \
-                    self.pipe._tin ** 3:
-                return False
-        w = [w - 1 if self.want_nms else 0 for w in self.window]
-        post = 6 * 4 * max(int(np.prod([d + e for d, e in zip(dims, w)]))
-                           for _, _, dims in self._shared_boxes())
-        return shell + act + post <= 0.9 * memory_bytes(self.device)[0]
+        if tiling_regime(self.pipe.spec) == "cover" and \
+                not self._shared_cost_ok(fp):
+            return False
+        return (shell + self._act_bytes(fp) + self._post_bytes()
+                <= 0.9 * memory_bytes(self.device)[0])
 
 
 def _default_core(spec: ModelSpec, window, grid_default: int,
@@ -683,7 +959,7 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
                   window=5, threshold: float = 0.5,
                   max_detections_per_roi: int = 4096,
                   max_components_per_roi: int = 4096, method: str = "nms",
-                  cc_impl: str = "sparse", staged=None,
+                  cc_impl: str = "sparse", progress=None, staged=None,
                   plan: "_StreamPlan | None" = None, devices=None,
                   forward: str = "auto"):
     """Detection over a whole volume staged on the spec's device.
@@ -697,7 +973,7 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
     ``"auto"``: shared when :meth:`_StreamPlan.shared_auto` says its peak
     fits the device.  The lists are the same in every mode and equal the
     host reference's on the whole-volume map.  ``core=None`` takes 256 for
-    conv stacks."""
+    conv stacks.  ``progress(corner, n_nms)`` is called after each box."""
     if forward not in ("roi", "shared", "auto"):
         raise ValueError(f"unknown forward mode {forward!r}")
     if devices is not None:
@@ -722,9 +998,9 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
         raise ValueError(f"staged halo {halo} < required {plan.fetch_halo} "
                          "(stage with the same window and method)")
     if forward == "shared" or (forward == "auto" and plan.shared_auto()):
-        return plan.consume_shared(plan.shared_prob(staged))
+        return plan.consume_shared(plan.shared_prob(staged), progress)
     if isinstance(staged, _StagedChunks):
-        return _detect_staged_chunked(plan, staged)
+        return _detect_staged_chunked(plan, staged, progress)
     big = staged[0]
     off = halo - plan.fetch_halo  # the staged halo may be generous
     # zero-extend so the highest ROI's window fits: the extension feeds
@@ -740,10 +1016,10 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
             origin = tuple(c + off for c in corner)
             yield key, corner, plan.pipe.forward_from(big, origin), vlo, vhi
 
-    return plan.consume(outs())
+    return plan.consume(outs(), progress)
 
 
-def _detect_staged_chunked(plan, staged: _StagedChunks):
+def _detect_staged_chunked(plan, staged: _StagedChunks, progress=None):
     """ROI sweep over a chunk-staged volume: each ROI's padded window is
     assembled from its chunks, then runs the same per-ROI forward."""
     off = staged.halo - plan.fetch_halo
@@ -755,4 +1031,228 @@ def _detect_staged_chunked(plan, staged: _StagedChunks):
             win = staged.window(tuple(c + off for c in corner), P)
             yield key, corner, plan.pipe.forward_from(win), vlo, vhi
 
-    return plan.consume(outs())
+    return plan.consume(outs(), progress)
+
+
+def _prefetched(items, fetch, depth: int, name):
+    """Yield ``(item, fetch(item))`` for each of ``items`` in order, with
+    ``fetch`` run ahead in a thread (at most ``depth`` results waiting), so
+    the host's reads and pads ride under the device's work.  A fetch error
+    is raised here as ``RuntimeError`` naming ``name(item)``.  The thread
+    ends with the generator, however it ends."""
+    items = list(items)
+    fetched: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def producer():
+        for item in items:
+            if stop.is_set():
+                return
+            try:
+                fetched.put((item, fetch(item), None))
+            except Exception as e:  # surfaced on the consumer side
+                fetched.put((item, None, e))
+                return
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        for _ in items:
+            item, result, err = fetched.get()
+            if err is not None:
+                raise RuntimeError(f"{name(item)}: fetch failed") from err
+            yield item, result
+    finally:
+        stop.set()
+        while thread.is_alive():  # unblock a producer waiting to put
+            try:
+                fetched.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        thread.join()
+
+
+def _timed(stats: dict, key: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its host-clock seconds added to
+    ``stats[key]``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    stats[key] += time.perf_counter() - t0
+    return out
+
+
+def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
+                     core: int | None = None, tile_out: int | None = None,
+                     tile_batch: int | None = None, window=5,
+                     threshold: float = 0.5,
+                     max_detections_per_roi: int = 4096,
+                     max_components_per_roi: int = 4096, method: str = "nms",
+                     cc_impl: str = "sparse", progress=None,
+                     plan: "_StreamPlan | None" = None, forward: str = "auto",
+                     devices=None):
+    """Exact out-of-core detection over a volume of any size, read through
+    ``read_fn(lo, hi)`` (e.g. from :func:`h5_reader`).
+
+    ``method`` is ``"nms"``, ``"components"`` or ``"both"`` (an ``(nms,
+    components)`` tuple); ``plan`` (from :func:`make_stream_plan`) reuses
+    the engine across calls.  ``forward`` is
+
+    * ``"roi"``: a prefetch thread reads each ROI's window clipped to the
+      volume while the previous ROI runs; each window is uploaded,
+      reflect-padded past the true faces on the device (one
+      ``reflect_pad``, bitwise ``np.pad``: the whole-volume run's face
+      padding) and forwarded on its own;
+    * ``"shared"``: z-bands of :meth:`_StreamPlan.band_rpb` ROI rows, each
+      read once (:func:`_band_read`, the next band's meanwhile), padded on
+      the device (:func:`_band_window`), forwarded once into a band shell
+      and postprocessed box by box; raises ``ValueError`` when no band fits
+      the device;
+    * ``"auto"``: ``"shared"`` when a band fits and its grid cuts the conv
+      input voxels by 15% against the per-ROI sweep, else ``"roi"``.
+
+    The lists are the same in every mode and equal the host reference's on
+    the whole-volume map.  ``core=None`` takes 128 for conv stacks.
+    ``progress(corner, n_nms)`` is called after each box; the plan's
+    ``fetch_seconds`` holds the prefetch thread's read seconds (and its pad
+    seconds, for ROI windows that need several reflections).
+    ``devices`` may name one device (the plan's); more are not ported."""
+    if forward not in ("roi", "shared", "auto"):
+        raise ValueError(f"unknown forward mode {forward!r}")
+    if devices is not None and len(devices) > 1:
+        raise _not_ported("detect_streaming(devices=...)")
+    if plan is None:
+        plan = make_stream_plan(
+            spec, variables, shape,
+            core=_default_core(spec, window, 128, shape) if core is None
+            else core,
+            tile_out=tile_out, tile_batch=tile_batch, window=window,
+            threshold=threshold, max_detections_per_roi=max_detections_per_roi,
+            max_components_per_roi=max_components_per_roi, method=method,
+            cc_impl=cc_impl)
+    else:
+        plan = _check_plan(plan, shape, window, method, threshold, cc_impl,
+                           core, tile_out, tile_batch)
+    shape = plan.shape
+    rpb = None
+    if forward != "roi" and min(shape) > plan.fetch_halo:
+        # a band window's single reflect needs every pad under the read
+        # extent; smaller volumes stay on the roi path
+        probe = np.asarray(read_fn((0, 0, 0), (1, 1, 1)))
+        rpb = plan.band_rpb(itemsize=1 if probe.dtype == np.uint8 else 4,
+                            cost_gate=forward == "auto")
+    if forward == "shared" and rpb is None:
+        raise ValueError(
+            "the shared streaming forward does not fit this device or "
+            "geometry (no band passes the memory budget, or the volume is "
+            "not larger than the fetch halo); use forward='roi'")
+    if rpb is not None:
+        return _detect_streaming_shared(plan, read_fn, rpb, progress)
+
+    fh, core_dims = plan.fetch_halo, plan.core_dims
+    stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
+
+    def prep(entry):
+        """Read one ROI's window clipped to the volume (in the prefetch
+        thread), with the reflect pads that continue it past the true
+        faces; a pad past the block's extent (several reflections) is
+        applied here, on the host."""
+        _, corner = entry
+        lo_want, vlo, vhi = plan.region(corner)
+        hi_want = [c + cd + fh for c, cd in zip(corner, core_dims)]
+        lo = [max(0, v) for v in lo_want]
+        hi = [min(s, v) for s, v in zip(shape, hi_want)]
+        block = _timed(stats, "read", _read_block, read_fn, lo, hi)
+        pads = [(a - aw, bw - b)
+                for a, aw, bw, b in zip(lo, lo_want, hi_want, hi)]
+        if any(max(p) >= n for p, n in zip(pads, block.shape)):
+            block = _timed(stats, "pad", np.pad, block, pads, mode="reflect")
+            pads = [(0, 0)] * 3
+        return block, pads, vlo, vhi
+
+    def outs():
+        for (key, corner), (block, pads, vlo, vhi) in _prefetched(
+                plan.grid, prep, 2, lambda e: f"ROI {e[1]}"):
+            # ONE reflect pad on the device: the whole-volume run's faces
+            big = zero_extend(
+                reflect_pad(torch.from_numpy(block).to(plan.device), pads),
+                plan.pipe.padded_shape)
+            yield key, corner, plan.pipe.forward_from(big), vlo, vhi
+
+    return plan.consume(outs(), progress)
+
+
+def _read_block(read_fn, lo, hi) -> np.ndarray:
+    """``read_fn(lo, hi)`` as the host array that is uploaded (uint8 and f32
+    as they are, other dtypes as f32), contiguous and writable."""
+    block = as_wire(read_fn(lo, hi))
+    return block if block.flags.writeable else block.copy()
+
+
+def _band_read(plan, fp: DetectPipeline, read_fn, b0: int):
+    """The host half of one z-band's input window (the out-of-core shared
+    forward): the band's planes clipped to the volume (``_read_block``)
+    and the ``(before, after)`` reflect pads per axis that
+    :func:`_band_window` applies."""
+    h, ctx = plan.h, plan.ctx
+    fh = h + ctx
+    vz, vy, vx = plan.shape
+    z_top = max(zs for zs, _ in fp._slabs) + fp._tin
+    _, py, px = fp.padded_shape
+    zlo = b0 - h - ctx  # >= -fh, so the front reflect always fits
+    clo, chi = max(0, zlo), min(vz, zlo + z_top)
+    block = _read_block(read_fn, (clo, 0, 0), (chi, vy, vx))
+    pads = [(clo - zlo, min(max(0, zlo + z_top - vz), fh)),
+            (ctx, min(max(0, py - ctx - vy), fh)),
+            (ctx, min(max(0, px - ctx - vx), fh))]
+    return block, pads
+
+
+def _band_window(fp: DetectPipeline, block: torch.Tensor,
+                 pads) -> torch.Tensor:
+    """One z-band's input window on ``block``'s device, from
+    :func:`_band_read`: bitwise the slice the staged shared forward's tiles
+    read from the staged volume at global anchor ``(b0 - h - ctx, -ctx,
+    -ctx)``.  That volume is reflect-padded by ``fetch_halo = h + ctx`` at
+    every true face and zero-extended beyond, so the window reflects at most
+    ``fetch_halo`` past a face (one ``reflect_pad``; ``fetch_halo`` is below
+    every extent in the band mode) and zero-fills the rest.  The full
+    ``fetch_halo`` matters: pooled models reach past ``ctx``, so their
+    probabilities near a face read that reflect band."""
+    z_top = max(zs for zs, _ in fp._slabs) + fp._tin
+    _, py, px = fp.padded_shape
+    return zero_extend(reflect_pad(block, pads), (z_top, py, px))
+
+
+def _detect_streaming_shared(plan, read_fn, rpb: int, progress=None):
+    """Out-of-core shared forward: z-bands of ``rpb`` ROI rows, each band's
+    planes read once by a prefetch thread (the next band's while this one
+    runs), uploaded, reflect-padded on the device (:func:`_band_window`),
+    forwarded once into its band shell and postprocessed box by box
+    (:meth:`_StreamPlan.consume_shared_stream`).  The band maps are bitwise
+    the staged shared map's."""
+    fp = plan.band_pipe(rpb)
+    stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
+    bands = _prefetched(
+        plan._band_starts(rpb),
+        lambda b0: _timed(stats, "read", _band_read, plan, fp, read_fn, b0),
+        1, lambda b0: f"band z0={b0}")
+
+    def shell_for(band, b0):
+        got, (block, pads) = next(bands)
+        if got != b0:
+            raise RuntimeError(f"band z0={b0} read out of order ({got})")
+        W = _band_window(fp, torch.from_numpy(block).to(plan.device), pads)
+        return plan.shared_prob_band_local(W, b0, fp)
+
+    try:
+        return plan.consume_shared_stream(shell_for, rpb, progress)
+    finally:
+        bands.close()
+
+
+def detect_h5(spec: ModelSpec, variables, path: str,
+              dataset: str | None = None, **kw):
+    """Streaming detection straight from an HDF5 file
+    (:func:`h5_reader`, then :func:`detect_streaming` with ``kw``)."""
+    shape, read = h5_reader(path, dataset)
+    return detect_streaming(spec, variables, shape, read, **kw)

@@ -55,16 +55,20 @@ U8_SCALE = float(np.float32(1.0 / 255.0))
 def reflect_pad(vol: torch.Tensor, pad) -> torch.Tensor:
     """``np.pad(vol, pad, mode="reflect")`` on ``vol``'s device, for any
     dtype: one ``index_select`` per axis with reflected indices, so the
-    values are copies, bit for bit.  ``pad`` (an int or one per axis) must
-    be below each axis' extent (a single reflection)."""
+    values are copies, bit for bit.  ``pad`` is an int, one per axis, or
+    one ``(before, after)`` pair per axis; each must be below its axis'
+    extent (a single reflection)."""
     out = vol
-    for axis, p in enumerate(to3d(pad)):
-        if not p:
+    pads = [(p, p) if np.isscalar(p) else tuple(p)
+            for p in (to3d(pad) if np.isscalar(pad) else pad)]
+    for axis, (lo, hi) in enumerate(pads):
+        if not (lo or hi):
             continue
         n = out.shape[axis]
-        if p >= n:
-            raise ValueError(f"reflect pad {p} needs an extent > {p}, got {n}")
-        i = torch.arange(-p, n + p, device=out.device)
+        if max(lo, hi) >= n:
+            raise ValueError(f"reflect pad {max(lo, hi)} needs an extent > "
+                             f"{max(lo, hi)}, got {n}")
+        i = torch.arange(-lo, n + hi, device=out.device)
         i = torch.where(i < 0, -i, torch.where(i >= n, 2 * (n - 1) - i, i))
         out = out.index_select(axis, i)
     return out

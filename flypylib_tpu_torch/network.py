@@ -2,8 +2,8 @@
 
 Counterpart of ``flypylib_tpu/network.py`` for the inference verbs:
 ``infer``, ``nms``, ``components``, ``detect`` and ``detect_large`` (the
-staged whole-volume engine, ``infer/large.py``), with the reference's
-defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
+staged and streaming whole-volume engine, ``infer/large.py``), with the
+reference's defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
 threshold 0.5, ``default_tiling`` and ``packed="auto"``, which runs every
 model with a packed engine through it: ``PackedConvStack`` for the conv
 stacks, ``PackedUNet`` for the U-Net; ``packed=False`` runs the plain
@@ -158,37 +158,45 @@ class FplNetwork:
         staged=None,
         **kw,
     ):
-        """Detection over a whole in-RAM volume with exact whole-volume
-        semantics, the volume staged on the network's device
-        (:func:`~flypylib_tpu_torch.infer.large.detect_staged`; ``kw`` goes
-        to it: ``forward``, ``tile_out``, ``tile_batch``, ``plan``, ...).
+        """Detection over a volume of any size with exact whole-volume
+        semantics (``infer/large.py``).  ``volume`` is an in-RAM array, an
+        HDF5 path (:func:`~flypylib_tpu_torch.infer.large.detect_h5`) or a
+        ``(shape, read_fn)`` pair (:func:`~flypylib_tpu_torch.infer.large.
+        detect_streaming`); ``kw`` goes to the engine (``forward``,
+        ``tile_out``, ``tile_batch``, ``plan``, ``cc_impl``, ...).
         ``method`` is ``"nms"``, ``"components"`` or ``"both"``.
 
-        ``staged=None`` stages when the volume and its f32 map fit the
-        device (:func:`~flypylib_tpu_torch.infer.large.staged_fits`, the
-        reference's arithmetic against the card's memory); ``True`` stages
-        in any case; a staged upload (from ``stage_volume`` or
-        ``stage_volume_chunked``) is reused as it is.  Note that a uint8
-        volume enters the model as ``x * f32(1/255)`` here, where
-        :meth:`detect` feeds its raw values, as in the reference.  The
-        reference's streaming form (an HDF5 path, a ``(shape, read_fn)``
-        pair, ``staged=False``, or a volume that does not fit) is not
-        ported yet and raises ``NotImplementedError``."""
-        from flypylib_tpu_torch.infer.large import (_not_ported,
-                                                    detect_staged, staged_fits)
+        An array is staged on the network's device
+        (:func:`~flypylib_tpu_torch.infer.large.detect_staged`) when
+        ``staged`` is True, a staged upload (from ``stage_volume`` or
+        ``stage_volume_chunked``, reused as it is), or None and the volume
+        and its f32 map fit the device (:func:`~flypylib_tpu_torch.infer.
+        large.staged_fits`, the reference's arithmetic against the card's
+        memory); otherwise (``staged=False``, or a volume that does not
+        fit) its windows stream from host memory through
+        ``array_reader``.  Note that a uint8 volume enters the model as ``x
+        * f32(1/255)`` here, where :meth:`detect` feeds its raw values, as
+        in the reference."""
+        from flypylib_tpu_torch.infer.large import (array_reader, detect_h5,
+                                                    detect_staged,
+                                                    detect_streaming,
+                                                    staged_fits)
 
+        common = dict(window=window, threshold=threshold, core=core,
+                      method=method, **kw)
         if isinstance(volume, str):
-            raise _not_ported("detect_large on an HDF5 path")
+            return detect_h5(self.infer_spec, None, volume, **common)
         if isinstance(volume, tuple) and len(volume) == 2 and callable(volume[1]):
-            raise _not_ported("detect_large on a (shape, read_fn) pair")
+            shape, read = volume
+            return detect_streaming(self.infer_spec, None, shape, read,
+                                    **common)
         vol = np.asarray(volume)
+        if staged is None:
+            staged = staged_fits(vol, self.device)
         if staged is False:
-            raise _not_ported("detect_large(staged=False) (ROI streaming)")
-        if staged is None and not staged_fits(vol, self.device):
-            raise _not_ported(f"detect_large on a {vol.shape} {vol.dtype} "
-                              "volume that does not fit the device "
-                              "(ROI streaming)")
-        upload = None if staged is None or staged is True else staged
-        return detect_staged(self.infer_spec, None, vol, window=window,
-                             threshold=threshold, core=core, method=method,
-                             staged=upload, **kw)
+            shape, read = array_reader(vol)
+            return detect_streaming(self.infer_spec, None, shape, read,
+                                    **common)
+        upload = None if staged is True else staged
+        return detect_staged(self.infer_spec, None, vol, staged=upload,
+                             **common)

@@ -14,10 +14,14 @@ above-threshold voxels only.  Coordinate sums are integers, so the f64
 centroids equal scipy's ``center_of_mass`` bit for bit.  PyTorch has no
 static-shape limit, so there is no ``max_components`` cap to grow.
 
-For the staged whole-volume engine (``infer/large.py``) this module also
-holds :func:`compact_true_indices` (the candidates of one postprocess box,
-on its device) and :func:`components_from_candidates` (the host CC over the
-union of every box's candidates).
+For the staged and streaming whole-volume engine (``infer/large.py``) this
+module also holds :func:`compact_true_indices` (the candidates of one
+postprocess box, on its device), :func:`components_from_candidates` (the
+host CC over the union of every box's candidates, ``cc_impl="sparse"``),
+:func:`component_stats` (one labelled box's components, ``cc_impl="device"``)
+and, copied from the reference, :class:`SeamUnionFind` and
+:func:`merge_component_fragments` (the host merge of the boxes' fragments
+across their seams).
 """
 
 from __future__ import annotations
@@ -84,8 +88,19 @@ def components_device(prob: torch.Tensor, threshold=0.5):
     if cand.numel() == 0:
         return (torch.zeros((0, 3), dtype=torch.float64, device=prob.device),
                 torch.zeros((0,), dtype=torch.float32, device=prob.device))
-    roots = label_volume(mask).reshape(-1)[cand]
-    uniq, seg = torch.unique(roots, sorted=True, return_inverse=True)
+    _, sums, count, conf = component_stats(prob, label_volume(mask), cand)
+    return sums.double() / count.double()[:, None], conf
+
+
+def component_stats(prob: torch.Tensor, lab: torch.Tensor,
+                    cand: torch.Tensor):
+    """Per component of the labels ``lab`` (from :func:`label_volume`) over
+    the candidate voxels ``cand`` (ascending flat indices of the mask):
+    ``(uniq, sums, count, conf)``, the ascending local roots, int64
+    coordinate sums (K, 3), int64 voxel counts and the f32 max of
+    ``prob``."""
+    uniq, seg = torch.unique(lab.reshape(-1)[cand], sorted=True,
+                             return_inverse=True)
     K = uniq.numel()
     Y, X = prob.shape[1], prob.shape[2]
     coords = torch.stack([cand // (Y * X), (cand // X) % Y, cand % X], 1)
@@ -94,7 +109,7 @@ def components_device(prob: torch.Tensor, threshold=0.5):
     count = torch.bincount(seg, minlength=K)
     conf = torch.full((K,), -torch.inf, device=prob.device)
     conf.scatter_reduce_(0, seg, prob.reshape(-1)[cand], reduce="amax")
-    return sums.double() / count.double()[:, None], conf
+    return uniq, sums, count, conf
 
 
 def label_components(prob, threshold: float = 0.5) -> Tbars:
@@ -162,3 +177,80 @@ def components_from_candidates(
     conf = np.full(ncomp, -np.inf)
     np.maximum.at(conf, lab, p)
     return sort_detections(cents, conf)
+
+
+class SeamUnionFind:
+    """Union-find over (block_key, slot) nodes for cross-block CC merging."""
+
+    def __init__(self):
+        self.parent: dict = {}
+
+    def find(self, a):
+        p = self.parent
+        root = a
+        while p.setdefault(root, root) != root:
+            root = p[root]
+        while p[a] != root:  # path compression
+            p[a], a = root, p[a]
+        return root
+
+    def union(self, a, b):
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.parent[rb] = ra
+
+
+def merge_component_fragments(blocks: dict, sentinel: int) -> Tbars:
+    """Merge per-block CC fragments into whole-volume components.
+
+    ``blocks`` maps a 3-D grid key ``(iz, iy, ix)`` to a dict with:
+
+    - ``uniq`` (K,) ascending local root ids,
+    - ``sums`` (K, 3) GLOBAL coordinate sums, ``count`` (K,), ``conf`` (K,),
+      ``valid`` (K,) — from :func:`component_stats`, sums globalized by the
+      block's corner;
+    - ``faces``: 6 boundary label planes in the order (z-lo, z-hi, y-lo,
+      y-hi, x-lo, x-hi), values = local root ids or ``sentinel``
+      (the block voxel count) where below threshold.
+
+    Components whose boundary voxels are 6-adjacent across a block seam
+    are unioned (exactly ``scipy.ndimage.label``'s connectivity — corner
+    contact never links under 6-connectivity, so face adjacency is
+    complete), then counts/coordinate-sums/max-conf reduce per root, so
+    centroids and confidences equal a monolithic run's.  A copy of the
+    reference's (``flypylib_tpu/ops/components.py``), used by the device-CC
+    backend of ``infer/large.py``.
+    """
+    uf = SeamUnionFind()
+
+    # face index pairs: (axis, this-block hi face, neighbor lo face)
+    face_pairs = [(0, 1, 0), (1, 3, 2), (2, 5, 4)]
+    for (iz, iy, ix), data in blocks.items():
+        for axis, hi_f, lo_f in face_pairs:
+            nb = (iz + (axis == 0), iy + (axis == 1), ix + (axis == 2))
+            if nb not in blocks:
+                continue
+            a = data["faces"][hi_f]
+            b = blocks[nb]["faces"][lo_f]
+            pair = (a < sentinel) & (b < sentinel)
+            if not pair.any():
+                continue
+            ka = np.searchsorted(data["uniq"], a[pair])
+            kb = np.searchsorted(blocks[nb]["uniq"], b[pair])
+            for sa, sb in set(zip(ka.tolist(), kb.tolist())):
+                uf.union(((iz, iy, ix), sa), (nb, sb))
+
+    roots: dict = {}
+    for key, data in blocks.items():
+        for slot in np.nonzero(data["valid"])[0]:
+            r = uf.find((key, int(slot)))
+            acc = roots.setdefault(r, [0.0, np.zeros(3), -np.inf])
+            acc[0] += data["count"][slot]
+            acc[1] = acc[1] + data["sums"][slot]
+            acc[2] = max(acc[2], float(data["conf"][slot]))
+
+    if not roots:
+        return Tbars(locs=np.zeros((0, 3)), conf=np.zeros((0,)))
+    locs = np.stack([v[1] / v[0] for v in roots.values()])
+    confs = np.asarray([v[2] for v in roots.values()])
+    return sort_detections(locs, confs)

@@ -542,3 +542,53 @@ def test_detect_large_on_the_card_equals_detect(cuda, packed):
                 assert len(dets) == len(want[m])
                 np.testing.assert_array_equal(dets.locs, want[m].locs)
                 np.testing.assert_array_equal(dets.conf, want[m].conf)
+
+
+@pytest.mark.parametrize("packed", [False, "auto"], ids=["plain", "packed"])
+def test_streaming_on_the_card_equals_the_cpu(cuda, packed):
+    """``detect_large(staged=False)`` (out-of-core streaming, roi, shared
+    and bands of one ROI row) of a small f32 stack on a 48^3 uint8 volume,
+    on the card and on the CPU's plain path with the same weights: the same
+    detections (locations exactly, centroids within 1e-5, conf within
+    1e-4; compared in location order, since conf ties closer than the two
+    maps' f32 gap may sort either way) at a threshold in a gap of the CPU
+    map wider than 1e-4; K1 (plain) or K5 (packed) launched on the way."""
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.infer import large
+
+    kw = dict(seed=0, packed=packed, dtype=torch.float32,
+              features=(8, 16, 16, 24), head_features=16)
+    nets = {d: FplNetwork("baseline", device=d, **kw) for d in ("cpu", "cuda")}
+    nets["cuda"].module.load_state_dict(nets["cpu"].module.state_dict())
+    vol = chip_smoke.make_volume_u8(48, 3, seed=4)
+    top = np.sort(nets["cpu"].infer(chip_smoke.scaled(vol), 24, 2)
+                  .reshape(-1))[::-1][:2000]
+    k = 200 + int(np.argmax(top[199:1999] - top[200:2000] > 1e-4))
+    thr = float((top[k - 1] + top[k]) / 2)
+    shape, read = large.array_reader(vol)
+    kernel = conv3d_bias_relu if packed is False else parity_split_kernel
+    got = {}
+    for dev, net in nets.items():
+        plan = large.make_stream_plan(net.infer_spec, None, shape, core=16,
+                                      tile_out=24, tile_batch=2, window=5,
+                                      threshold=thr, method="both")
+        before = kernel.launches
+        got[dev] = [net.detect_large(vol, staged=False, plan=plan,
+                                     threshold=thr, method="both",
+                                     forward=f) for f in ("roi", "shared")]
+        got[dev].append(large._detect_streaming_shared(plan, read, 1))
+        assert (kernel.launches > before) == (dev == "cuda")
+    def by_location(dets):
+        order = np.lexsort(dets.locs.T[::-1])
+        return dets.locs[order], dets.conf[order]
+
+    for card, cpu in zip(got["cuda"], got["cpu"]):
+        for c, p, tol in zip(card, cpu, (0.0, 1e-5)):
+            assert len(c) > 0 and len(c) == len(p)
+            (cl, cc), (pl, pc) = by_location(c), by_location(p)
+            np.testing.assert_allclose(cl, pl, rtol=0, atol=tol)
+            np.testing.assert_allclose(cc, pc, rtol=0, atol=1e-4)
+    for run in got["cuda"][1:]:  # one tiling: the card's modes bit for bit
+        for c, r in zip(run, got["cuda"][0]):
+            np.testing.assert_array_equal(c.locs, r.locs)
+            np.testing.assert_array_equal(c.conf, r.conf)

@@ -349,36 +349,24 @@ def test_forward_auto_follows_the_memory_test(net, rng, monkeypatch):
     assert not tlarge.staged_fits(vol, "cpu")
 
 
-@pytest.mark.parametrize("call", [
-    "cc_impl", "fused_impl", "devices", "shared_auto_devices", "streaming",
-    "h5", "h5_reader", "dvid_reader", "large_path", "large_reader",
-    "large_unstaged", "large_too_big"])
-def test_unported_options_raise(net, rng, call, monkeypatch):
+@pytest.mark.parametrize("call", ["devices", "shared_auto_devices",
+                                  "streaming_devices"])
+def test_unported_options_raise(net, rng, call):
+    """Only the multi-device forms are left to port (ROADMAP queue 1, item
+    7); each names its item."""
     vol = rng.random((20, 20, 20)).astype(np.float32)
     spec = net.infer_spec
     shape, read = tlarge.array_reader(vol)
     assert shape == vol.shape and np.array_equal(read((1, 2, 3), (4, 5, 6)),
                                                  vol[1:4, 2:5, 3:6])
     calls = {
-        "cc_impl": lambda: tlarge.make_stream_plan(spec, None, shape,
-                                                   cc_impl="device"),
-        "fused_impl": lambda: tlarge.make_stream_plan(spec, None, shape,
-                                                      fused_impl="nbr"),
         "devices": lambda: tlarge.detect_staged(spec, None, vol,
                                                 devices=["cpu", "cpu"]),
         "shared_auto_devices": lambda: tlarge.make_stream_plan(
             spec, None, shape).shared_auto(0, n_devices=2),
-        "streaming": lambda: tlarge.detect_streaming(spec, None, shape, read),
-        "h5": lambda: tlarge.detect_h5(spec, None, "vol.h5"),
-        "h5_reader": lambda: tlarge.h5_reader("vol.h5"),
-        "dvid_reader": lambda: tlarge.dvid_reader(None, "grayscale", shape),
-        "large_path": lambda: net.detect_large("vol.h5"),
-        "large_reader": lambda: net.detect_large((shape, read)),
-        "large_unstaged": lambda: net.detect_large(vol, staged=False),
-        "large_too_big": lambda: net.detect_large(vol),
+        "streaming_devices": lambda: tlarge.detect_streaming(
+            spec, None, shape, read, devices=["cpu", "cpu"]),
     }
-    if call == "large_too_big":
-        monkeypatch.setattr(tlarge, "memory_bytes",
-                            lambda device: (1 << 10, 1 << 10))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 7"):
         calls[call]()
