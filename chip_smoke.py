@@ -116,12 +116,40 @@ prints no result line):
    the prefetch thread's read seconds beside each call's, the peak device
    memory and the launches.
 
+12. Training and evaluation (``Trainer``, ``forward_train``,
+   ``ops/matching.py``).  (a) One step's loss and every parameter's
+   gradient on the card against the CPU's plain path, same weights, one
+   fixed numpy batch: the full-width baseline (patch 34, batch 8) and the
+   U-Net (base 24, levels 2, its smallest patch >= 2 context + 16, batch
+   2), plain and packed, f32 and bf16, within ``GRAD_TOL``; every
+   parameter must have a finite gradient; one step launches K5 once
+   (packed baseline), K1 four times (plain baseline) or ten (plain U-Net)
+   and nothing else.  Two broken gradients must fail the same check: K5's
+   output detached and K1's backward with one layer's dw zeroed.  (b) The
+   main path: ``FplNetwork("baseline", train_config=TrainConfig())`` (patch
+   33, batch 32, "auto" -> packed, 100 steps an epoch) trains 3 epochs on a
+   128^3 uint8 blob volume with T-bars at the blob centres, validating on a
+   second volume; the loss must fall, every validation metric be finite,
+   and K5 launch once a step and once a validation tile batch.  Then
+   ``detect`` -> ``evaluate``, and at one tiling ``voxel_pr_device`` and
+   ``evaluate_voxels`` on both routes (device, streaming) must equal the
+   host ``voxel_pr`` of the same map exactly, at the default thresholds and
+   at 19 values of the map; a ``save`` / ``restore`` round trip must give
+   the map bit for bit.  (c) The reference bench's ``bench_train``
+   (``train_*`` plain b32, ``train_packed_*`` packed b32, ``train_b128_*``
+   plain b128, and packed b128 for the crossover) on a 128^3 random uint8
+   volume: steps/s and patch Mvox/s, min / median / max of 3 epochs after
+   a warm-up; one step split into sampling + augment, forward, backward and
+   Adam; whether the card agrees with the crossover at 96; the same-seed
+   difference of two fits (reported, not required).
+
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
 kernel's launches, error, times and bound (the least time the card could
 take: bytes over 3.35 TB/s or operations over the dtype's dense peak, 989
-TFLOP/s bf16 or 67 f32, the H100 SXM's figures); then the card; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+TFLOP/s bf16 or 67 f32, the H100 SXM's figures) and, for K1 and K5, their
+launches per train step; then the card; the last line is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -238,9 +266,11 @@ def import_port():
     return flypylib_tpu_torch
 
 
-def make_volume_u8(size: int, n_blobs: int, seed: int = 0) -> np.ndarray:
+def make_volume_u8(size: int, n_blobs: int, seed: int = 0,
+                   with_centers: bool = False):
     """uint8 ``(size,)*3`` volume: noise around 25 plus Gaussian blobs that
-    peak at 255 (the reference bench's synthetic volume, in numpy)."""
+    peak at 255 (the reference bench's synthetic volume, in numpy); with
+    ``with_centers`` also the blobs' (n_blobs, 3) centres."""
     rng = np.random.default_rng(seed)
     vol = np.empty((size,) * 3, np.uint8)
     step = max(1, (1 << 27) // (size * size))  # ~128 MB f32 slabs
@@ -256,7 +286,7 @@ def make_volume_u8(size: int, n_blobs: int, seed: int = 0) -> np.ndarray:
     for c in centers:
         sl = tuple(slice(c[i] - 4, c[i] + 5) for i in range(3))
         vol[sl] = np.maximum(vol[sl], blob)
-    return vol
+    return (vol, centers) if with_centers else vol
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -2041,6 +2071,550 @@ def streaming_phase(port, card_str: str, staged: dict) -> dict:
     return res
 
 
+# phase 12, training and evaluation (Trainer, forward_train, ops/matching)
+GRAD_PATCH = 34       # 12(a): the baseline's gradient batch, patch 34 ...
+GRAD_BATCH = 8        # ... batch 8
+UNET_GRAD_BATCH = 2   # the U-Net's, at its smallest patch >= 2 context + 16
+# card vs CPU, one step on the same weights and batch: per parameter,
+# max |g_card - g_cpu| <= grad_tol(...) * max |g_cpu|, and the loss within
+# LOSS_RTOL[dtype] relative.  The CPU runs every kernel's plain version; the
+# card K1 / K5, cuDNN and its own sums.  scripts/probe_train_phase.py on an
+# H100, batch seeds 1-3, worst parameter: f32 1.0e-05-2.1e-05 (baseline,
+# plain and packed), 7.1e-06-1.0e-05 (packed U-Net), 4.5e-04-8.0e-04 (plain
+# U-Net); bf16 6.5e-03-1.55e-02 (every case: a few bf16 ulps of the
+# largest gradient); loss f32 <= 1.8e-07, bf16 <= 2.5e-06.  With TF32 on
+# in every f32 conv and product the f32 cases read 9.0e-04 (plain
+# baseline), 1.1e-03 (packed baseline), 1.4e-03 (plain U-Net) and 1.45e-02
+# (packed U-Net); the broken controls read 1.0 (a zeroed dw) and no
+# gradient at all (K5 detached).  So the f32 limit catches TF32 everywhere
+# but on the plain U-Net, whose sound gap (not K1's forward, not the pool's
+# tie rule: PERF.md) needs its own limit.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+PLAIN_UNET_GRAD_TOL_F32 = 2e-3
+LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+TRAIN_VOLUME = 128    # 12(b) and 12(c): the reference bench's train volume
+TRAIN_BLOBS = 8       # size // 16 blobs
+TRAIN_EPOCHS = 3
+EVAL_TILING = (64, 8)  # tile_out, tile_batch of 12(b)'s voxel PR routes
+EVAL_SLAB = 64
+BENCH_TRAIN = (  # bench.py's bench_train: (engine, key prefix, batch, steps)
+    ("plain", "train", 32, 100),
+    ("packed", "train_packed", 32, 100),
+    ("plain", "train_b128", 128, 50),
+)
+# the packed engine at batch 128 too: the card's side of the crossover
+BENCH_CROSSOVER = (("packed", "train_packed_b128", 128, 50),)
+BENCH_EPOCHS = 3
+
+
+def grad_batch(seed: int, n: int, patch: int, ctx: int):
+    """One fixed host batch (x, y, m, codes) from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    out = patch - 2 * ctx
+    x = rng.random((n, patch, patch, patch)).astype(np.float32)
+    y = (rng.random((n, out, out, out)) > 0.9).astype(np.float32)
+    m = (rng.random((n, out, out, out)) > 0.1).astype(np.float32)
+    codes = rng.integers(0, 16, n)
+    return x, y, m, codes
+
+
+def train_grads(spec, engine: str, batch, device: str):
+    """(loss, {name: grad or None (f32, CPU)}, launches) of one step's loss
+    and backward through the engine's forward on ``device``; every launch
+    count set to 0 just before and read just after."""
+    from flypylib_tpu_torch.ops.conv import no_tf32
+    from flypylib_tpu_torch.train.trainer import TrainConfig, make_loss_fn
+
+    cfg = TrainConfig(patch_size=batch[0].shape[1], batch_size=len(batch[0]),
+                      engine=engine)
+    loss_fn, _, patch = make_loss_fn(spec, cfg)
+    require(patch == batch[0].shape[1], f"patch {patch} is not the batch's")
+    module = getattr(spec.module, "inner", spec.module)
+    module.zero_grad(set_to_none=True)
+    dev = torch.device(device)
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    reset_launch_counts()
+    with no_tf32(dev):
+        loss, _ = loss_fn(*tensors)
+        loss.backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    grads = {n: None if p.grad is None else p.grad.detach().float().cpu()
+             for n, p in module.named_parameters()}
+    return float(loss.detach()), grads, launches
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Per parameter max |got - want| / max |want|; inf where ``got`` has no
+    gradient or a non-finite one."""
+    errs = {}
+    for name, w in want.items():
+        g = got.get(name)
+        if g is None or not bool(torch.isfinite(g).all()):
+            errs[name] = math.inf
+            continue
+        errs[name] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-30)
+    return errs
+
+
+def grad_tol(model: str, engine: str, dtype) -> float:
+    """The gradient limit of a case (see GRAD_TOL)."""
+    if (model, engine, dtype) == ("unet", "plain", torch.float32):
+        return PLAIN_UNET_GRAD_TOL_F32
+    return GRAD_TOL[dtype]
+
+
+def grads_ok(errs: dict, tol: float) -> bool:
+    return max(errs.values()) <= tol
+
+
+def grad_launch_want(model: str, engine: str, dtype) -> dict:
+    """Launches of one train step (forward; no kernel runs backward) by
+    kernel and route: K5 once (packed baseline), K1 on every conv (plain
+    baseline 4, plain U-Net 10; conv 0 on the Ci = 1 kernel), else none."""
+    want = {}
+    if engine == "packed":
+        if model == "baseline":
+            want["parity_split_kernel"] = 1
+        return want
+    n = 4 if model == "baseline" else 10
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    want.update({"conv3d_bias_relu": n, f"conv3d_bias_relu:{route}": n - 1,
+                 "conv3d_bias_relu:ci1": 1})
+    return want
+
+
+def grad_case_specs(port, model: str, dtype):
+    """The (CPU, card) specs of a gradient case, seed-0 weights both."""
+    zoo = port.models
+    make = {"baseline": zoo.baseline_model, "unet": zoo.unet}[model]
+    cpu, gpu = make(seed=0, dtype=dtype), make(seed=0, dtype=dtype)
+    gpu.module.to("cuda")
+    return cpu, gpu
+
+
+def grad_patch(model: str, spec) -> tuple[int, int]:
+    """(patch, batch) of a gradient case: GRAD_PATCH x GRAD_BATCH for the
+    baseline; for the U-Net its smallest patch >= 2 context + 16 that both
+    engines take, at UNET_GRAD_BATCH."""
+    if model == "baseline":
+        return GRAD_PATCH, GRAD_BATCH
+    from flypylib_tpu_torch.ops.packed_unet import packed_unet_spec
+
+    p = packed_unet_spec(spec).valid_size(2 * spec.context + 16)
+    require(spec.is_valid_size(p), f"U-Net patch {p} not valid plain")
+    return p, UNET_GRAD_BATCH
+
+
+def grad_controls(port, card_str: str) -> None:
+    """Two broken gradients must fail the check: K5's output detached (the
+    bare wrapper, whose output autograd cannot see) on the packed baseline,
+    and K1's backward with dw zeroed for layer 2 of the plain baseline."""
+    from flypylib_tpu_torch.ops import packed_conv
+    from flypylib_tpu_torch.ops.conv import Conv3dBiasReLU
+    from flypylib_tpu_torch.ops.split import parity_split_kernel
+
+    dt = torch.float32
+    batch = None
+    for engine in ("packed", "plain"):
+        cpu, gpu = grad_case_specs(port, "baseline", dt)
+        batch = batch or grad_batch(0, GRAD_BATCH, GRAD_PATCH, cpu.context)
+        _, want, _ = train_grads(cpu, engine, batch, "cpu")
+        if engine == "packed":
+            real = packed_conv.parity_batch
+            packed_conv.parity_batch = lambda x: parity_split_kernel(x).detach()
+            try:
+                _, got, _ = train_grads(gpu, engine, batch, "cuda")
+            finally:
+                packed_conv.parity_batch = real
+            what = "K5 output detached"
+        else:
+            class ZeroDW(Conv3dBiasReLU):
+                @staticmethod
+                def backward(ctx, dy):
+                    dx, dw, db, dd = Conv3dBiasReLU.backward(ctx, dy)
+                    return dx, torch.zeros_like(dw), db, dd
+
+            layer = gpu.module.convs[2]
+            layer.forward = lambda x, c=layer: ZeroDW.apply(
+                x, c.weight, c.bias, c.dilation)
+            _, got, _ = train_grads(gpu, engine, batch, "cuda")
+            what = "K1 backward, layer 2 dw zeroed"
+        errs = grad_errors(got, want)
+        worst = max(errs, key=errs.get)
+        tol = grad_tol("baseline", engine, dt)
+        print(f"gradient control ({what}), {engine} baseline f32: worst "
+              f"{worst} {errs[worst]:.6g} (limit {tol:g}); "
+              f"{sum(g is None for g in got.values())} parameters without "
+              f"a gradient [{card_str}]", flush=True)
+        require(not grads_ok(errs, tol),
+                f"gradient control ({what}) passed the gradient check")
+        del cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def check_gradients(port, card_str: str, seed: int = 1,
+                    controls: bool = True) -> dict:
+    """12(a): one step's loss and every parameter's gradient on the card
+    against the CPU's plain path, same weights and batch: the full-width
+    baseline (patch 34, batch 8) and the U-Net, plain and packed, f32 and
+    bf16; then the broken controls.  Returns launches per step by case."""
+    per_step = {}
+    for model in ("baseline", "unet"):
+        for engine in ("plain", "packed"):
+            for dt in (torch.float32, torch.bfloat16):
+                cpu, gpu = grad_case_specs(port, model, dt)
+                patch, n = grad_patch(model, cpu)
+                batch = grad_batch(seed, n, patch, cpu.context)
+                t0 = time.perf_counter()
+                l_cpu, g_cpu, _ = train_grads(cpu, engine, batch, "cpu")
+                t_cpu = time.perf_counter() - t0
+                l_gpu, g_gpu, launches = train_grads(gpu, engine, batch,
+                                                     "cuda")
+                errs = grad_errors(g_gpu, g_cpu)
+                worst = max(errs, key=errs.get)
+                tol = grad_tol(model, engine, dt)
+                dl = abs(l_gpu - l_cpu) / abs(l_cpu)
+                name = str(dt).replace("torch.", "")
+                label = f"{engine} {model} {name}"
+                print(f"gradients {label} (patch {patch}, batch {n}, "
+                      f"{len(errs)} parameters): loss card {l_gpu:.9g} CPU "
+                      f"{l_cpu:.9g} (rel {dl:.3g}, limit {LOSS_RTOL[dt]:g}); "
+                      f"worst max|dg|/max|g| {errs[worst]:.6g} ({worst}; "
+                      f"limit {tol:g}), median "
+                      f"{statistics.median(errs.values()):.3g}; CPU step "
+                      f"{t_cpu:.1f} s [{card_str}]", flush=True)
+                require(all(g is not None for g in g_gpu.values()),
+                        f"{label}: parameters without a gradient")
+                require(grads_ok(errs, tol), f"{label}: gradient {worst} "
+                        f"differs from the CPU's by {errs[worst]}")
+                require(dl <= LOSS_RTOL[dt], f"{label}: loss differs by {dl}")
+                want = grad_launch_want(model, engine, dt)
+                want = {k: want.get(k, 0) for k in launches}
+                require(launches == want, f"{label}: one step launched "
+                        f"{launches}, expected {want}")
+                per_step[label] = {k: v for k, v in launches.items() if v}
+                del cpu, gpu
+                torch.cuda.empty_cache()
+    if controls:
+        grad_controls(port, card_str)
+    return per_step
+
+
+def voxel_pr_equal(got: dict, want: dict) -> bool:
+    return all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def train_main_path(port, card_str: str) -> dict:
+    """12(b): the full-width baseline trains on a 128^3 uint8 blob volume
+    with T-bars at the blob centres (TrainConfig's defaults: patch 33,
+    batch 32, "auto" -> packed, 100 steps an epoch), validating on a second
+    volume each epoch; then detect -> evaluate, evaluate_voxels on both
+    routes against the host voxel_pr on the same map, and a save / restore
+    round trip."""
+    from flypylib_tpu_torch.io.synapses import Tbars, make_training_volumes
+    from flypylib_tpu_torch.ops.matching import voxel_pr, voxel_pr_device
+    from flypylib_tpu_torch.train.trainer import TrainConfig, resolve_engine
+
+    vol, centers = make_volume_u8(TRAIN_VOLUME, TRAIN_BLOBS, seed=2,
+                                  with_centers=True)
+    vval, vcenters = make_volume_u8(TRAIN_VOLUME, TRAIN_BLOBS, seed=3,
+                                    with_centers=True)
+    tb, vtb = (Tbars(locs=c.astype(np.float64)) for c in (centers, vcenters))
+    cfg = TrainConfig()
+    net = port.FplNetwork("baseline", device="cuda", train_config=cfg)
+    require(resolve_engine(net.spec, cfg) == "packed",
+            "TrainConfig() does not resolve to the packed engine")
+    ctx = net.context
+    vlab, vmsk = make_training_volumes(vtb, vval.shape, radius=5.0,
+                                       border=ctx)
+    val_batches = net.tiled_inference(vval.shape).n_batches(vval.shape)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = net.train(vol, tbars=tb, epochs=TRAIN_EPOCHS,
+                     val_data=(scaled(vval), vlab, vmsk), val_tbars=vtb)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = TRAIN_EPOCHS * cfg.steps_per_epoch
+    for ep in hist:
+        print(f"train epoch {ep['epoch']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in ep.items() if k != "epoch")
+            + f" [{card_str}]", flush=True)
+    seen = {k: v for k, v in launches.items() if v}
+    print(f"train: {steps} steps + {TRAIN_EPOCHS} validations in "
+          f"{t_train:.2f} s ({steps / t_train:.2f} steps/s with validation); "
+          f"launches {seen} [{card_str}]", flush=True)
+    require(hist[-1]["loss"] < hist[0]["loss"],
+            f"loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+    for ep in hist:
+        for k in ("val_loss", "val_voxel_precision", "val_voxel_recall",
+                  "val_obj_precision", "val_obj_recall"):
+            require(k in ep and math.isfinite(ep[k]), f"epoch {ep['epoch']}: "
+                    f"{k} missing or not finite")
+    want = {k: 0 for k in launches}
+    want["parity_split_kernel"] = steps + TRAIN_EPOCHS * val_batches
+    require(launches == want, f"train launched {launches}, expected {want}")
+
+    vol_f = scaled(vol)  # the values the trainer fed the model
+    dets = net.detect(vol_f)
+    curve = net.evaluate(dets, tb)
+    pr = (curve["precision"][-1], curve["recall"][-1]) if len(dets) else (0, 0)
+    print(f"detect -> evaluate: {len(dets)} detections, {len(tb)} T-bars; "
+          f"precision {pr[0]:.4f} recall {pr[1]:.4f} at the last detection "
+          f"[{card_str}]", flush=True)
+    T, B = EVAL_TILING
+    lab, msk = make_training_volumes(tb, vol.shape, radius=5.0, border=ctx)
+    prob = net.infer(vol_f, tile_out=T, tile_batch=B, keep_on_device=True)
+    host = prob.cpu().numpy()
+    # besides the default thresholds, 19 values the map holds strictly
+    # inside (0.001, 0.999): a trained map sits mostly at 0 and 1, where
+    # counts would not see a voxel that moved by an ulp; at a map value
+    # each count is exact only if that voxel is
+    mid = np.sort(host[(host > 1e-3) & (host < 1 - 1e-3)])
+    require(mid.size >= 19, f"only {mid.size} voxels strictly inside "
+                            "(0.001, 0.999)")
+    at_map = mid[np.linspace(0, mid.size - 1, 19).astype(np.int64)]
+    for label, thr in (("default thresholds", None),
+                       (f"19 map values in [{at_map[0]:.6g}, "
+                        f"{at_map[-1]:.6g}]", at_map)):
+        ref = voxel_pr(host, lab, msk, thresholds=thr)
+        runs = (("voxel_pr_device", voxel_pr_device(prob, lab, msk,
+                                                    thresholds=thr)),
+                ("evaluate_voxels (device)", net.evaluate_voxels(
+                    vol_f, lab, msk, thresholds=thr, tile_out=T,
+                    tile_batch=B)),
+                ("evaluate_voxels (streaming)", net.evaluate_voxels(
+                    vol_f, lab, msk, thresholds=thr, slab=EVAL_SLAB,
+                    tile_out=T, tile_batch=B)))
+        for what, got in runs:
+            same = voxel_pr_equal(got, ref)
+            bad = int(sum((got[k] != ref[k]).sum() for k in ("precision",
+                                                               "recall")))
+            print(f"{what} vs host voxel_pr on the map at tile {T}, batch "
+                  f"{B}, {label}: {'equal' if same else f'{bad} entries differ'}"
+                  f" (precision {np.round(ref['precision'][[0, 9, 18]], 4)}, "
+                  f"recall {np.round(ref['recall'][[0, 9, 18]], 4)} at the "
+                  f"1st, 10th, 19th threshold) [{card_str}]", flush=True)
+            require(same, f"{what} differs from voxel_pr in {bad} entries "
+                          f"({label})")
+    path = ROOT / "build" / "phase12_weights.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    net.save(str(path))
+    other = port.FplNetwork("baseline", device="cuda", seed=1)
+    other.restore(str(path))
+    path.unlink()
+    again = other.infer(vol_f, tile_out=T, tile_batch=B, keep_on_device=True)
+    require(torch.equal(again, prob), "save / restore changed the map")
+    print(f"save / restore: the map equal bit for bit [{card_str}]",
+          flush=True)
+    res = {"launches": launches, "steps": steps, "seconds": t_train,
+           "history": hist}
+    del net, other, prob, again
+    torch.cuda.empty_cache()
+    return res
+
+
+def step_split(spec, cfg, data, state, gen, iters: int = 10) -> dict:
+    """Median ms of one step's parts, each ended by a synchronise: sampling
+    + augment, forward + loss, backward, Adam."""
+    from flypylib_tpu_torch.ops.augment import augment_batch
+    from flypylib_tpu_torch.ops.conv import no_tf32
+    from flypylib_tpu_torch.train.trainer import (_train_forward,
+                                                  make_loss_fn,
+                                                  masked_bce_loss,
+                                                  resolve_engine,
+                                                  resolve_train_spec)
+
+    fwd = _train_forward(resolve_train_spec(spec, cfg),
+                         resolve_engine(spec, cfg))
+    _, sample_fn, _ = make_loss_fn(spec, cfg)
+    parts = {"sample+augment": [], "forward": [], "backward": [], "adam": []}
+    for i in range(iters + 2):
+        with no_tf32(data.images.device):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            x, y, m, codes = sample_fn(gen, data)
+            x, y, m = (augment_batch(v, codes) for v in (x, y, m))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss = masked_bce_loss(fwd(x[..., None])[..., 0], y, m)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            state.optimizer.step()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        if i >= 2:  # warm-up
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def bench_train(port, card_str: str) -> dict:
+    """12(c): the reference bench's bench_train on the card: steps/s and
+    patch Mvox/s of the full-width baseline on a 128^3 random uint8 volume,
+    min / median / max of BENCH_EPOCHS epochs after a warm-up epoch, each
+    ended by reading the loss; one step split into its parts; the card's
+    reading of the packed / plain crossover; the same-seed difference of
+    two fits."""
+    from flypylib_tpu_torch.models.zoo import baseline_model
+    from flypylib_tpu_torch.train.trainer import (TrainConfig, TrainData,
+                                                  Trainer, make_train_step)
+
+    rng = np.random.default_rng(0)
+    size = TRAIN_VOLUME
+    image = rng.integers(0, 256, (size,) * 3).astype(np.uint8)
+    labels = (rng.random((size,) * 3) > 0.999).astype(np.float32)
+    mask = np.ones((size,) * 3, np.float32)
+    out, per_step, splits = {}, {}, {}
+    runs = BENCH_TRAIN + BENCH_CROSSOVER
+    for engine, prefix, bsz, n in runs:
+        spec = baseline_model(seed=0)
+        cfg = TrainConfig(patch_size=33, batch_size=bsz, augment=True,
+                          steps_per_epoch=n, engine=engine)
+        tr = Trainer(spec, cfg, seed=0, device="cuda")
+        _, train_steps, pvox = make_train_step(spec, cfg)
+        data = TrainData.build(image, labels, mask, pvox, device="cuda")
+        state = tr.init_state()
+        reset_launch_counts()
+        float(train_steps(state, tr.generator, data, n)["loss"])  # warm-up
+        per_step[prefix] = {k: v / n for k, v in launch_counts().items() if v}
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(BENCH_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(train_steps(state, tr.generator, data, n)["loss"])
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = statistics.median(times)
+        rates = sorted(n / t for t in times)
+        mvox = sorted(n * bsz * pvox**3 / t / 1e6 for t in times)
+        out[f"{prefix}_steps_per_s"] = n / med
+        out[f"{prefix}_patch_mvox_s"] = n * bsz * pvox**3 / med / 1e6
+        out[f"{prefix}_steps_per_s_all"] = rates
+        print(f"{prefix} ({engine}, batch {bsz}, patch {pvox}, {n} steps an "
+              f"epoch): steps/s min {rates[0]:.3f} median {n / med:.3f} max "
+              f"{rates[-1]:.3f}; patch Mvox/s min {mvox[0]:.3f} median "
+              f"{n * bsz * pvox**3 / med / 1e6:.3f} max {mvox[-1]:.3f}; peak "
+              f"{peak:.3f} GiB; launches per step {per_step[prefix]} "
+              f"[{card_str}]", flush=True)
+        if prefix in ("train_packed", "train_b128"):
+            splits[prefix] = step_split(spec, cfg, data, state, tr.generator)
+            sp = splits[prefix]
+            print(f"{prefix} one step, synchronised parts (median of 10): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in sp.items())
+                  + f", sum {sum(sp.values()):.3f} ms [{card_str}]",
+                  flush=True)
+        del tr, data, state, spec
+        torch.cuda.empty_cache()
+    r32 = out["train_packed_patch_mvox_s"] / out["train_patch_mvox_s"]
+    r128 = (out["train_packed_b128_patch_mvox_s"]
+            / out["train_b128_patch_mvox_s"])
+    agrees = r32 > 1 > r128
+    print(f"crossover: packed / plain patch Mvox/s {r32:.3f} at batch 32, "
+          f"{r128:.3f} at batch 128; the card {'agrees' if agrees else 'does not agree'} "
+          f"with the crossover at 96 (packed below, plain at and above) "
+          f"[{card_str}]", flush=True)
+    # two fits from the same seed: cuDNN's weight gradients are not
+    # deterministic by default, so the difference is reported, not required
+    fits = []
+    for _ in range(2):
+        spec = baseline_model(seed=0)
+        tr = Trainer(spec, TrainConfig(steps_per_epoch=20), seed=0,
+                     device="cuda")
+        hist = tr.fit(image, labels, mask)
+        fits.append((hist[0]["loss"], {k: v.detach().float().clone() for k, v
+                                       in tr.module.state_dict().items()}))
+        del tr, spec
+    dparam = max(float((fits[0][1][k] - fits[1][1][k]).abs().max())
+                 for k in fits[0][1])
+    print(f"same seed, two fits of 20 steps on the card: loss "
+          f"{fits[0][0]:.9g} / {fits[1][0]:.9g}, max |dparam| {dparam:.3g} "
+          f"[{card_str}]", flush=True)
+    torch.cuda.empty_cache()
+    return {"bench": out, "launches_per_step": per_step, "splits": splits,
+            "crossover_agrees": agrees}
+
+
+def train_kernel_times(port, card_str: str) -> dict:
+    """K1's and K5's forward beside their backward at the shapes a bf16
+    train step gives them (median CUDA-event ms): K1 at the plain
+    baseline's four layers in a batch-128 step (patch 33), its backward the
+    Function's (cuDNN's weight and input gradients, no dx for layer 0); K5
+    at the packed baseline's boundary in a batch-32 step (patch 34), its
+    backward the inverse relayout."""
+    from flypylib_tpu_torch.models.zoo import baseline_model
+    from flypylib_tpu_torch.ops.conv import Conv3dBiasReLU, no_tf32
+    from flypylib_tpu_torch.ops.packed_conv import ParityBatch, parity_unbatch
+    from flypylib_tpu_torch.ops.split import parity_split_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    convs = baseline_model(seed=0).module.to("cuda").convs
+    s, ci = 33, 1
+    k1 = {"forward_ms": 0.0, "backward_ms": 0.0, "layers": []}
+    for i, c in enumerate(convs):
+        d, co = c.dilation, c.weight.shape[-1]
+        x = torch.rand((128, s, s, s, ci), generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_(i > 0)
+        with no_tf32(x.device):
+            y = Conv3dBiasReLU.apply(x, c.weight, c.bias, d)
+            dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+            fwd = median_ms(lambda: Conv3dBiasReLU.apply(
+                x.detach(), c.weight, c.bias, d))
+            bwd = median_ms(lambda: y.backward(dy, retain_graph=True))
+        k1["layers"].append({"shape": [128, s, s, s, ci, co, d],
+                             "forward_ms": fwd, "backward_ms": bwd})
+        k1["forward_ms"] += fwd
+        k1["backward_ms"] += bwd
+        s, ci = s - 2 * d, co
+        del x, y, dy
+    x = torch.rand((32, 15, 15, 15, 256), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    y = ParityBatch.apply(x)
+    g = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    k5 = {"shape": list(x.shape),
+          "forward_ms": median_ms(lambda: parity_split_kernel(x.detach())),
+          "backward_ms": median_ms(lambda: parity_unbatch(g).contiguous())}
+    print("train-step kernel times, bf16: K1 (plain baseline, batch 128, "
+          "patch 33) forward " + ", ".join(
+              f"{v['forward_ms']:.4f}" for v in k1["layers"])
+          + f" = {k1['forward_ms']:.4f} ms, backward " + ", ".join(
+              f"{v['backward_ms']:.4f}" for v in k1["layers"])
+          + f" = {k1['backward_ms']:.4f} ms; K5 (packed baseline boundary "
+          f"{tuple(k5['shape'])}) forward {k5['forward_ms']:.4f} ms, "
+          f"backward {k5['backward_ms']:.4f} ms [{card_str}]", flush=True)
+    del convs, x, y, g
+    torch.cuda.empty_cache()
+    return {"conv3d_bias_relu": k1, "parity_split_kernel": k5}
+
+
+def train_phase(port, card_str: str) -> dict:
+    """Phase 12: gradients (a), the main path (b), throughput (c) and the
+    kernels' train-step times."""
+    t0 = time.perf_counter()
+    res = {"grads": check_gradients(port, card_str)}
+    t1 = time.perf_counter()
+    res["main"] = train_main_path(port, card_str)
+    t2 = time.perf_counter()
+    res["bench"] = bench_train(port, card_str)
+    res["kernel_times"] = train_kernel_times(port, card_str)
+    t3 = time.perf_counter()
+    print(f"phase 12 (training and evaluation): {t3 - t0:.1f} s = gradients "
+          f"{t1 - t0:.1f} + main path {t2 - t1:.1f} + throughput "
+          f"{t3 - t2:.1f} [{card_str}]", flush=True)
+    print(json.dumps({k: round(v, 3) for k, v in res["bench"]["bench"].items()
+                      if not k.endswith("_all")}))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2186,6 +2760,16 @@ def main(argv=None) -> int:
     stream = streaming_phase(port, card_str, staged)
     del staged["vol"], staged["vol_1k"]
 
+    # 12. training and evaluation: gradients card vs CPU, the trained main
+    #     path through detect / evaluate / evaluate_voxels, throughput
+    train = train_phase(port, card_str)
+    train_steps = {**train["grads"],
+                   **{f"bench {k}": v
+                      for k, v in train["bench"]["launches_per_step"].items()}}
+
+    def per_step(name: str) -> dict:
+        return {case: c[name] for case, c in train_steps.items() if name in c}
+
     k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu"}
     k1_routes = k1.pop("routes")
     kernels = [{
@@ -2208,6 +2792,8 @@ def main(argv=None) -> int:
             f"plain baseline streaming {fwd} both 256^3": stream["256"][
                 ("plain baseline", fwd, "", None)]["conv3d_bias_relu"]
             for fwd in ("roi", "shared")},
+        "train_launches_per_step": per_step("conv3d_bias_relu"),
+        "train_step_ms": train["kernel_times"]["conv3d_bias_relu"],
         "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
               "on the wgmma route, layer 0 on ci1; routes splits launches "
               "and times by route); launches from the plain baseline path",
@@ -2225,6 +2811,7 @@ def main(argv=None) -> int:
             **tails[kname],
             "stage_launches": {r: run[f"{name}:{r}"]
                                for r in ("wgmma", "wmma", "fma")},
+            "train_launches_per_step": per_step(name),
             "at": f"tail_impl={engine!r} (2 stages, the logits in the "
                   f"second's epilogue), bf16, one {VOLUME}^3 covering tile; "
                   f"launches from the U-Net {engine} path, stage_launches "
@@ -2245,6 +2832,7 @@ def main(argv=None) -> int:
                            "wino_conv_wgmma.cu" if r == "wgmma"
                            else "wino_conv.cu")}
                    for r in ("wgmma", "wmma", "fma")},
+        "train_launches_per_step": per_step("wino_conv3d_bias_relu"),
         "at": "packed baseline layer 3, bf16, one tile batch, on the wgmma "
               "route; k1_ms is K1's wgmma route at d = 1 and wmma_kernel_ms "
               "csrc/wino_conv.cu's kernel, both on the same operands; no "
@@ -2274,6 +2862,10 @@ def main(argv=None) -> int:
             **{f"north star {NORTH_STAR}^3 streaming {lab} ({r['mode']}) "
                "both": r["launches"]["parity_split_kernel"]
                for lab, r in stream["1k"].items()}},
+        "train_launches_per_step": per_step("parity_split_kernel"),
+        "train_step_ms": train["kernel_times"]["parity_split_kernel"],
+        "train_main_path_launches": train["main"]["launches"][
+            "parity_split_kernel"],
         "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
               "batch; launches from the packed baseline path",
     })

@@ -5,9 +5,10 @@ reference).  It imports torch, numpy and scipy, never jax, flax or
 ``flypylib_tpu``.  Modules keep the reference's paths and public names;
 volumes are (z, y, x), activations NDHWC, conv weights DHWIO.
 
-It covers ``FplNetwork("baseline" | "vgg_like" | "unet").infer / nms /
-components / detect``, each model through its packed engine by default, as
-in the reference, or plain with ``packed=False``.  Every Pallas kernel of
+It covers ``FplNetwork("baseline" | "vgg_like" | "unet").train / infer /
+nms / components / detect / detect_large / evaluate / evaluate_voxels /
+save / restore``, each model through its packed engine by default, as in
+the reference, or plain with ``packed=False``.  Every Pallas kernel of
 the reference has a hand-written CUDA counterpart for Hopper under
 ``csrc/`` (K1 ``conv3d_bias_relu``, K2/K3 ``packed_tail``, K4
 ``wino_conv``, K5 ``parity_split``), launched on a CUDA device; on the CPU

@@ -11,7 +11,9 @@ batches of tiles, stitch the outputs into the full probability map.
 - **Padding**: the volume is reflect-padded by exactly ``context`` on every
   face once, on the host (matching a monolithic run), then zero-extended on
   the high side to fill the tile grid; the extension only feeds output
-  voxels that are cropped away.
+  voxels that are cropped away.  With ``pad_mode="none"`` the caller hands
+  in a pre-padded window (``ops/matching.py::voxel_pr_streaming``) and the
+  output is ``2 * context`` smaller on each axis.
 - **Device sweep**: the padded volume is uploaded once (uint8 stays uint8:
   the cast to the model dtype is exact on the device); each tile batch is
   sliced, run, passed through a sigmoid and written into a preallocated f32
@@ -32,8 +34,13 @@ from flypylib_tpu_torch.utils import ceil_div, to3d
 
 
 class TiledInference:
-    def __init__(self, spec: ModelSpec, tile_out: int = 64, tile_batch: int = 1):
+    def __init__(self, spec: ModelSpec, tile_out: int = 64, tile_batch: int = 1,
+                 pad_mode: str = "reflect"):
+        """``pad_mode`` is the ``np.pad`` mode of the context halo
+        (``"reflect"``, a monolithic run's), or ``"none"``: the volume
+        passed to :meth:`infer` is already padded."""
         self.spec = spec
+        self.pad_mode = pad_mode
         ctx = spec.context
         # choose tile input size valid for the model, derive the true tile_out
         tin = spec.valid_size(tile_out + 2 * ctx)
@@ -78,16 +85,25 @@ class TiledInference:
 
     @torch.no_grad()
     def infer(self, volume: np.ndarray, keep_on_device: bool = False):
-        """Full-volume probability map, same shape as ``volume``: a numpy
-        f32 array, or with ``keep_on_device=True`` an f32 tensor on the
-        model's device."""
+        """Full-volume probability map, same shape as ``volume`` (``2 *
+        context`` smaller per axis with ``pad_mode="none"``): a numpy f32
+        array, or with ``keep_on_device=True`` an f32 tensor on the model's
+        device."""
         vol = np.asarray(volume)
         if vol.dtype != np.uint8:
             vol = vol.astype(np.float32)
-        shape = vol.shape
-        corners, out_shape = self.plan(shape)
         c = self.ctx
-        padded = np.pad(vol, c, mode="reflect") if c else vol
+        if self.pad_mode == "none":
+            # a pre-padded window; the pooling phase is the caller's to align
+            shape = tuple(s - 2 * c for s in vol.shape)
+            if any(s <= 0 for s in shape):
+                raise ValueError(f"pre-padded window {vol.shape} smaller "
+                                 f"than 2*context={2 * c}")
+            padded = vol
+        else:
+            shape = vol.shape
+            padded = np.pad(vol, c, mode=self.pad_mode) if c else vol
+        corners, out_shape = self.plan(shape)
         padded = np.pad(padded, [(0, os - s) for s, os in zip(shape, out_shape)])
 
         B, tin, tout = self.tile_batch, self.tile_in, self.tile_out

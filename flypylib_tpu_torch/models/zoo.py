@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from flypylib_tpu_torch.ops.conv import conv3d_bias_relu, matmul_f32
+from flypylib_tpu_torch.ops.conv import Conv3dBiasReLU, matmul_f32
 from flypylib_tpu_torch.ops.packed_conv import convT_packed_weight, unpack_volume
 
 # stddev correction of a normal truncated to +-2 sigma (Flax/JAX
@@ -78,7 +78,9 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 class Conv3BiasReLU(nn.Module):
-    """One valid 3x3x3 conv (dilation ``dilation``) + bias + ReLU: K1."""
+    """One valid 3x3x3 conv (dilation ``dilation``) + bias + ReLU: K1,
+    through :class:`~flypylib_tpu_torch.ops.conv.Conv3dBiasReLU`, so that
+    it has a gradient (with or without grad enabled, the same kernel)."""
 
     def __init__(self, in_features: int, features: int, dilation: int):
         super().__init__()
@@ -87,7 +89,7 @@ class Conv3BiasReLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_bias_relu(x, self.weight, self.bias, self.dilation)
+        return Conv3dBiasReLU.apply(x, self.weight, self.bias, self.dilation)
 
 
 class Pointwise(nn.Module):
@@ -171,12 +173,40 @@ class ConvStack(nn.Module):
         return self.logits(x, torch.float32)
 
 
+class WindowMax(torch.autograd.Function):
+    """Max over the window axis (-2) of (..., 8, C), in window order (z, y,
+    x row-major), whose gradient goes whole to the FIRST maximum in that
+    order: the gradient of Flax's ``nn.max_pool`` (``reduce_window`` max,
+    whose transpose is ``select_and_scatter_add``).  ``amax``'s gradient
+    splits a tie evenly instead (as ``jnp.max``'s).  ReLU zeros tie often,
+    harmlessly (ReLU'(0) = 0); a positive tie is where the two differ."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-2)
+        ctx.save_for_backward(x, m)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        hit = x == m.unsqueeze(-2)
+        first = hit & (hit.cumsum(dim=-2) == 1)
+        return g.unsqueeze(-2) * first
+
+
 def _max_pool2(x: torch.Tensor) -> torch.Tensor:
     """2^3 max-pool with stride 2 over NDHWC, flooring odd extents (Flax's
-    ``nn.max_pool`` with VALID padding)."""
+    ``nn.max_pool`` with VALID padding, its tie gradient included: with
+    grad enabled the windows are gathered for :class:`WindowMax`)."""
     b, d, h, w, c = x.shape
     x = x[:, : d - d % 2, : h - h % 2, : w - w % 2]
-    return x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4, 6))
+    x = x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
+    if not torch.is_grad_enabled():
+        return x.amax(dim=(2, 4, 6))
+    win = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, d // 2, h // 2, w // 2,
+                                                    8, c)
+    return WindowMax.apply(win)
 
 
 class UNetValid(nn.Module):

@@ -1,9 +1,10 @@
 """FplNetwork — the flypylib-compatible public API surface, in PyTorch.
 
-Counterpart of ``flypylib_tpu/network.py`` for the inference verbs:
-``infer``, ``nms``, ``components``, ``detect`` and ``detect_large`` (the
-staged and streaming whole-volume engine, ``infer/large.py``), with the
-reference's defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
+Counterpart of ``flypylib_tpu/network.py``: ``train`` (``train/trainer.py``),
+``infer``, ``nms``, ``components``, ``detect``, ``detect_large`` (the
+staged and streaming whole-volume engine, ``infer/large.py``), ``evaluate``
+and ``evaluate_voxels`` (``ops/matching.py``), ``save`` and ``restore``,
+with the reference's defaults (``detect`` uses window 5, the bare ``nms`` verb window 3,
 threshold 0.5, ``default_tiling`` and ``packed="auto"``, which runs every
 model with a packed engine through it: ``PackedConvStack`` for the conv
 stacks, ``PackedUNet`` for the U-Net; ``packed=False`` runs the plain
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
-from flypylib_tpu_torch.io.synapses import Tbars
+from flypylib_tpu_torch.io.synapses import Tbars, make_training_volumes
 from flypylib_tpu_torch.models.zoo import (
     MODEL_ZOO,
     ModelSpec,
@@ -32,15 +33,20 @@ from flypylib_tpu_torch.ops.components import label_components
 from flypylib_tpu_torch.ops.nms import nms
 from flypylib_tpu_torch.ops.packed_conv import PackedConvStack, packed_spec
 from flypylib_tpu_torch.ops.packed_unet import PackedUNet, packed_unet_spec
+from flypylib_tpu_torch.train.trainer import TrainConfig, Trainer
 
 _PACKED = (PackedConvStack, PackedUNet)
 
 
 class FplNetwork:
     def __init__(self, model="baseline", seed: int = 0, device="cuda",
-                 packed: bool | str = "auto", **model_kwargs):
+                 packed: bool | str = "auto",
+                 train_config: TrainConfig | None = None, **model_kwargs):
         """``model`` is a ``MODEL_ZOO`` name, a zoo callable (called with
-        ``seed`` and ``model_kwargs``) or a ``ModelSpec``.
+        ``seed`` and ``model_kwargs``) or a ``ModelSpec``.  ``seed`` draws
+        the weights and seeds the trainer's sampling; ``train_config`` is
+        the :class:`~flypylib_tpu_torch.train.trainer.TrainConfig` of
+        :meth:`train`.
 
         ``packed`` selects the space-to-depth inference engine for the
         infer/detect verbs, as in the reference: ``"auto"`` uses it
@@ -72,8 +78,56 @@ class FplNetwork:
         self.infer_spec = infer_spec
         self.context = spec.context
         self.device = device
+        self.trainer = Trainer(spec, train_config, seed=seed,
+                               infer_spec=infer_spec, device=device)
         self._tiled: TiledInference | None = None
         self._tiled_key = None
+
+    # -- train ------------------------------------------------------------
+    def train(
+        self,
+        image,
+        labels=None,
+        mask=None,
+        tbars=None,
+        epochs: int = 1,
+        radius: float = 5.0,
+        callback=None,
+        **fit_kwargs,
+    ):
+        """Train on one labeled cutout or a list of them (flypylib trained
+        over lists of labeled cubes), on the network's device.
+
+        Either pass rasterized ``labels`` (+ ``mask``, default all ones)
+        volumes, or raw ``tbars`` annotations, rasterized here with the
+        standard radius / ignore-annulus rules and the border masked by the
+        model's context.  ``fit_kwargs`` go to :meth:`Trainer.fit`
+        (``val_data``, ``val_tbars``, ``metrics_log``, ...).  The weights
+        the inference engines read are the ones that train."""
+        is_multi = isinstance(image, (list, tuple))
+        images = list(image) if is_multi else [image]
+        if labels is None:
+            if tbars is None:
+                raise ValueError("need labels+mask or tbars")
+            tbars_list = list(tbars) if is_multi else [tbars]
+            pairs = [
+                make_training_volumes(
+                    tb, np.shape(im), radius=radius, border=self.context
+                )
+                for tb, im in zip(tbars_list, images)
+            ]
+            labels = [p[0] for p in pairs]
+            mask = [p[1] for p in pairs]
+        else:
+            labels = list(labels) if is_multi else [labels]
+            if mask is None:
+                mask = [np.ones_like(lb, dtype=np.float32) for lb in labels]
+            else:
+                mask = list(mask) if is_multi else [mask]
+        history = self.trainer.fit(images, labels, mask, epochs=epochs,
+                                   callback=callback, **fit_kwargs)
+        self._tiled = None  # the weights changed: rebuild the tiling lazily
+        return history
 
     @property
     def module(self) -> torch.nn.Module:
@@ -200,3 +254,58 @@ class FplNetwork:
         upload = None if staged is True else staged
         return detect_staged(self.infer_spec, None, vol, staged=upload,
                              **common)
+
+    # -- evaluate ----------------------------------------------------------
+    @staticmethod
+    def evaluate(pred_or_prob, gt: Tbars, dist_thresh: float = 10.0,
+                 window=3, threshold: float = 0.5):
+        """PR curve of a probability map (nms at ``window``/``threshold``)
+        or a detection list against ground truth (``ops/matching.py``)."""
+        from flypylib_tpu_torch.ops.matching import evaluate as _evaluate
+
+        return _evaluate(pred_or_prob, gt, dist_thresh=dist_thresh,
+                         window=window, threshold=threshold)
+
+    def evaluate_voxels(self, image, labels, mask=None, thresholds=None,
+                        slab: int | None = None, tile_out: int | None = None,
+                        tile_batch: int | None = None):
+        """Voxel-wise PR of this model's prediction against a label volume.
+
+        A small in-RAM volume (the reference's rule: 8 bytes a voxel under
+        2 GiB) with no ``slab`` runs one forward kept on the device and
+        counts there (:func:`~flypylib_tpu_torch.ops.matching.
+        voxel_pr_device`); anything else, or any ``(shape, read_fn)`` input,
+        streams phase-aligned z-slabs in bounded memory
+        (:func:`~flypylib_tpu_torch.ops.matching.voxel_pr_streaming`) with
+        the same result.  ``tile_out``/``tile_batch`` (default
+        :func:`default_tiling`'s) apply to both routes: cuDNN's bf16 sums
+        follow the tile shape, so compare the two routes at one tiling."""
+        from flypylib_tpu_torch.ops.matching import (voxel_pr_device,
+                                                     voxel_pr_streaming)
+
+        is_reader = isinstance(image, tuple) and callable(image[1])
+        small = (
+            not is_reader
+            and np.asarray(image).size * 8 < 2 << 30  # prob+labels+mask f32
+            and slab is None
+        )
+        if small:
+            prob = self.infer(image, tile_out=tile_out, tile_batch=tile_batch,
+                              keep_on_device=True)
+            return voxel_pr_device(prob, np.asarray(labels, np.float32),
+                                   mask, thresholds=thresholds)
+        return voxel_pr_streaming(
+            self.infer_spec, None, image, labels, mask=mask,
+            thresholds=thresholds, tile_out=tile_out, tile_batch=tile_batch,
+            **({} if slab is None else {"slab": slab}),
+        )
+
+    # -- checkpointing -----------------------------------------------------
+    def save(self, path: str):
+        """Write the weights (``torch.save``, :meth:`Trainer.save`)."""
+        self.trainer.save(path)
+
+    def restore(self, path: str):
+        """Load weights written by :meth:`save`."""
+        self.trainer.restore(path)
+        self._tiled = None

@@ -23,6 +23,11 @@ is applied, and the result is rounded to ``x.dtype`` once.
 The f32 products that every plain version shares live here too:
 :func:`conv3d_f32` and :func:`matmul_f32`, with TF32 off on the card
 (:func:`no_tf32`) and oneDNN off for convolutions on the CPU.
+
+Training differentiates K1 through :class:`Conv3dBiasReLU`, an
+``autograd.Function`` whose forward is :func:`conv3d_bias_relu` (the kernel
+on the card) and whose backward is written out here; the wrapper alone
+writes its output through a raw pointer, which autograd cannot see.
 """
 
 from __future__ import annotations
@@ -330,3 +335,49 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 conv3d_bias_relu.launches = 0
 conv3d_bias_relu.routes = dict.fromkeys(K1_ROUTES, 0)
+
+
+class Conv3dBiasReLU(torch.autograd.Function):
+    """:func:`conv3d_bias_relu` with a gradient.
+
+    Forward: the kernel on a CUDA tensor, :func:`conv3d_reference` on a CPU
+    one; it saves ``x``, ``w`` and the post-ReLU output ``y``.  Backward,
+    with ``g = dy * (y > 0)`` (ReLU'(0) = 0, as JAX's): ``db = sum g`` in
+    f32, ``dw`` and ``dx`` by PyTorch's convolution gradients
+    (``torch.nn.grad.conv3d_weight`` / ``conv3d_input``, NCDHW, TF32 off)
+    of the model-dtype values, summed in f32 and rounded to the model dtype
+    once: a cuDNN conv in that dtype on the card, an f32 conv on the CPU
+    (as every plain version here), ``dx`` only when ``x`` needs one (a
+    model's first layer's input does not).  The reference's plain stack
+    differentiates XLA convolutions, and no Pallas kernel of it has a
+    backward, so there is no backward kernel to port: the library's conv
+    gradients are the counterpart of XLA's.  The weight and bias gradients
+    are those of the parameters before their cast to ``x.dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dilation):
+        y = conv3d_bias_relu(x, w, b, dilation)
+        ctx.save_for_backward(x, w, y)
+        ctx.dilation = int(dilation)
+        ctx.b_dtype = b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        d, dt = ctx.dilation, x.dtype
+        g = dy * (y > 0)
+        db = g.float().sum(dim=(0, 1, 2, 3)).to(ctx.b_dtype)
+        # the conv operands: the model-dtype values, as f32 on the CPU
+        ct = dt if x.device.type == "cuda" else torch.float32
+        xn = x.to(ct).permute(0, 4, 1, 2, 3)              # NCDHW
+        gn = g.to(dt).to(ct).permute(0, 4, 1, 2, 3)
+        wn = w.to(dt).to(ct).permute(4, 3, 0, 1, 2)      # OIDHW
+        dx = None
+        with no_tf32(x.device):
+            dw = torch.nn.grad.conv3d_weight(xn, wn.shape, gn, dilation=d)
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv3d_input(xn.shape, wn, gn, dilation=d)
+                dx = dx.to(dt).permute(0, 2, 3, 4, 1)
+        dw = dw.to(dt).permute(2, 3, 4, 1, 0).to(w.dtype)  # DHWIO
+        return dx, dw, db, None

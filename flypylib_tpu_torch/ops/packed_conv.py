@@ -17,12 +17,17 @@ exports the packed model's stricter size constraints as a drop-in
 
 The reference spells pack and unpack twice (one 8-D transpose, and the
 per-axis ``_iv`` forms chosen for TPU layouts); both give the same values,
-so the port has one of each.  Left out of the reference: the custom VJPs
-and ``forward_train`` (training), the optimization barriers, the
+so the port has one of each.  Training (:meth:`PackedConvStack.
+forward_train`) differentiates the same forward: every op but K5 is a
+PyTorch op with its own gradient, and :func:`parity_batch` goes through
+:class:`ParityBatch` (K5 forward, the inverse relayout backward), the
+counterpart of the reference's custom VJP.  Left out of the reference: the
+custom VJPs of ``parity_split`` / ``parity_merge`` (plain reshapes here,
+differentiable as they stand), the optimization barriers, the
 split-weight bf16 logits (the port keeps the plain ConvStack's f32
-logits, which the reference's docstring puts ~1e-6 relative from them),
-``stage_b="group"`` (measured and rejected there) and BatchNorm (the
-port's ``ConvStack`` has none).
+logits, which the reference's docstring puts ~1e-6 relative from them, and
+which its ``forward_train`` uses), ``stage_b="group"`` (measured and
+rejected there) and BatchNorm (the port's ``ConvStack`` has none).
 """
 
 from __future__ import annotations
@@ -136,19 +141,40 @@ def parity_merge(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b8 // 8, 2 * d, 2 * h, 2 * w, c)
 
 
-def parity_batch(x: torch.Tensor) -> torch.Tensor:
-    """Packed parity-major channels -> parity-batched lattices: (B, d, h, w,
-    8c) -> (8B, d, h, w, c) with new batch b*8 + parity.  The stage-A /
-    stage-B boundary relayout: K5 (:func:`~flypylib_tpu_torch.ops.split.
-    parity_split_kernel`) on a CUDA tensor, its plain version on a CPU one."""
-    return parity_split_kernel(x)
-
-
 def parity_unbatch(x: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`parity_batch`: (8B, d, h, w, c) -> (B, d, h, w, 8c)."""
     b8, d, h, w, c = x.shape
     x = x.reshape(b8 // 8, 8, d, h, w, c).permute(0, 2, 3, 4, 1, 5)
     return x.reshape(b8 // 8, d, h, w, 8 * c)
+
+
+class ParityBatch(torch.autograd.Function):
+    """:func:`parity_batch` with a gradient (the reference's
+    ``_mk_parity_vjp(_parity_batch_impl, _parity_unbatch_impl)``,
+    ``packed_conv.py:197-235``).  Forward: K5 (``parity_split_kernel``, its
+    plain version on the CPU), which writes a fresh tensor that autograd
+    cannot see into.  Backward: the inverse relayout,
+    ``parity_unbatch(g).contiguous()``; the reference's backward is an XLA
+    transpose, not a Pallas kernel, so this is no kernel either."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return parity_split_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return parity_unbatch(g).contiguous()
+
+
+def parity_batch(x: torch.Tensor) -> torch.Tensor:
+    """Packed parity-major channels -> parity-batched lattices: (B, d, h, w,
+    8c) -> (8B, d, h, w, c) with new batch b*8 + parity.  The stage-A /
+    stage-B boundary relayout: K5 (:func:`~flypylib_tpu_torch.ops.split.
+    parity_split_kernel`) on a CUDA tensor, its plain version on a CPU one;
+    through :class:`ParityBatch` when grad is enabled."""
+    if torch.is_grad_enabled():
+        return ParityBatch.apply(x)
+    return parity_split_kernel(x)
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -232,6 +258,16 @@ class PackedConvStack(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, S, 1) -> (B, S - 2 context, ..., 1) f32 logits."""
+        return self.apply_stage_b(self.apply_stage_a(x))
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable packed forward (the reference's
+        ``forward_train``, ``packed_conv.py:412-431``): stage A and stage B
+        with the f32 logits, K5 through :class:`ParityBatch`.  The packed
+        rewrite re-associates the plain stack's multiply-adds exactly, so
+        its gradient optimizes the same objective up to rounding, on the
+        inner module's parameters (an optimizer over ``inner.parameters()``
+        trains what the inference engine reads)."""
         return self.apply_stage_b(self.apply_stage_a(x))
 
 

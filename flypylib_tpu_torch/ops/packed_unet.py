@@ -22,12 +22,13 @@ Counterpart of ``flypylib_tpu/ops/packed_unet.py`` (inference only):
 All rewrites re-associate the same multiply-adds, so outputs match
 ``UNetValid`` to accumulation tolerance.  :func:`packed_unet_spec` exports
 the packed model's stricter size constraints as a drop-in ``ModelSpec``.
+:meth:`PackedUNet.forward_train` is the differentiable forward (unfused
+tail, f32 logits, the pool's gradient that of the plain ``UNetValid``).
 
-Left out of the reference: training (``forward_train``, the exact-gradient
-pool), optimization barriers, the Pallas block shape, the ``fold_form``
-A/B forms (the port runs the reference's default, ``"split"``), and the
-batch-1 restriction of the kernel tails with its XLA fallback: the port's
-kernels take a batch axis, so every batch runs them.
+Left out of the reference: optimization barriers, the Pallas block shape,
+the ``fold_form`` A/B forms (the port runs the reference's default,
+``"split"``), and the batch-1 restriction of the kernel tails with its XLA
+fallback: the port's kernels take a batch axis, so every batch runs them.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ import functools
 import torch
 from torch import nn
 
-from flypylib_tpu_torch.models.zoo import ModelSpec, UNetValid, _probe_geometry
-from flypylib_tpu_torch.ops.conv import no_tf32
+from flypylib_tpu_torch.models.zoo import (ModelSpec, UNetValid, WindowMax,
+                                           _probe_geometry)
+from flypylib_tpu_torch.ops.conv import matmul_f32, no_tf32
 from flypylib_tpu_torch.ops.packed_conv import (
     _conv,
     convT_packed_weight,
@@ -62,20 +64,28 @@ __all__ = [
 TAIL_IMPLS = ("xla", "pallas", "pallas_fold", "pallas2", "pallas_fold2")
 
 
-def parity_group_max(x: torch.Tensor) -> torch.Tensor:
+def parity_group_max(x: torch.Tensor, grad_exact: bool = False) -> torch.Tensor:
     """(B, D, H, W, 8C) packed -> (B, D, H, W, C): max over the parity
-    groups == 2^3 stride-2 max-pool of the (even-extent) full-res tensor."""
+    groups == 2^3 stride-2 max-pool of the (even-extent) full-res tensor.
+    The parity groups are in window order (z, y, x row-major), so with
+    ``grad_exact`` the max goes through :class:`~flypylib_tpu_torch.models.
+    zoo.WindowMax` and its gradient is the plain pool's."""
     b, d, h, w, c8 = x.shape
-    return x.reshape(b, d, h, w, 8, c8 // 8).amax(dim=4)
+    x = x.reshape(b, d, h, w, 8, c8 // 8)
+    return WindowMax.apply(x) if grad_exact else x.amax(dim=4)
 
 
-def pool_pack(x: torch.Tensor) -> torch.Tensor:
+def pool_pack(x: torch.Tensor, grad_exact: bool = False) -> torch.Tensor:
     """``pack_volume(parity_group_max(x))``: the U-Net's per-level pool and
-    repack (the reference's inference form; max is exact, so every form
-    gives the same values)."""
+    repack.  Every form gives the same values (max is exact); they differ in
+    the gradient of a tie.  ``grad_exact=True`` (:meth:`PackedUNet.
+    forward_train`) gives the whole gradient to the first maximum in window
+    order, as the plain ``UNetValid``'s pool and Flax's ``nn.max_pool`` do.
+    (The reference's ``grad_exact`` form is a reduce-max, whose gradient
+    splits a positive tie evenly, unlike its own plain pool.)"""
     if any(s % 2 for s in x.shape[1:4]):
         raise ValueError(f"pool_pack needs even cell dims, got {tuple(x.shape)}")
-    return pack_volume(parity_group_max(x))
+    return pack_volume(parity_group_max(x, grad_exact))
 
 
 def crop_packed(x: torch.Tensor, starts, sizes) -> torch.Tensor:
@@ -180,6 +190,27 @@ class PackedUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, S, 1) -> (B, S - 2 context, ..., 1) f32 logits."""
+        return self._forward(x)
+
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable packed forward (the reference's
+        ``forward_train``, ``packed_unet.py:240-257``): the same
+        re-association as :meth:`forward` with the unfused (``"xla"``) tail
+        at every level, the pool's gradient that of the plain ``UNetValid``
+        (``pool_pack(grad_exact=True)``) and the f32 logits (a grouped f32
+        dot, not the hi/lo split weight).  The ConvTranspose folds and the
+        packed weights are built from the inner module's parameters inside
+        the graph, so gradients reach them.  A kernel tail (``"pallas*"``)
+        raises: the kernels have no backward, and the reference trains such
+        a spec through the unfused tail (``train/trainer.py::
+        resolve_train_spec`` swaps one in)."""
+        if self.tail_impl != "xla":
+            raise ValueError(
+                f"PackedUNet.forward_train runs the unfused tail; tail_impl="
+                f"{self.tail_impl!r} has no backward (use tail_impl='xla')")
+        return self._forward(x, train=True)
+
+    def _forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         inner = self.inner
         dt = self.dtype
         cps = inner.convs_per_stage
@@ -191,7 +222,7 @@ class PackedUNet(nn.Module):
                 x = packed_conv_relu(x, inner.convs[conv_i])
                 conv_i += 1
             skips.append(x)
-            x = pool_pack(x)
+            x = pool_pack(x, grad_exact=train)
         for _ in range(cps):  # bottleneck, one lattice deeper than the skip
             x = packed_conv_relu(x, inner.convs[conv_i])
             conv_i += 1
@@ -205,7 +236,7 @@ class PackedUNet(nn.Module):
             sizes = [2 * x.shape[i] for i in (1, 2, 3)]
             starts = [skip.shape[i] - x.shape[i] for i in (1, 2, 3)]
             sc = crop_packed(skip, starts, sizes)
-            impl = self.tail_impl if lev == 0 else "xla"
+            impl = self.tail_impl if lev == 0 and not train else "xla"
             if impl in ("pallas2", "pallas_fold2"):
                 stage0 = (w_skip.to(dt), w_up_eff.to(dt), b_fold.to(dt))
                 if impl == "pallas2":
@@ -232,6 +263,13 @@ class PackedUNet(nn.Module):
                 conv_i += 1
             if lev > 0:
                 x = unpack_volume(x)  # dense input of the next fold
+        if train:
+            # f32 logits per parity group: (B, D, H, W, 8, C) @ (C, 1)
+            lg = inner.logits
+            b, d, h, w, c8 = x.shape
+            xg = x.reshape(b, d, h, w, 8, c8 // 8)
+            y = matmul_f32(xg, lg.weight)[..., 0] + lg.bias.float()
+            return unpack_volume(y)
         return unpack_volume(logits_reference(x, *self._logits_operands()))
 
 

@@ -592,3 +592,94 @@ def test_streaming_on_the_card_equals_the_cpu(cuda, packed):
         for c, r in zip(run, got["cuda"][0]):
             np.testing.assert_array_equal(c.locs, r.locs)
             np.testing.assert_array_equal(c.conf, r.conf)
+
+
+# -- training: the autograd Functions of K1 and K5, one step card vs CPU ----
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ci,co,d", [(1, 24, 1), (24, 32, 1), (32, 48, 2)])
+def test_k1_function_gradients_match_autograd_of_plain(cuda, ci, co, d,
+                                                       dtype, tol):
+    """K1's Function (the kernel forward, library conv gradients backward)
+    against autograd through ``conv3d_reference`` on the same card tensors:
+    per tensor max |err| <= tol max |ref| (f32: both sum in f32 in other
+    orders; bf16: the Function's backward convs round to bf16 once, the
+    plain version's autograd runs f32 convs)."""
+    from flypylib_tpu_torch.ops.conv import Conv3dBiasReLU
+
+    x, w, b = _inputs((11, 12, 13), ci, co, batch=2, seed=ci + co)
+    x = x.to(dtype).to(cuda)
+    dy = torch.randn((2, 11 - 2 * d, 12 - 2 * d, 13 - 2 * d, co),
+                     generator=torch.Generator().manual_seed(0)).to(dtype)
+    res = []
+    for fn in (Conv3dBiasReLU.apply, conv3d_reference):
+        xs = x.clone().requires_grad_(ci > 1)
+        ws = w.to(cuda).requires_grad_(True)
+        bs = b.to(cuda).requires_grad_(True)
+        before = conv3d_bias_relu.launches
+        y = fn(xs, ws, bs, d)
+        y.backward(dy.to(cuda))
+        torch.cuda.synchronize()
+        res.append((conv3d_bias_relu.launches - before, xs.grad, ws.grad,
+                    bs.grad))
+    (n1, *got), (n0, *want) = res
+    assert (n1, n0) == (1, 0)  # the kernel forward, no launch backward
+    for g, r in zip(got, want):
+        assert (g is None) == (r is None)
+        if r is not None:
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= tol * float(r.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k5_function_backward_on_the_card(cuda, dtype):
+    """``parity_batch`` with grad enabled: K5 forward (one launch), the
+    inverse permutation backward, bit for bit the CPU's."""
+    from flypylib_tpu_torch.ops.packed_conv import parity_batch, parity_unbatch
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 6, 5, 7, 64)).astype(
+        np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(0, 1, (16, 6, 5, 7, 8)).astype(
+        np.float32)).to(dtype)
+    xs = x.to(cuda).requires_grad_(True)
+    before = parity_split_kernel.launches
+    y = parity_batch(xs)
+    y.backward(g.to(cuda))
+    torch.cuda.synchronize()
+    assert parity_split_kernel.launches == before + 1
+    assert torch.equal(y.detach().cpu(), parity_split_reference(x))
+    assert torch.equal(xs.grad.cpu(), parity_unbatch(g))
+
+
+@pytest.mark.parametrize("model,engine", [("baseline", "plain"),
+                                          ("baseline", "packed"),
+                                          ("unet", "plain"),
+                                          ("unet", "packed")])
+def test_one_train_step_on_the_card_matches_the_cpu(cuda, model, engine):
+    """One step's loss and gradients (f32, narrow widths) on the card
+    against the CPU's plain path with the same weights and batch, within
+    ``chip_smoke.grad_tol``; every parameter has a gradient, and the step
+    launched K1 on every conv (plain) or K5 once (packed baseline)."""
+    from flypylib_tpu_torch.models.zoo import baseline_model, unet
+
+    make = {"baseline": lambda: baseline_model(
+                features=(8, 16, 16, 24), head_features=16,
+                dtype=torch.float32),
+            "unet": lambda: unet(base_features=8, dtype=torch.float32)}[model]
+    cpu, gpu = make(), make()
+    gpu.module.to(cuda)
+    patch = 26 if model == "baseline" else chip_smoke.grad_patch("unet",
+                                                                cpu)[0]
+    batch = chip_smoke.grad_batch(2, 2, patch, cpu.context)
+    l_cpu, g_cpu, _ = chip_smoke.train_grads(cpu, engine, batch, "cpu")
+    l_gpu, g_gpu, launches = chip_smoke.train_grads(gpu, engine, batch, "cuda")
+    errs = chip_smoke.grad_errors(g_gpu, g_cpu)
+    assert all(g is not None for g in g_gpu.values())
+    assert chip_smoke.grads_ok(errs, chip_smoke.grad_tol(
+        model, engine, torch.float32)), errs
+    assert abs(l_gpu - l_cpu) <= chip_smoke.LOSS_RTOL[torch.float32] * l_cpu
+    want = chip_smoke.grad_launch_want(model, engine, torch.float32)
+    assert launches == {k: want.get(k, 0) for k in launches}
