@@ -36,9 +36,12 @@ from flypylib_tpu_torch.utils import ceil_div, to3d
 class TiledInference:
     def __init__(self, spec: ModelSpec, tile_out: int = 64, tile_batch: int = 1,
                  pad_mode: str = "reflect"):
-        """``pad_mode`` is the ``np.pad`` mode of the context halo
-        (``"reflect"``, a monolithic run's), or ``"none"``: the volume
-        passed to :meth:`infer` is already padded."""
+        """``pad_mode`` is ``"reflect"`` (the context halo is reflected, as
+        in a monolithic run) or ``"none"`` (the volume passed to
+        :meth:`infer` is already padded)."""
+        if pad_mode not in ("reflect", "none"):
+            raise ValueError(
+                f"pad_mode must be 'reflect' or 'none', got {pad_mode!r}")
         self.spec = spec
         self.pad_mode = pad_mode
         ctx = spec.context
@@ -102,7 +105,7 @@ class TiledInference:
             padded = vol
         else:
             shape = vol.shape
-            padded = np.pad(vol, c, mode=self.pad_mode) if c else vol
+            padded = np.pad(vol, c, mode="reflect") if c else vol
         corners, out_shape = self.plan(shape)
         padded = np.pad(padded, [(0, os - s) for s, os in zip(shape, out_shape)])
 

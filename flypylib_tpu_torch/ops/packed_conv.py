@@ -260,15 +260,14 @@ class PackedConvStack(nn.Module):
         """(B, S, S, S, 1) -> (B, S - 2 context, ..., 1) f32 logits."""
         return self.apply_stage_b(self.apply_stage_a(x))
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
-        """The differentiable packed forward (the reference's
-        ``forward_train``, ``packed_conv.py:412-431``): stage A and stage B
-        with the f32 logits, K5 through :class:`ParityBatch`.  The packed
-        rewrite re-associates the plain stack's multiply-adds exactly, so
-        its gradient optimizes the same objective up to rounding, on the
-        inner module's parameters (an optimizer over ``inner.parameters()``
-        trains what the inference engine reads)."""
-        return self.apply_stage_b(self.apply_stage_a(x))
+    # The differentiable packed forward (the reference's ``forward_train``,
+    # ``packed_conv.py:412-431``) is the forward itself: stage A and stage B
+    # with the f32 logits, K5 through :class:`ParityBatch`.  The packed
+    # rewrite re-associates the plain stack's multiply-adds exactly, so its
+    # gradient optimizes the same objective up to rounding, on the inner
+    # module's parameters (an optimizer over ``inner.parameters()`` trains
+    # what the inference engine reads).
+    forward_train = forward
 
 
 def _packed_out_size(s: int, dilations: tuple[int, ...]) -> int | None:

@@ -660,9 +660,11 @@ def test_k5_function_backward_on_the_card(cuda, dtype):
                                           ("unet", "packed")])
 def test_one_train_step_on_the_card_matches_the_cpu(cuda, model, engine):
     """One step's loss and gradients (f32, narrow widths) on the card
-    against the CPU's plain path with the same weights and batch, within
-    ``chip_smoke.grad_tol``; every parameter has a gradient, and the step
-    launched K1 on every conv (plain) or K5 once (packed baseline)."""
+    against the CPU's plain path with the same weights and batch, by
+    ``chip_smoke.case_ok`` (gradients within ``GRAD_TOL``, the plain
+    engines' CPU step on the card's ReLU masks and pool choices); every
+    parameter has a gradient, and the step launched K1 on every conv
+    (plain) or K5 once (packed baseline)."""
     from flypylib_tpu_torch.models.zoo import baseline_model, unet
 
     make = {"baseline": lambda: baseline_model(
@@ -674,12 +676,8 @@ def test_one_train_step_on_the_card_matches_the_cpu(cuda, model, engine):
     patch = 26 if model == "baseline" else chip_smoke.grad_patch("unet",
                                                                 cpu)[0]
     batch = chip_smoke.grad_batch(2, 2, patch, cpu.context)
-    l_cpu, g_cpu, _ = chip_smoke.train_grads(cpu, engine, batch, "cpu")
-    l_gpu, g_gpu, launches = chip_smoke.train_grads(gpu, engine, batch, "cuda")
-    errs = chip_smoke.grad_errors(g_gpu, g_cpu)
-    assert all(g is not None for g in g_gpu.values())
-    assert chip_smoke.grads_ok(errs, chip_smoke.grad_tol(
-        model, engine, torch.float32)), errs
-    assert abs(l_gpu - l_cpu) <= chip_smoke.LOSS_RTOL[torch.float32] * l_cpu
+    res = chip_smoke.card_vs_cpu(cpu, gpu, engine, batch, own=False)
+    assert all(g is not None for g in res["grads_card"].values())
+    assert chip_smoke.case_ok(res, torch.float32), res["errs"]
     want = chip_smoke.grad_launch_want(model, engine, torch.float32)
-    assert launches == {k: want.get(k, 0) for k in launches}
+    assert res["launches"] == {k: want.get(k, 0) for k in res["launches"]}

@@ -211,3 +211,9 @@ def test_metrics_log_writes_jsonl(tmp_path):
     rows = [json.loads(ln) for ln in path.read_text().splitlines()]
     assert [r["loss"] for r in rows] == [0.5, 0.25]
     assert log.records[1]["epoch"] == 1 and "ts" in log.records[0]
+
+
+def test_pad_mode_takes_reflect_or_none_only():
+    spec = _small_spec("unet")
+    with pytest.raises(ValueError, match="pad_mode"):
+        TiledInference(spec, tile_out=12, tile_batch=2, pad_mode="edge")
