@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile    # also trace detects and train steps
                                        # with torch.profiler
 
+Phase 13 alone (after ``_build.build()``): ``chip_smoke.bn_roi_phase(
+chip_smoke.import_port(), chip_smoke.card())``.
+
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
@@ -147,6 +150,36 @@ prints no result line):
    into sampling + augment, forward, loss + backward and Adam; whether the
    card agrees with the crossover at 96; the same-seed difference of two
    fits (reported, not required).
+13. BatchNorm models, resumable ROI streaming, host-streamed tiling.
+   (a) K1 with ``relu=False`` (a BatchNorm layer's conv) against its plain
+   version at the baseline's four layer shapes under phase 3's limits, on
+   all four routes (bf16 "wgmma" and "ci1", f32 "fma" and "ci1", bf16 with
+   the input off a 16-byte boundary on "wmma"); on each route the clamped
+   output must fail the same check.  (b) The full-width BatchNorm baseline
+   (``ConvStack(use_batchnorm=True)``, seed-0 conv weights, running
+   statistics and affine from a seeded calibration, ``bn_state``): the
+   48^3 maps, plain and packed, card against CPU under phase 7's and 8's
+   limits; the 256^3 ``infer`` and both ``detect`` methods on the packed
+   engine (BatchNorm folded into the epilogue, K5 once per tile batch) and
+   the plain one (K1 relu=False, per-route counts exact), lists equal to the
+   host reference.  (c) One f32 and one bf16 train step of it ("auto" ->
+   plain) on the card and on the CPU, the CPU on the card's branch points
+   (the ReLUs after BatchNorm), both held to an f64 truth on those branch
+   points: each of the card's gradients within BN_TRUTH_RATIO times the
+   CPU's own distance or GRAD_TOL, whichever is larger (BatchNorm's
+   backward shrinks the gradient 30-45x below the last layer, so two f32
+   steps lie further apart than 12(a)'s 1e-4; TF32 in the card's step must
+   fail); the running statistics after the step (f32 within
+   BN_STATS_RTOL); then three timed epochs of b32 at patch 33 beside
+   12(c)'s plain b32.  (d) ``stream_rois`` over the 8 ROIs of a
+   512^3 volume served by a mock DVID node on 127.0.0.1, through the
+   packed baseline's ``DetectPipeline`` with ``dvid_source``,
+   ``dvid_sink`` and a state file: each ROI equal to ``detect`` at the same
+   tiling, the POSTs those lists in global coordinates, a second call
+   doing nothing, a run stopped after 3 ROIs then resumed POSTing the same
+   union; Mvox/s per ROI and in total.  (e) ``infer(host_stream=True)``
+   bit for bit the whole-volume upload's map at 256^3, packed baseline and
+   plain U-Net, both times printed.
 
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
@@ -166,7 +199,9 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, HTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -2157,9 +2192,10 @@ def train_grads(spec, engine: str, batch, device: str):
 def grad_decisions(module, ref: dict | None = None,
                    zero_dw: int | None = None):
     """Within the block, the steps of a plain model (``ConvStack`` or
-    ``UNetValid``) keep its branch points in the dict it yields: every K1
-    layer's post-ReLU output ("y", its mask y > 0) and every pool's windows
-    ("win", their first maxima).  Given ``ref``, another run's dict, each
+    ``UNetValid``) keep its branch points in the dict it yields: every body
+    ReLU's output ("y", its mask y > 0: K1's own, or for a BatchNorm stack
+    the ReLU after each BatchNorm, K1 running without one) and every pool's
+    windows ("win", their first maxima).  Given ``ref``, another run's dict, each
     backward takes its ReLU mask and first maxima from ``ref``: the same
     piecewise-linear function is differentiated on both sides.  The forward
     is the model's own (K1 on a CUDA tensor, the plain version on a CPU one)
@@ -2169,23 +2205,43 @@ def grad_decisions(module, ref: dict | None = None,
     from flypylib_tpu_torch.ops.conv import Conv3dBiasReLU
 
     kept = {"y": [], "win": []}
+    n_conv = [0]
 
     class Conv(Conv3dBiasReLU):
         @staticmethod
-        def forward(ctx, x, w, b, dilation):
-            y = Conv3dBiasReLU.forward(ctx, x, w, b, dilation)
-            ctx.layer = len(kept["y"])
-            if ref is not None:
-                ctx.save_for_backward(x, w, ref["y"][ctx.layer].to(y.device))
-            kept["y"].append(y.detach())
+        def forward(ctx, x, w, b, dilation, relu=True):
+            y = Conv3dBiasReLU.forward(ctx, x, w, b, dilation, relu)
+            ctx.layer = n_conv[0]
+            n_conv[0] += 1
+            if relu:
+                if ref is not None:
+                    ctx.save_for_backward(
+                        x, w, ref["y"][len(kept["y"])].to(y.device))
+                kept["y"].append(y.detach())
             return y
 
         @staticmethod
         def backward(ctx, dy):
-            dx, dw, db, dd = Conv3dBiasReLU.backward(ctx, dy)
+            dx, dw, db, dd, dr = Conv3dBiasReLU.backward(ctx, dy)
             if ctx.layer == zero_dw:
                 dw = torch.zeros_like(dw)
-            return dx, dw, db, dd
+            return dx, dw, db, dd, dr
+
+    class Relu(torch.autograd.Function):
+        """The ReLU after a BatchNorm, its mask y > 0 (or ``ref``'s)."""
+
+        @staticmethod
+        def forward(ctx, z):
+            y = torch.relu(z)
+            mask = (y if ref is None else ref["y"][len(kept["y"])].to(y.device)) > 0
+            ctx.save_for_backward(mask)
+            kept["y"].append(y.detach())
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            (mask,) = ctx.saved_tensors
+            return g * mask
 
     real = zoo.WindowMax
 
@@ -2201,7 +2257,18 @@ def grad_decisions(module, ref: dict | None = None,
 
     convs = list(module.convs)
     for c in convs:
-        c.forward = lambda x, c=c: Conv.apply(x, c.weight, c.bias, c.dilation)
+        c.forward = lambda x, c=c: Conv.apply(x, c.weight, c.bias, c.dilation,
+                                              c.relu)
+    bn = getattr(module, "use_batchnorm", False)
+    if bn:  # ConvStack.forward, its ReLUs after BatchNorm through Relu
+        def forward(x, m=module):
+            x = x.to(m.dtype)
+            for conv, norm in zip(m.convs, m.norms):
+                x = Relu.apply(norm(conv(x)))
+            x = torch.relu(m.head(x, m.dtype))
+            return m.logits(x, torch.float32)
+
+        module.forward = forward
     zoo.WindowMax = Max
     try:
         yield kept
@@ -2209,6 +2276,8 @@ def grad_decisions(module, ref: dict | None = None,
         zoo.WindowMax = real
         for c in convs:
             del c.forward
+        if bn:
+            del module.forward
 
 
 def first_max(win: torch.Tensor) -> torch.Tensor:
@@ -2238,8 +2307,10 @@ def card_vs_cpu(cpu, gpu, engine: str, batch, own: bool = True,
     alone), ``grads_card``.  A plain engine's CPU step takes the card's
     branch points (:func:`grad_decisions`) and also gives ``flips`` (of
     ``decisions``) and, with ``own``, ``errs_own``: the gap to the CPU's
-    step on its own branch points.  ``card_ctx`` (entered around the card's
-    step alone) and ``zero_dw`` break the card's step for a control."""
+    step on its own branch points; ``grads_cpu`` the CPU's gradients and,
+    for a plain engine, ``decisions_card`` the card's branch points.
+    ``card_ctx`` (entered around the card's step alone) and ``zero_dw``
+    break the card's step for a control."""
     res = {}
     plain = engine == "plain"
     with card_ctx(), (grad_decisions(gpu.module, zero_dw=zero_dw) if plain
@@ -2250,7 +2321,8 @@ def card_vs_cpu(cpu, gpu, engine: str, batch, own: bool = True,
           else contextlib.nullcontext()) as cpu_own:
         res["loss_cpu"], g_cpu, _ = train_grads(cpu, engine, batch, "cpu")
     res["errs"] = grad_errors(g_gpu, g_cpu)
-    res["grads_card"] = g_gpu
+    res["grads_card"], res["grads_cpu"] = g_gpu, g_cpu
+    res["decisions_card"] = card
     if plain:
         res["flips"], res["decisions"] = decision_flips(card, cpu_own)
         if own:
@@ -2325,6 +2397,31 @@ def grad_patch(model: str, spec) -> tuple[int, int]:
     return p, UNET_GRAD_BATCH
 
 
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` is ``value`` within the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+@contextlib.contextmanager
+def tf32_on(device):
+    """``ops.conv.no_tf32``'s broken twin for the controls: TF32 allowed."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
 def grad_controls(port, card_str: str) -> None:
     """Three broken gradients must fail 12(a)'s check (:func:`case_ok`):
     K5's output detached (the bare wrapper, whose output autograd cannot
@@ -2334,27 +2431,6 @@ def grad_controls(port, card_str: str) -> None:
     that allows it), the path that runs K1's backward most."""
     from flypylib_tpu_torch.ops import conv, packed_conv
     from flypylib_tpu_torch.ops.split import parity_split_kernel
-
-    @contextlib.contextmanager
-    def patched(obj, name, value):
-        real = getattr(obj, name)
-        setattr(obj, name, value)
-        try:
-            yield
-        finally:
-            setattr(obj, name, real)
-
-    @contextlib.contextmanager
-    def tf32_on(device):
-        old = (torch.backends.cudnn.allow_tf32,
-               torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            yield
-        finally:
-            (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = old
 
     dt = torch.float32
     for what, model, engine, card_ctx, zero_dw in (
@@ -2806,6 +2882,604 @@ def train_phase(port, card_str: str, profile: bool = False) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13, BatchNorm models, K1 without ReLU, resumable ROI streaming from
+# DVID, host-streamed tiling
+BN_SEED = 1          # the BatchNorm statistics' generator and calibration volume
+ROI_VOLUME = 512     # 13(d): the volume the mock DVID node serves ...
+ROI_SIZE = 256       # ... as grid_rois of this edge (8 ROIs)
+ROI_STOP_AFTER = 3   # the interrupted run stops after this many ROIs
+BN_STATS_RTOL = 1e-5  # 13(c): f32 running statistics, card vs CPU, per buffer
+# 13(c): each gradient of the card's BatchNorm step against an f64 truth (on
+# the card's branch points), max |g - g64| / max |g64|, within BN_TRUTH_RATIO
+# times the CPU's own f32 (bf16) step's distance to it, or GRAD_TOL[dtype]
+# if larger.  On an H100 (scripts/probe_bn_grad.py) every conv's f32 weight
+# and input gradient is within 4.7e-06 of f64, yet both f32 steps read
+# 1.4e-04-4.0e-04 from the truth below layer 3 (the CPU's own: 1.4e-04-
+# 4.0e-04, the card's 1.5e-04-2.6e-04): BatchNorm's backward removes each
+# channel's mean and its part along the normalised input, and the gradient
+# that is left falls 30-45x in scale there, so the rounding of the layers
+# above is that much larger beside it.  Card against CPU, two f32 steps,
+# then reads up to 5.1e-04: 12(a)'s 1e-4 holds two sums of one gradient, not
+# this loss of scale.  The ratio is the card's worst over the CPU's, 1.67
+# on that run, with room; TF32 in the card's step must fail it.
+BN_TRUTH_RATIO = 2.0
+BN_TRAIN_STEPS = 100  # 13(c): steps an epoch of the BatchNorm throughput run
+
+
+def bn_state(port) -> dict:
+    """The full-width baseline with BatchNorm (``ConvStack(24/32/48/64,
+    dilations 1/1/2/2, head 96, use_batchnorm=True)``, seed-0 conv weights)
+    as a state dict: each layer's running mean and variance are that
+    layer's statistics over a seeded SMALL^3 calibration volume (raw uint8
+    values, as ``detect`` feeds them), the mean moved by 0.1 standard
+    deviations and the variance scaled by 0.5-1.5, and ``scale`` in
+    0.5-1.5 and ``bias`` ~ 0.2 N(0, 1), all from a generator seeded
+    BN_SEED: a BatchNorm that is not the identity, on activations of the
+    size the layer sees."""
+    zoo = port.models
+    m = zoo.ConvStack(dtype=torch.float32, use_batchnorm=True,
+                      generator=torch.Generator().manual_seed(0))
+    x = make_volume_u8(SMALL, 2, seed=BN_SEED).astype(np.float32)
+    h = torch.from_numpy(x)[None, ..., None]
+    g = torch.Generator().manual_seed(BN_SEED)
+    with torch.no_grad():
+        for conv, norm in zip(m.convs, m.norms):
+            h = conv(h)
+            flat = h.reshape(-1, h.shape[-1])
+            n = flat.shape[1]
+            mean, std = flat.mean(0), flat.std(0)
+            norm.mean.copy_(mean + 0.1 * std * torch.randn(n, generator=g))
+            norm.var.copy_(torch.clamp(std * std, min=1e-3)
+                           * (0.5 + torch.rand(n, generator=g)))
+            norm.scale.copy_(0.5 + torch.rand(n, generator=g))
+            norm.bias.copy_(0.2 * torch.randn(n, generator=g))
+            h = torch.relu(norm(h))
+    return m.state_dict()
+
+
+def bn_spec(port, state: dict, dtype=torch.bfloat16):
+    """A fresh ``ModelSpec`` of the BatchNorm baseline holding ``state``."""
+    zoo = port.models
+    m = zoo.ConvStack(dtype=dtype, use_batchnorm=True)
+    m.load_state_dict(state)
+    return zoo.ModelSpec(name="baseline_bn", module=m, context=6,
+                         min_size=13, metadata={"batchnorm": True})
+
+
+def baseline_layer_cases() -> list:
+    """(label, B, input size, Ci, Co, d) of the baseline's four body layers
+    at ``default_tiling``'s tile and batch for a VOLUME^3 volume."""
+    from flypylib_tpu_torch.infer.tiled import TiledInference, default_tiling
+    from flypylib_tpu_torch.models.zoo import baseline_model
+
+    spec = baseline_model()
+    tile_out, batch = default_tiling(spec, (VOLUME,) * 3)
+    s = TiledInference(spec, tile_out, batch).tile_in
+    cases = []
+    for i, conv in enumerate(spec.module.convs):
+        _, _, _, ci, co = conv.weight.shape
+        cases.append((f"baseline layer {i}", batch, s, ci, co, conv.dilation))
+        s -= 2 * conv.dilation
+    return cases
+
+
+def check_k1_no_relu(card_str: str) -> dict:
+    """13(a): K1 with ``relu=False`` against ``conv3d_reference(relu=False)``
+    at the baseline's layer shapes, phase 3's limits: bf16 on "wgmma"
+    (layers 1-3) and "ci1" (layer 0), f32 on "fma" and "ci1", and bf16
+    layer 1 with the input 2 bytes off a 16-byte boundary on "wmma".  On
+    every route the kernel's clamped output (``relu=True``) must fail the
+    same check.  The bf16 main-route cases are timed beside the plain
+    version: the BatchNorm stack's K1 launches."""
+    from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu,
+                                             conv3d_reference, k1_route)
+
+    gen = torch.Generator(device="cuda").manual_seed(BN_SEED)
+    summed = dict.fromkeys(("ms", "plain_ms", "max_abs_err"), 0.0)
+    routes_seen = set()
+    cases = [(c, dt, False) for c in baseline_layer_cases()
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((cases[2][0], torch.bfloat16, True))  # layer 1, unaligned
+    for (label, B, S, Ci, Co, d), dtype, unaligned in cases:
+        shape = (B, S, S, S, Ci)
+        if Ci == 1:
+            x = torch.randint(0, 256, shape, generator=gen, device="cuda")
+        else:
+            x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+        x = x.to(dtype)
+        if unaligned:  # the same values from an address 2 bytes past 16
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+            buf[1:] = x.reshape(-1)
+            x = buf[1:].view(shape)
+        w = torch.randn((3, 3, 3, Ci, Co), generator=gen,
+                        device="cuda") / math.sqrt(27 * Ci)
+        b = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
+        route = k1_route(x, w)
+        want_route = ("ci1" if Ci == 1 else "fma" if dtype == torch.float32
+                      else "wmma" if unaligned else "wgmma")
+        dt = str(dtype).replace("torch.", "")
+        require(route == want_route, f"K1 relu=False {label} {dt}: route "
+                                     f"{route}, expected {want_route}")
+        got = conv3d_bias_relu(x, w, b, d, relu=False)
+        ref = conv3d_reference(x, w, b, d, relu=False)
+        torch.cuda.synchronize()
+        err, ok = conv_check(got, ref)
+        neg = float((ref < 0).float().mean())
+        clamped = conv3d_bias_relu(x, w, b, d)
+        berr, bok = conv_check(clamped, ref)
+        timed = dtype == torch.bfloat16 and not unaligned
+        if timed:
+            ms = median_ms(lambda: conv3d_bias_relu(x, w, b, d, relu=False))
+            plain = median_ms(lambda: conv3d_reference(x, w, b, d, relu=False))
+            summed["ms"] += ms
+            summed["plain_ms"] += plain
+            summed["max_abs_err"] = max(summed["max_abs_err"], err)
+        print(f"K1 relu=False {label} x{tuple(x.shape)} d={d} {dt} [{route}]: "
+              f"max|err| {err:.6g} {'ok' if ok else 'FAIL'} ({neg:.3f} of the "
+              f"outputs negative); clamped anyway: max|err| {berr:.6g} "
+              f"{'ok' if bok else 'FAIL'} (must fail)"
+              + (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms" if timed else "")
+              + f" [{card_str}]", flush=True)
+        require(ok, f"K1 relu=False {label} {dt} [{route}]: outside "
+                    f"tolerance (max|err| {err})")
+        require(neg > 0 and not bok, f"K1 relu=False {label} {dt}: the "
+                                     "check passes a clamped output")
+        routes_seen.add(route)
+        del x, w, b, got, ref, clamped
+    require(routes_seen == {"wgmma", "wmma", "ci1", "fma"},
+            f"K1 relu=False ran on {sorted(routes_seen)} only")
+    torch.cuda.empty_cache()
+    return summed
+
+
+def check_bn_paths(port, card_str: str, state: dict, vol: np.ndarray) -> dict:
+    """13(b): the BatchNorm baseline's 48^3 maps, plain (K1 relu=False) and
+    packed (folded BatchNorm, K5), card against the CPU under phase 7's
+    and 8's limits; then at bf16 on the 256^3 volume ``infer`` and both
+    ``detect`` methods on each engine, launches counted and the lists held
+    to the host reference (``run_main_path``)."""
+    for packed, limits in (
+            (False, ((torch.float32, LOGIT_TOL_F32),
+                     (torch.bfloat16, LOGIT_TOL_BF16))),
+            (True, ((torch.float32, PACKED_LOGIT_TOL_F32),
+                    (torch.bfloat16, PACKED_LOGIT_TOL_BF16)))):
+        check_map(card_str, "packed baseline_bn" if packed else "baseline_bn",
+                  lambda dev, dt, p=packed: port.FplNetwork(
+                      bn_spec(port, state, dt), device=dev, packed=p),
+                  make_volume_u8(SMALL, 2, seed=1), SMALL_TILING, limits)
+    runs = {}
+    for packed in (True, False):
+        net = port.FplNetwork(bn_spec(port, state), device="cuda",
+                              packed=packed)
+        name = "packed baseline_bn" if packed else "plain baseline_bn"
+        require(net.infer_spec.name == ("baseline_bn+packed" if packed
+                                        else "baseline_bn")
+                and not net.module.training, f"{name}: {net.infer_spec.name}")
+        r = run_main_path(net, vol)
+        nb = r["n_batches"]
+        require_launches(r, {"parity_split_kernel": nb} if packed else
+                         {"conv3d_bias_relu": 4 * nb,
+                          "conv3d_bias_relu:wgmma": 3 * nb,
+                          "conv3d_bias_relu:ci1": nb}, name)
+        print(f"{name}: {nb} tile batches, launches {r['launches']}; "
+              f"threshold {r['threshold']:.9g} ({r['above_threshold']} voxels "
+              f"above); nms {r['n_nms']} detections, components {r['n_cc']}; "
+              "both equal the host reference", flush=True)
+        r["times"] = time_main_path(net, vol, r["threshold"], card_str, name)
+        runs[name] = r
+        del net
+        torch.cuda.empty_cache()
+    return runs
+
+
+def bn_f64_grads(state: dict, batch, masks) -> dict:
+    """Loss gradients of the BatchNorm baseline (``state``) in f64 autograd
+    on the CPU, its body ReLUs on ``masks`` (a run's ``grad_decisions``
+    "y"): the truth 13(c) holds both f32 steps to."""
+    from flypylib_tpu_torch.ops.augment import augment_batch
+
+    F = torch.nn.functional
+    P = {k: v.double().clone().requires_grad_(not k.endswith(("mean", "var")))
+         for k, v in state.items()}
+    x, y, m, codes = (torch.from_numpy(a) for a in batch)
+    x, y, m = (augment_batch(v.double(), codes) for v in (x, y, m))
+    h = x[..., None]
+    for i, d in enumerate((1, 1, 2, 2)):
+        w = P[f"convs.{i}.weight"]
+        h = F.conv3d(h.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                     dilation=d).permute(0, 2, 3, 4, 1) + P[f"convs.{i}.bias"]
+        mu = h.mean((0, 1, 2, 3))
+        var = torch.clamp((h * h).mean((0, 1, 2, 3)) - mu * mu, min=0.0)
+        h = ((h - mu) * (torch.rsqrt(var + 1e-5) * P[f"norms.{i}.scale"])
+             + P[f"norms.{i}.bias"])
+        h = h * (masks[i].cpu() > 0)
+    h = torch.relu(h @ P["head.weight"] + P["head.bias"])
+    lg = (h @ P["logits.weight"] + P["logits.bias"])[..., 0]
+    bce = -y * F.logsigmoid(lg) - (1 - y) * F.logsigmoid(-lg)
+    ((bce * m).sum() / m.sum().clamp(min=1)).backward()
+    return {k: p.grad for k, p in P.items() if p.grad is not None}
+
+
+def bn_truth_errors(grads: dict, g64: dict) -> dict:
+    """Per parameter max |g - g64| / max |g64|; a body conv's bias, whose
+    true gradient is 0 (the train-mode BatchNorm after it removes any
+    per-channel constant), against its kernel's max |g64| instead; inf
+    where a gradient is missing or not finite."""
+    errs = {}
+    for name, t in g64.items():
+        g = grads.get(name)
+        if g is None or not bool(torch.isfinite(g).all()):
+            errs[name] = math.inf
+            continue
+        scale = g64[name.replace(".bias", ".weight")] if (
+            name.startswith("convs.") and name.endswith(".bias")) else t
+        errs[name] = float((g.double() - t).abs().max()
+                           / scale.abs().max())
+    return errs
+
+
+def bn_step_ok(res: dict, dtype) -> bool:
+    """13(c)'s check: every gradient within max(GRAD_TOL, BN_TRUTH_RATIO x
+    the CPU's own distance) of the f64 truth, the loss within LOSS_RTOL of
+    the CPU's, the branch points within DECISION_FLIP_FRAC."""
+    card, cpu = res["truth_card"], res["truth_cpu"]
+    dl = abs(res["loss_card"] - res["loss_cpu"]) / abs(res["loss_cpu"])
+    return all(card[n] <= max(GRAD_TOL[dtype], BN_TRUTH_RATIO * cpu[n])
+               for n in card) and dl <= LOSS_RTOL[dtype] and (
+        res["flips"] <= DECISION_FLIP_FRAC[dtype] * res["decisions"])
+
+
+def bn_step(port, state: dict, dtype, batch, card_ctx=contextlib.nullcontext):
+    """One BatchNorm train step card against CPU (``card_vs_cpu``, the CPU
+    on the card's branch points) and both against :func:`bn_f64_grads`:
+    ``card_vs_cpu``'s result plus ``truth_card`` / ``truth_cpu``
+    (:func:`bn_truth_errors`) and ``stats`` (each running buffer after the
+    step, max |card - CPU| / max |CPU|)."""
+    cpu, gpu = bn_spec(port, state, dtype), bn_spec(port, state, dtype)
+    gpu.module.to("cuda")
+    res = card_vs_cpu(cpu, gpu, "plain", batch, own=False, card_ctx=card_ctx)
+    g64 = bn_f64_grads(state, batch, res["decisions_card"]["y"])
+    res["truth_card"] = bn_truth_errors(res["grads_card"], g64)
+    res["truth_cpu"] = bn_truth_errors(res["grads_cpu"], g64)
+    res["stats"] = {
+        k: float((b_gpu.cpu() - b_cpu).abs().max()) / float(b_cpu.abs().max())
+        for (k, b_gpu), (_, b_cpu) in zip(gpu.module.named_buffers(),
+                                          cpu.module.named_buffers())}
+    del res["decisions_card"]
+    return res
+
+
+def check_bn_training(port, card_str: str, state: dict,
+                      plain_b32: dict) -> dict:
+    """13(c): one f32 and one bf16 step of the BatchNorm baseline on the
+    plain engine ("auto" resolves to it), card against the CPU on the
+    card's branch points (12(a)'s ``card_vs_cpu``) and both against an f64
+    truth (:func:`bn_step_ok`), TF32 in the card's f32 step a control that
+    must fail; the running statistics after the step, card against CPU
+    (f32 to BN_STATS_RTOL); then BENCH_EPOCHS timed epochs of b32 at patch
+    33 beside 12(c)'s plain b32 (``plain_b32``: its median and per-epoch
+    rates)."""
+    from flypylib_tpu_torch.ops import conv
+    from flypylib_tpu_torch.train.trainer import (TrainConfig, TrainData,
+                                                  Trainer, make_train_step,
+                                                  resolve_engine)
+
+    out = {"launches_per_step": {}}
+    batch = grad_batch(GRAD_SEEDS[0], GRAD_BATCH, GRAD_PATCH, 6)
+    require(resolve_engine(bn_spec(port, state), TrainConfig(
+        batch_size=GRAD_BATCH)) == "plain",
+        "a BatchNorm stack's auto engine is not plain")
+    for dtype in (torch.float32, torch.bfloat16):
+        res = bn_step(port, state, dtype, batch)
+        dt = str(dtype).replace("torch.", "")
+        want = grad_launch_want("baseline", "plain", dtype)
+        seen = {k: v for k, v in res["launches"].items() if v}
+        card, cpu = res["truth_card"], res["truth_cpu"]
+        worst = max(card, key=lambda n: card[n] / max(
+            GRAD_TOL[dtype], BN_TRUTH_RATIO * cpu[n]))
+        vs_cpu = max(res["errs"], key=res["errs"].get)
+        print(f"BN train step {dt}, plain, batch {GRAD_BATCH}, patch "
+              f"{GRAD_PATCH}: loss card {res['loss_card']:.9g} CPU "
+              f"{res['loss_cpu']:.9g}; against the f64 truth, card worst "
+              f"{max(card.values()):.3g}, CPU worst {max(cpu.values()):.3g}; "
+              f"closest to its limit {worst} card {card[worst]:.3g} CPU "
+              f"{cpu[worst]:.3g} (limit max({GRAD_TOL[dtype]:g}, "
+              f"{BN_TRUTH_RATIO:g} x CPU)); card vs CPU worst {vs_cpu} "
+              f"{res['errs'][vs_cpu]:.3g}; {res['flips']} of "
+              f"{res['decisions']} branch points differ; running stats max "
+              f"rel {max(res['stats'].values()):.3g}"
+              f"{f' (limit {BN_STATS_RTOL:g})' if dtype == torch.float32 else ''}"
+              f"; launches {seen} [{card_str}]", flush=True)
+        require(bn_step_ok(res, dtype), f"BN train step {dt}: the card's "
+                f"gradients {card} against the CPU's {cpu}")
+        require(seen == want, f"BN train step {dt}: launches {seen}, "
+                              f"expected {want}")
+        if dtype == torch.float32:
+            require(max(res["stats"].values()) <= BN_STATS_RTOL,
+                    f"BN running statistics, card vs CPU: {res['stats']}")
+        out["launches_per_step"][f"bn baseline plain {dt}"] = seen
+        out[dt] = {k: res[k] for k in ("truth_card", "truth_cpu", "errs",
+                                       "stats")}
+    bad = bn_step(port, state, torch.float32, batch,
+                  card_ctx=lambda: patched(conv, "no_tf32", tf32_on))
+    print(f"BN gradient control (TF32 on in the card's step), f32: card worst "
+          f"{max(bad['truth_card'].values()):.3g} against the f64 truth, CPU "
+          f"worst {max(bad['truth_cpu'].values()):.3g} "
+          f"{'passes' if bn_step_ok(bad, torch.float32) else 'fails'} (must "
+          f"fail) [{card_str}]", flush=True)
+    require(not bn_step_ok(bad, torch.float32),
+            "BN gradient control (TF32 on) passed the gradient check")
+    # throughput: BENCH_EPOCHS epochs of b32 at patch 33, bench_train's way
+    rng = np.random.default_rng(0)
+    size = TRAIN_VOLUME
+    image = rng.integers(0, 256, (size,) * 3).astype(np.uint8)
+    labels = (rng.random((size,) * 3) > 0.999).astype(np.float32)
+    mask = np.ones((size,) * 3, np.float32)
+    spec = bn_spec(port, state)
+    cfg = TrainConfig(patch_size=33, batch_size=32, augment=True,
+                      steps_per_epoch=BN_TRAIN_STEPS)
+    tr = Trainer(spec, cfg, seed=0, device="cuda")
+    _, train_steps, pvox = make_train_step(spec, cfg)
+    data = TrainData.build(image, labels, mask, pvox, device="cuda")
+    st = tr.init_state()
+    n = BN_TRAIN_STEPS
+    reset_launch_counts()
+    float(train_steps(st, tr.generator, data, n)["loss"])  # warm-up
+    per_step = {k: v / n for k, v in launch_counts().items() if v}
+    times = []
+    for _ in range(BENCH_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(train_steps(st, tr.generator, data, n)["loss"])
+        times.append(time.perf_counter() - t0)
+    mvox = sorted(n * 32 * pvox**3 / t / 1e6 for t in times)
+    med = statistics.median(mvox)
+    out["train_bn_patch_mvox_s"] = med
+    out["train_bn_patch_mvox_s_all"] = mvox
+    require(not tr.module.training, "the trainer left the module in train mode")
+    print(f"train_bn (plain, batch 32, patch {pvox}, {n} steps an epoch): "
+          f"train_bn_patch_mvox_s min {mvox[0]:.3f} median {med:.3f} max "
+          f"{mvox[-1]:.3f}; beside 12(c)'s plain b32 train_patch_mvox_s "
+          f"median {plain_b32['median']:.3f} (epochs "
+          f"{', '.join(f'{v:.3f}' for v in plain_b32['all'])}); launches "
+          f"per step {per_step} [{card_str}]", flush=True)
+    out["launches_per_step"]["bench train_bn"] = per_step
+    del tr, data, st, spec
+    torch.cuda.empty_cache()
+    return out
+
+
+class DVIDMock(BaseHTTPRequestHandler):
+    """A DVID node in this process: ``raw/0_1_2`` GETs cut the class's
+    uint8 ``volume``, ``elements`` POSTs are kept in ``posted``."""
+
+    volume: np.ndarray = None
+    posted: list = []
+
+    def log_message(self, *a):
+        pass
+
+    def do_GET(self):
+        parts = self.path.strip("/").split("/")
+        if "raw" not in parts:
+            self.send_response(404)
+            self.end_headers()
+            return
+        i = parts.index("raw")
+        sx, sy, sz = map(int, parts[i + 2].split("_"))
+        ox, oy, oz = map(int, parts[i + 3].split("_"))
+        data = np.ascontiguousarray(
+            self.volume[oz:oz + sz, oy:oy + sy, ox:ox + sx]).tobytes()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length", 0))
+        DVIDMock.posted.append(json.loads(self.rfile.read(n)))
+        self.send_response(200)
+        self.end_headers()
+
+
+class StopStream(Exception):
+    """Raised by 13(d)'s progress callback to stop a run part way."""
+
+
+def posted_locs() -> set:
+    """The (z, y, x) of every element POSTed to the mock so far."""
+    return {tuple(el["Pos"][::-1]) for batch in DVIDMock.posted
+            for el in batch}
+
+
+def check_roi_streaming(port, card_str: str) -> dict:
+    """13(d): ``stream_rois`` over ``grid_rois((ROI_VOLUME,)*3, ROI_SIZE)``
+    through the packed baseline's ``DetectPipeline``, fetching by
+    ``dvid_source`` from and posting by ``dvid_sink`` to an in-process mock
+    DVID node on 127.0.0.1, with a ``state_path``.  Each ROI's list must
+    equal ``detect`` of that ROI's scaled volume at the same tiling (the
+    ROIs do not overlap, so each owns its whole box); the POSTs must be
+    those lists in global coordinates; a second call must process nothing;
+    a run stopped after ROI_STOP_AFTER ROIs by a raising ``progress``
+    callback and then resumed must POST the same union."""
+    from flypylib_tpu_torch.infer import (DetectPipeline, dvid_sink,
+                                          dvid_source, grid_rois, stream_rois)
+    from flypylib_tpu_torch.io import DVIDClient
+    from flypylib_tpu_torch.infer.tiled import default_tiling
+
+    t0 = time.perf_counter()
+    DVIDMock.volume = make_volume_u8(ROI_VOLUME, ROI_VOLUME // 16, seed=4)
+    DVIDMock.posted = []
+    t_make = time.perf_counter() - t0
+    srv = HTTPServer(("127.0.0.1", 0), DVIDMock)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    state_dir = ROOT / "build" / "phase13"
+    state_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        client = DVIDClient(f"127.0.0.1:{srv.server_port}", "phase13",
+                            retries=0)
+        rois = grid_rois((ROI_VOLUME,) * 3, ROI_SIZE)
+        require(len(rois) == 8, f"{len(rois)} ROIs")
+        net = port.FplNetwork("baseline", device="cuda", seed=0)
+        shape = rois[0].size
+        tile_out, tile_batch = default_tiling(net.infer_spec, shape)
+        # the operating threshold: the N_CAND-th largest value of ROI 0's map
+        probe = DetectPipeline(net.infer_spec, None, shape, tile_out=tile_out,
+                               tile_batch=tile_batch)
+        first = DVIDMock.volume[:ROI_SIZE, :ROI_SIZE, :ROI_SIZE]
+        prob0 = probe.forward(first)[:ROI_SIZE, :ROI_SIZE, :ROI_SIZE]
+        thr = float(torch.topk(prob0.reshape(-1), N_CAND).values[-1])
+        pipe = DetectPipeline(net.infer_spec, None, shape, tile_out=tile_out,
+                              tile_batch=tile_batch, window=NMS_WINDOW,
+                              threshold=thr, run_cc=False)
+        source, sink = dvid_source(client, "grayscale"), dvid_sink(
+            client, "synapses")
+        infos = []
+        for path in state_dir.glob("*.json"):
+            path.unlink()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stream_rois(pipe, rois, source, sink=sink,
+                          state_path=str(state_dir / "full.json"),
+                          progress=lambda roi, info: infos.append(info))
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = launch_counts()
+        nb = pipe.n_batches
+        want_l = {k: 0 for k in launches}
+        want_l["parity_split_kernel"] = len(rois) * nb
+        require(launches == want_l, f"stream_rois launched {launches}, "
+                                    f"expected {want_l}")
+        require(list(got) == [r.key for r in rois], "ROIs missing")
+        union = set()
+        for roi in rois:
+            cut = DVIDMock.volume[tuple(slice(o, o + s) for o, s in
+                                        zip(roi.offset, roi.size))]
+            ref = net.detect(scaled(cut), threshold=thr, tile_out=tile_out,
+                             tile_batch=tile_batch)
+            same_list(got[roi.key], ref, 0.0,
+                      f"stream_rois ROI {roi.key} vs detect")
+            union |= set(map(tuple, (got[roi.key].locs + np.asarray(
+                roi.offset)).astype(np.int64).tolist()))
+        n_det = sum(len(t) for t in got.values())
+        posted = posted_locs()
+        require(posted == union and sum(len(b) for b in DVIDMock.posted)
+                == n_det, f"the sink POSTed {len(posted)} locations, "
+                          f"the ROIs hold {len(union)}")
+        again = stream_rois(pipe, rois, source, sink=sink,
+                            state_path=str(state_dir / "full.json"))
+        require(again == {}, f"a second call processed {len(again)} ROIs")
+        # stopped after ROI_STOP_AFTER ROIs, then resumed
+        DVIDMock.posted = []
+        done = []
+
+        def stop(roi, info):
+            done.append(roi.key)
+            if len(done) == ROI_STOP_AFTER:
+                raise StopStream(roi.key)
+
+        stopped = False
+        try:
+            stream_rois(pipe, rois, source, sink=sink,
+                        state_path=str(state_dir / "resume.json"),
+                        progress=stop)
+        except StopStream:
+            stopped = True
+        require(stopped, "the progress callback did not stop the run")
+        rest = stream_rois(pipe, rois, source, sink=sink,
+                           state_path=str(state_dir / "resume.json"))
+        require(list(rest) == [r.key for r in rois[ROI_STOP_AFTER:]],
+                f"the resumed run processed {list(rest)}")
+        require(posted_locs() == union, "stopped + resumed POSTs differ from "
+                                        "the full run's")
+        mvox = [int(np.prod(r.size)) / 1e6 / i["seconds"]
+                for r, i in zip(rois, infos)]
+        print(f"stream_rois {ROI_VOLUME}^3 from mock DVID ({len(rois)} ROIs of "
+              f"{ROI_SIZE}^3, packed baseline, tile {tile_out} batch "
+              f"{tile_batch}, threshold {thr:.9g}): {n_det} detections, "
+              f"equal to detect per ROI and POSTed in global coordinates; "
+              f"per ROI Mvox/s " + ", ".join(f"{v:.3f}" for v in mvox)
+              + f"; total {ROI_VOLUME**3 / 1e6 / total:.3f} Mvox/s in "
+              f"{total:.3f} s (fetch and POST included); second call: "
+              f"nothing; stopped after {ROI_STOP_AFTER} and resumed: "
+              f"{len(rest)} more ROIs, the same union (volume made in "
+              f"{t_make:.1f} s) [{card_str}]", flush=True)
+        res = {"launches": launches, "per_roi_mvox_s": mvox,
+               "total_mvox_s": ROI_VOLUME**3 / 1e6 / total, "seconds": total}
+        del net, probe, pipe
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=10)
+        for path in state_dir.glob("*.json"):
+            path.unlink()
+        DVIDMock.volume = None
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_host_stream(port, card_str: str, vol: np.ndarray) -> dict:
+    """13(e): ``infer(host_stream=True)`` against the whole-volume upload,
+    bitwise, at VOLUME^3 for the packed baseline (tile batches of 8) and
+    the plain U-Net (one covering tile), with both infer times."""
+    out = {}
+    for label, net in (
+            ("packed baseline", port.FplNetwork("baseline", device="cuda",
+                                                seed=0)),
+            ("plain unet", port.FplNetwork("unet", device="cuda", seed=0,
+                                           packed=False))):
+        eng = net.tiled_inference(vol.shape)
+        want = eng.infer(vol, keep_on_device=True)
+        got = eng.infer(vol, keep_on_device=True, host_stream=True)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{label}: host_stream changed the map")
+        t_dev = median_s(lambda: eng.infer(vol, keep_on_device=True))
+        t_host = median_s(lambda: eng.infer(vol, keep_on_device=True,
+                                            host_stream=True))
+        print(f"host_stream {label} {VOLUME}^3 (tile in {eng.tile_in}, "
+              f"{eng.n_batches(vol.shape)} x batch {eng.tile_batch}): the map "
+              f"equal bit for bit; infer {t_dev * 1e3:.2f} ms whole upload, "
+              f"{t_host * 1e3:.2f} ms host-streamed [{card_str}]", flush=True)
+        out[label] = {"infer_ms": t_dev * 1e3, "host_stream_ms": t_host * 1e3}
+        del net, eng, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_roi_phase(port, card_str: str, vol: np.ndarray | None = None,
+                 plain_b32: dict | None = None) -> dict:
+    """Phase 13: K1 without ReLU (a), the BatchNorm baseline's paths (b) and
+    training (c), ``stream_rois`` from a mock DVID node (d) and
+    ``host_stream`` (e).  ``vol``: the VOLUME^3 volume (made here when
+    None); ``plain_b32``: 12(c)'s plain b32 patch Mvox/s (``median``,
+    ``all``), read here when None."""
+    t0 = time.perf_counter()
+    if vol is None:
+        vol = make_volume_u8(VOLUME, N_BLOBS, seed=0)
+    if plain_b32 is None:
+        plain_b32 = {"median": math.nan, "all": []}
+    state = bn_state(port)
+    res = {"k1": check_k1_no_relu(card_str)}
+    t1 = time.perf_counter()
+    res["paths"] = check_bn_paths(port, card_str, state, vol)
+    t2 = time.perf_counter()
+    res["train"] = check_bn_training(port, card_str, state, plain_b32)
+    t3 = time.perf_counter()
+    res["rois"] = check_roi_streaming(port, card_str)
+    t4 = time.perf_counter()
+    res["host_stream"] = check_host_stream(port, card_str, vol)
+    t5 = time.perf_counter()
+    res["seconds"] = t5 - t0
+    print(f"phase 13 (BatchNorm, ROI streaming, host_stream): {t5 - t0:.1f} s "
+          f"= K1 relu=False {t1 - t0:.1f} + BN paths {t2 - t1:.1f} + BN "
+          f"training {t3 - t2:.1f} + stream_rois {t4 - t3:.1f} + host_stream "
+          f"{t5 - t4:.1f} [{card_str}]", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2954,9 +3628,18 @@ def main(argv=None) -> int:
     # 12. training and evaluation: gradients card vs CPU, the trained main
     #     path through detect / evaluate / evaluate_voxels, throughput
     train = train_phase(port, card_str, profile=args.profile)
+
+    # 13. BatchNorm models (K1 without ReLU, maps, detects, training),
+    #     stream_rois from a mock DVID node, host_stream
+    bench = train["bench"]["bench"]
+    bn = bn_roi_phase(port, card_str, vol, plain_b32={
+        "median": bench["train_patch_mvox_s"],
+        "all": [r * 32 * 33**3 / 1e6 for r in bench["train_steps_per_s_all"]]})
     train_steps = {**train["grads"],
                    **{f"bench {k}": v
-                      for k, v in train["bench"]["launches_per_step"].items()}}
+                      for k, v in train["bench"]["launches_per_step"].items()},
+                   **bn["train"]["launches_per_step"]}
+    bn_runs = bn["paths"]
 
     def per_step(name: str) -> dict:
         return {case: c[name] for case, c in train_steps.items() if name in c}
@@ -2985,6 +3668,14 @@ def main(argv=None) -> int:
             for fwd in ("roi", "shared")},
         "train_launches_per_step": per_step("conv3d_bias_relu"),
         "train_step_ms": train["kernel_times"]["conv3d_bias_relu"],
+        "relu_false": {
+            **bn["k1"],
+            "launches": {r: bn_runs["plain baseline_bn"]["launches"][
+                f"conv3d_bias_relu:{r}"] for r in ("wgmma", "wmma", "ci1",
+                                                    "fma")},
+            "at": "relu=False (a BatchNorm layer's conv), baseline layers "
+                  "0-3 summed, bf16, one tile batch; launches over infer + 2 "
+                  "detects of the plain BatchNorm baseline at 256^3"},
         "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
               "on the wgmma route, layer 0 on ci1; routes splits launches "
               "and times by route); launches from the plain baseline path",
@@ -3057,6 +3748,9 @@ def main(argv=None) -> int:
         "train_step_ms": train["kernel_times"]["parity_split_kernel"],
         "train_main_path_launches": train["main"]["launches"][
             "parity_split_kernel"],
+        "bn_launches": bn_runs["packed baseline_bn"]["launches"][
+            "parity_split_kernel"],
+        "stream_rois_launches": bn["rois"]["launches"]["parity_split_kernel"],
         "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
               "batch; launches from the packed baseline path",
     })

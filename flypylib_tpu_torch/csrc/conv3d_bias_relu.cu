@@ -8,7 +8,9 @@
 //                                            * f32(w[tz,ty,tx,c,o]) + f32(b[o])))
 //
 // of shape (B, D-2d, H-2d, W-2d, Co): f32 accumulation, f32 bias add, ReLU,
-// then one rounding to T -- the TPU kernel's rounding point.
+// then one rounding to T -- the TPU kernel's rounding point.  Every kernel
+// takes a relu flag: 0 leaves the clamp out (a BatchNorm layer's conv, whose
+// ReLU follows the normalisation).
 //
 // What bounds it on an H100, at the baseline model's four body layers:
 // - Layer 0 has Ci = 1, so K = 27: each output value costs 54 FLOP and 2
@@ -93,6 +95,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 constexpr int kMaxCo = 128;  // output channels per launch of the Ci = 1 kernel
 
+// the epilogue's activation: ReLU, or nothing where relu == 0
+__device__ __forceinline__ float act(float v, int relu) {
+  return relu ? fmaxf(v, 0.f) : v;
+}
+
 // ---------------------------------------------------------------- Ci == 1
 constexpr int kCi1Threads = 256;
 constexpr int kCi1Run = 4;  // output voxels per thread
@@ -102,6 +109,7 @@ struct Ci1Args {
   int D, H, W, Co, Cn, d, Do, Ho, Wo;
   int bz, by, bx, tiles_z, tiles_y, tiles_x;
   int vec;  // 16-byte stores: the output rows and channel chunks allow them
+  int relu;
 };
 
 __device__ __forceinline__ void store8(float* o, const float* v) {
@@ -225,7 +233,7 @@ conv_ci1_kernel(const T* __restrict__ x, const T* __restrict__ w,
       float v[8];
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        v[c] = fmaxf(acc[j][8 * g + c] + bs[8 * g + c], 0.f);
+        v[c] = act(acc[j][8 * g + c] + bs[8 * g + c], a.relu);
       if (a.vec && c0 + 8 * g + 8 <= a.Cn) {
         store8(o + 8 * g, v);
       } else {
@@ -255,8 +263,9 @@ cudaError_t launch_ci1(const T* x, const T* w, const T* b, T* out, int B,
 template <typename T>
 int launch_ci1_all(const void* x, const void* w, const void* b, void* out,
                    int B, int D, int H, int W, int Co, int d, int bz, int by,
-                   int bx, int staged, cudaStream_t stream) {
+                   int bx, int staged, int relu, cudaStream_t stream) {
   Ci1Args a;
+  a.relu = relu;
   a.D = D; a.H = H; a.W = W; a.Co = Co; a.d = d;
   a.Do = D - 2 * d; a.Ho = H - 2 * d; a.Wo = W - 2 * d;
   a.bz = bz; a.by = by; a.bx = bx;
@@ -331,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
 conv_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ out, int D,
                  int H, int W, int Ci, int Co, int d, int Do, int Ho, int Wo,
-                 long long M) {
+                 long long M, int relu) {
   constexpr int TM = 4;        // rows per thread (contiguous)
   constexpr int TN = BN / 16;  // channels per thread (contiguous)
   static_assert(TN == 2 || TN == 4, "BN must be 32 or 64");
@@ -405,7 +414,7 @@ conv_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tc * TN + j;
       if (n < Co)
-        out[p * Co + n] = fmaxf(acc[i][j] + b[n], 0.f);
+        out[p * Co + n] = act(acc[i][j] + b[n], relu);
     }
   }
 }
@@ -428,7 +437,7 @@ conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
                  const __nv_bfloat16* __restrict__ b,
                  __nv_bfloat16* __restrict__ out, int D, int H, int W, int Ci,
-                 int Co, int d, int Do, int Ho, int Wo, long long M) {
+                 int Co, int d, int Do, int Ho, int Wo, long long M, int relu) {
   using namespace nvcuda;
   constexpr int BLd = BN + 8;  // B row pitch in bf16
   constexpr int CLd = BN + 4;  // C row pitch in f32
@@ -498,7 +507,7 @@ conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
     const int n = n0 + nn;
     if (p < M && n < Co)
       out[p * Co + n] = __float2bfloat16_rn(
-          fmaxf(Cs[m][nn] + __bfloat162float(b[n]), 0.f));
+          act(Cs[m][nn] + __bfloat162float(b[n]), relu));
   }
 }
 
@@ -507,23 +516,25 @@ conv_wmma_kernel(const __nv_bfloat16* __restrict__ x,
 template <int BN>
 void launch_gemm(const float* x, const float* w, const float* b, float* out,
                  dim3 grid, int D, int H, int W, int Ci, int Co, int d,
-                 int Do, int Ho, int Wo, long long M, cudaStream_t stream) {
+                 int Do, int Ho, int Wo, long long M, int relu,
+                 cudaStream_t stream) {
   conv_gemm_kernel<BN><<<grid, kThreads, 0, stream>>>(
-      x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M);
+      x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M, relu);
 }
 
 template <int BN>
 void launch_gemm(const __nv_bfloat16* x, const __nv_bfloat16* w,
                  const __nv_bfloat16* b, __nv_bfloat16* out, dim3 grid,
                  int D, int H, int W, int Ci, int Co, int d, int Do, int Ho,
-                 int Wo, long long M, cudaStream_t stream) {
+                 int Wo, long long M, int relu, cudaStream_t stream) {
   conv_wmma_kernel<BN><<<grid, kThreads, 0, stream>>>(
-      x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M);
+      x, w, b, out, D, H, W, Ci, Co, d, Do, Ho, Wo, M, relu);
 }
 
 template <typename T>
 void launch(const void* x, const void* w, const void* b, void* out, int B,
-            int D, int H, int W, int Ci, int Co, int d, cudaStream_t stream) {
+            int D, int H, int W, int Ci, int Co, int d, int relu,
+            cudaStream_t stream) {
   const int Do = D - 2 * d, Ho = H - 2 * d, Wo = W - 2 * d;
   const long long M = (long long)B * Do * Ho * Wo;
   const T* xt = static_cast<const T*>(x);
@@ -533,29 +544,29 @@ void launch(const void* x, const void* w, const void* b, void* out, int B,
   const unsigned gm = (unsigned)((M + kBM - 1) / kBM);
   if (Co <= 32) {
     launch_gemm<32>(xt, wt, bt, ot, dim3(gm, 1), D, H, W, Ci, Co, d, Do, Ho,
-                    Wo, M, stream);
+                    Wo, M, relu, stream);
   } else {
     launch_gemm<64>(xt, wt, bt, ot, dim3(gm, (Co + 63) / 64), D, H, W, Ci, Co,
-                    d, Do, Ho, Wo, M, stream);
+                    d, Do, Ho, Wo, M, relu, stream);
   }
 }
 
 }  // namespace
 
-// Ci > 1.  dtype: 0 = float32, 1 = bfloat16.  Shapes are checked by the
-// Python wrapper (flypylib_tpu_torch/ops/conv.py); x, w, b and out are
-// contiguous.
+// Ci > 1.  dtype: 0 = float32, 1 = bfloat16; relu = 0 leaves the clamp
+// out.  Shapes are checked by the Python wrapper
+// (flypylib_tpu_torch/ops/conv.py); x, w, b and out are contiguous.
 extern "C" int fpl_conv3d_bias_relu(const void* x, const void* w,
                                     const void* b, void* out, int B, int D,
                                     int H, int W, int Ci, int Co, int d,
-                                    int dtype, void* stream) {
+                                    int dtype, int relu, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
   if (Co < 1 || Ci < 2 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(x, w, b, out, B, D, H, W, Ci, Co, d, s);
+    launch<float>(x, w, b, out, B, D, H, W, Ci, Co, d, relu, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, w, b, out, B, D, H, W, Ci, Co, d, s);
+    launch<__nv_bfloat16>(x, w, b, out, B, D, H, W, Ci, Co, d, relu, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -564,11 +575,12 @@ extern "C" int fpl_conv3d_bias_relu(const void* x, const void* w,
 
 // Ci = 1: x (B,D,H,W,1), w (27,Co), b (Co,), out (B,D-2d,H-2d,W-2d,Co).  The
 // output box (bz, by, bx) of a block holds at most 1024 voxels; staged != 0
-// puts its halo through shared memory (ops/conv.py::ci1_plan picks both).
+// puts its halo through shared memory (ops/conv.py::ci1_plan picks both);
+// relu = 0 leaves the clamp out.
 extern "C" int fpl_conv3d_ci1(const void* x, const void* w, const void* b,
                               void* out, int B, int D, int H, int W, int Co,
                               int d, int bz, int by, int bx, int staged,
-                              int dtype, void* stream) {
+                              int dtype, int relu, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
   if (Co < 1 || d < 1 || bz < 1 || by < 1 || bx < 1 ||
       (long long)bz * by * bx > kCi1Voxels || D <= 2 * d || H <= 2 * d ||
@@ -577,9 +589,9 @@ extern "C" int fpl_conv3d_ci1(const void* x, const void* w, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_ci1_all<float>(x, w, b, out, B, D, H, W, Co, d, bz, by, bx,
-                                 staged, s);
+                                 staged, relu, s);
   if (dtype == 1)
     return launch_ci1_all<__nv_bfloat16>(x, w, b, out, B, D, H, W, Co, d, bz,
-                                         by, bx, staged, s);
+                                         by, bx, staged, relu, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,9 @@
 //   out[n,z,y,x,o] = bf16(relu(sum_{tz,ty,tx,c} f32(x[n, z+tz*d, y+ty*d, x+tx*d, c])
 //                                                * f32(w[tz,ty,tx,c,o]) + f32(b[o])))
 //
-// with f32 accumulation, the f32 bias add, ReLU, then one rounding.
+// with f32 accumulation, the f32 bias add, ReLU, then one rounding.  With
+// relu = 0 the clamp is left out (a BatchNorm layer's conv, whose ReLU
+// follows the normalisation).
 //
 // The GEMM: M = output voxels, N = Co, K = 27 taps x Ci.
 // - A block owns one output box (bz, by, bx) of one batch entry, up to 256
@@ -41,8 +43,8 @@
 //   from shared memory), then wait_group 1 and release of the step before.
 //   The accumulators take NT f32 registers a thread (156 registers in all
 //   at NT = 128, no spill).
-// - Epilogue from registers: the f32 fragment plus the f32 bias, ReLU, one
-//   rounding to bf16, stored as bf16 pairs along the channel axis; rows
+// - Epilogue from registers: the f32 fragment plus the f32 bias, ReLU
+//   unless relu = 0, one rounding to bf16, stored as bf16 pairs along the channel axis; rows
 //   past (Do, Ho, Wo) or past the box, and channels past Co, are masked.
 //
 // What bounds it on an H100: each input value is re-read through L2 by
@@ -83,7 +85,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                   __nv_bfloat16* __restrict__ out, int Do, int Ho, int Wo,
                   int Co, int ldo, int d, int n_full, int half, int c_last, int bz,
                   int by, int bx,
-                  int tiles_z, int tiles_y, int tiles_x) {
+                  int tiles_z, int tiles_y, int tiles_x, int relu) {
   constexpr int kABytes = kRows * kRowBytes;
   constexpr int kBBytes = NT * kRowBytes;
   constexpr int kStageBytes = kABytes + ((kBBytes + 1023) / 1024) * 1024;
@@ -204,9 +206,9 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       for (int j = 0; j < NT / 8; ++j) {
         const int col = j * 8 + (lane % 4) * 2;
         if (col >= Co) continue;
-        const float v0 = fmaxf(acc[m][4 * j + 2 * h] + __bfloat162float(bias[col]), 0.f);
-        const float v1 =
-            fmaxf(acc[m][4 * j + 2 * h + 1] + __bfloat162float(bias[col + 1]), 0.f);
+        float v0 = acc[m][4 * j + 2 * h] + __bfloat162float(bias[col]);
+        float v1 = acc[m][4 * j + 2 * h + 1] + __bfloat162float(bias[col + 1]);
+        if (relu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
         *reinterpret_cast<__nv_bfloat162*>(o + col) =
             __floats2bfloat162_rn(v0, v1);
       }
@@ -221,7 +223,8 @@ struct Maps {
 template <int NT>
 int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
            int Do, int Ho, int Wo, int Co, int ldo, int d, int n_full,
-           int half, int c_last, int bz, int by, int bx, cudaStream_t stream) {
+           int half, int c_last, int bz, int by, int bx, int relu,
+           cudaStream_t stream) {
   constexpr int kABytes = kRows * kRowBytes;
   constexpr int kStageBytes =
       kABytes + ((NT * kRowBytes + 1023) / 1024) * 1024;
@@ -237,7 +240,7 @@ int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
       m.x, m.x16, m.w, m.w16, b, out, Do, Ho, Wo, Co, ldo, d, n_full, half, c_last,
-      bz, by, bx, tz, ty, tx);
+      bz, by, bx, tz, ty, tx, relu);
   return (int)cudaGetLastError();
 }
 
@@ -255,12 +258,13 @@ int launch(const Maps& m, const __nv_bfloat16* b, __nv_bfloat16* out, int B,
 // runs as one call per block of output channels, each with its own weight
 // images, bias and channel offset into out).  n_tile is one of
 // 24/32/48/64/96/128 (>= Co); the output box bz*by*bx is at most 256 rows.
-// All contiguous; shapes are checked by the Python wrapper.
+// relu = 0 leaves the clamp out.  All contiguous; shapes are checked by
+// the Python wrapper.
 extern "C" int fpl_conv3d_wgmma(const void* x, const void* w32,
                                 const void* w16, const void* b, void* out,
                                 int B, int D, int H, int W, int Ci, int Co,
                                 int ldo, int d, int n_tile, int bz, int by,
-                                int bx, void* stream) {
+                                int bx, int relu, void* stream) {
   cudaGetLastError();  // clear any earlier, unrelated error
   const int rest = Ci % kKC;
   const int half = rest > 0 && rest <= kKC / 2;
@@ -293,7 +297,7 @@ extern "C" int fpl_conv3d_wgmma(const void* x, const void* w32,
 #define FPL_WGMMA_CASE(NT)                                               \
   case NT:                                                                 \
     return launch<NT>(m, bt, ot, B, Do, Ho, Wo, Co, ldo, d, n_full, half,      \
-                      c_last, bz, by, bx, s);
+                      c_last, bz, by, bx, relu, s);
   switch (n_tile) {
     FPL_WGMMA_CASE(24)
     FPL_WGMMA_CASE(32)

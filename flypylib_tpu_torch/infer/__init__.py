@@ -6,6 +6,14 @@ from flypylib_tpu_torch.infer.tiled import (
     grid_tiling_min_cost,
 )
 from flypylib_tpu_torch.infer.pipeline import DetectPipeline
+from flypylib_tpu_torch.infer.roi_queue import (
+    ROI,
+    ROIQueue,
+    grid_rois,
+    stream_rois,
+    dvid_source,
+    dvid_sink,
+)
 from flypylib_tpu_torch.infer.large import (
     array_reader,
     detect_h5,
@@ -25,6 +33,12 @@ __all__ = [
     "default_tiling",
     "grid_tiling_min_cost",
     "DetectPipeline",
+    "ROI",
+    "ROIQueue",
+    "grid_rois",
+    "stream_rois",
+    "dvid_source",
+    "dvid_sink",
     "array_reader",
     "detect_h5",
     "detect_staged",

@@ -19,6 +19,13 @@ batches of tiles, stitch the outputs into the full probability map.
   sliced, run, passed through a sigmoid and written into a preallocated f32
   map on the device.  The last batch is padded by repeating the final
   corner — duplicate writes are bitwise identical.
+- **Host streaming** (``infer(host_stream=True)``, for volumes whose padded
+  input and map do not fit the device together): the padded volume stays
+  on the host; each tile batch is gathered into one of two pinned buffers
+  and copied to the card on a side stream while the forward before it runs,
+  events ordering each copy before the forward that reads it and each
+  forward before the next copy into its buffer (:func:`stream_tiles`).
+  The tiles are the device sweep's, so the map is bitwise the same.
 
 Valid convolutions make tiled output bitwise equal to a monolithic run.
 """
@@ -87,11 +94,14 @@ class TiledInference:
         return ceil_div(len(self.plan(shape)[0]), self.tile_batch)
 
     @torch.no_grad()
-    def infer(self, volume: np.ndarray, keep_on_device: bool = False):
+    def infer(self, volume: np.ndarray, keep_on_device: bool = False,
+              host_stream: bool = False):
         """Full-volume probability map, same shape as ``volume`` (``2 *
         context`` smaller per axis with ``pad_mode="none"``): a numpy f32
         array, or with ``keep_on_device=True`` an f32 tensor on the model's
-        device."""
+        device.  The padded volume is uploaded whole, or with
+        ``host_stream=True`` stays on the host and goes to the device one
+        tile batch at a time, double-buffered (the same map, bit for bit)."""
         vol = np.asarray(volume)
         if vol.dtype != np.uint8:
             vol = vol.astype(np.float32)
@@ -114,19 +124,74 @@ class TiledInference:
         corners = corners + [corners[-1]] * (n_batches * B - len(corners))
 
         device = self.device
-        src = torch.from_numpy(padded).to(device)
+        batches = [corners[bi * B:(bi + 1) * B] for bi in range(n_batches)]
+        if host_stream:
+            tile_batches = stream_tiles(padded, batches, tin, device)
+        else:
+            src = torch.from_numpy(padded).to(device)
+            tile_batches = (
+                torch.stack([src[z:z + tin, y:y + tin, x:x + tin]
+                             for z, y, x in cs])
+                for cs in batches)
         out = torch.zeros(out_shape, dtype=torch.float32, device=device)
         module = self.spec.module
-        for bi in range(n_batches):
-            cs = corners[bi * B:(bi + 1) * B]
-            tiles = torch.stack(
-                [src[z:z + tin, y:y + tin, x:x + tin] for z, y, x in cs]
-            )
+        for cs, tiles in zip(batches, tile_batches):
             probs = torch.sigmoid(module(tiles[..., None])[..., 0])
             for (z, y, x), p in zip(cs, probs):
                 out[z:z + tout, y:y + tout, x:x + tout] = p
         out = out[: shape[0], : shape[1], : shape[2]].contiguous()
         return out if keep_on_device else out.cpu().numpy()
+
+
+def stream_tiles(padded: np.ndarray, batches, tin: int, device):
+    """Yield, in order, each batch of ``tin``^3 tiles of the host array
+    ``padded`` (``batches``: lists of (z, y, x) corners of one length) as a
+    tensor on ``device``: ``(B, tin, tin, tin)`` of ``padded``'s dtype.
+
+    On a CUDA device two pinned host buffers and two device buffers take
+    turns: batch i + 1 is gathered on the host and copied on a side stream
+    (``non_blocking``) while the forward of batch i runs.  Events order
+    each copy before the forward that reads it (the current stream waits
+    on ``copied``) and each forward before the next copy into its device
+    buffer (the side stream waits on ``read``, recorded when the consumer
+    asks for the next batch, after it has queued its forward); the host
+    waits for a copy to leave a pinned buffer before it refills it.  A
+    yielded tensor is valid until the next one is asked for.  On the CPU
+    each batch is the stacked host tiles."""
+    shape = (len(batches[0]), tin, tin, tin) if batches else None
+    if device.type != "cuda":
+        for cs in batches:
+            yield torch.from_numpy(np.stack(
+                [padded[z:z + tin, y:y + tin, x:x + tin] for z, y, x in cs]))
+        return
+    dtype = torch.from_numpy(padded[:0, :0, :0]).dtype
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    host = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
+    dev = [torch.empty(shape, dtype=dtype, device=device) for _ in range(2)]
+    copied = [torch.cuda.Event() for _ in range(2)]
+    read = [torch.cuda.Event() for _ in range(2)]
+
+    def issue(i: int) -> None:
+        k = i % 2
+        copied[k].synchronize()  # the last copy out of host[k] has finished
+        hv = host[k].numpy()
+        for j, (z, y, x) in enumerate(batches[i]):
+            hv[j] = padded[z:z + tin, y:y + tin, x:x + tin]
+        with torch.cuda.stream(side):
+            side.wait_event(read[k])  # the forward that read dev[k] is done
+            dev[k].copy_(host[k], non_blocking=True)
+            copied[k].record(side)
+
+    if batches:
+        issue(0)
+    for i in range(len(batches)):
+        if i + 1 < len(batches):
+            issue(i + 1)
+        k = i % 2
+        main.wait_event(copied[k])
+        yield dev[k]
+        read[k].record(main)
 
 
 def infer_volume(spec: ModelSpec, volume: np.ndarray, tile_out: int = 64,

@@ -5,7 +5,9 @@ from flypylib_tpu_torch.models.zoo import (
     baseline_model,
     vgg_like,
     unet,
+    BatchNorm,
     params_from_flax,
+    flax_from_params,
     MODEL_ZOO,
 )
 
@@ -16,6 +18,8 @@ __all__ = [
     "baseline_model",
     "vgg_like",
     "unet",
+    "BatchNorm",
     "params_from_flax",
+    "flax_from_params",
     "MODEL_ZOO",
 ]

@@ -12,6 +12,8 @@ weights DHWIO ``(3, 3, 3, Ci, Co)``, compute in ``dtype`` (bf16 by default),
 logits in f32.  Every 3^3 conv runs ``ops.conv.conv3d_bias_relu`` (K1); the
 1x1x1 head and logits and the U-Net's ConvTranspose are matmuls over the
 channel axis, which the reference also leaves outside any Pallas kernel.
+A ``ConvStack(use_batchnorm=True)`` puts Flax's ``BatchNorm`` between each
+body conv (K1 with ``relu=False``) and its ReLU (:class:`BatchNorm`).
 
 Models return logits; apply ``torch.sigmoid`` for probabilities.
 """
@@ -78,18 +80,67 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 class Conv3BiasReLU(nn.Module):
-    """One valid 3x3x3 conv (dilation ``dilation``) + bias + ReLU: K1,
-    through :class:`~flypylib_tpu_torch.ops.conv.Conv3dBiasReLU`, so that
-    it has a gradient (with or without grad enabled, the same kernel)."""
+    """One valid 3x3x3 conv (dilation ``dilation``) + bias + ReLU (no ReLU
+    with ``relu=False``): K1, through :class:`~flypylib_tpu_torch.ops.conv.
+    Conv3dBiasReLU`, so that it has a gradient (with or without grad
+    enabled, the same kernel)."""
 
-    def __init__(self, in_features: int, features: int, dilation: int):
+    def __init__(self, in_features: int, features: int, dilation: int,
+                 relu: bool = True):
         super().__init__()
         self.dilation = int(dilation)
+        self.relu = bool(relu)
         self.weight = nn.Parameter(torch.empty(3, 3, 3, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return Conv3dBiasReLU.apply(x, self.weight, self.bias, self.dilation)
+        return Conv3dBiasReLU.apply(x, self.weight, self.bias, self.dilation,
+                                    self.relu)
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the channel (last) axis, as the
+    reference's ``ConvStack`` uses it (``epsilon=1e-5``, ``momentum=0.99``,
+    f32 ``scale``/``bias`` parameters and ``mean``/``var`` buffers).
+
+    Train mode normalises with the batch's statistics, reduced in f32
+    whatever the input dtype, by the fast variance ``max(E[x^2] - E[x]^2,
+    0)``, and updates the buffers with the biased batch variance:
+    ``r = momentum * r + (1 - momentum) * batch`` (``F.batch_norm`` would
+    use the unbiased one).  Eval mode normalises with the buffers.  Both
+    compute ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 and
+    round to the input dtype once."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.99):
+        super().__init__()
+        self.epsilon = epsilon
+        self.momentum = momentum
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+    def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Eval mode as a per-channel f32 ``(scale, shift)``: the
+        reference packed engine's ``_affine`` (``rsqrt(var + 1e-5)``)."""
+        scale = self.scale.float() * torch.rsqrt(self.var.float() + self.epsilon)
+        return scale, self.bias.float() - self.mean.float() * scale
 
 
 class Pointwise(nn.Module):
@@ -130,7 +181,11 @@ class ConvStack(nn.Module):
 
     context = sum(dilations) (3^3 kernels).  Input (B, D, H, W, 1) of any
     dtype is cast to ``dtype`` as it is, without normalisation (uint8 gives
-    raw 0-255 values, as ``ConvStack.__call__`` in the reference)."""
+    raw 0-255 values, as ``ConvStack.__call__`` in the reference).  With
+    ``use_batchnorm`` each body layer is conv + bias (K1 with
+    ``relu=False``), :class:`BatchNorm` (``norms[i]``), then ReLU; the
+    module's train/eval mode is BatchNorm's, and it is built in eval mode
+    (the reference's ``apply`` defaults to ``train=False``)."""
 
     def __init__(
         self,
@@ -139,16 +194,21 @@ class ConvStack(nn.Module):
         head_features: int = 96,
         dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
+        use_batchnorm: bool = False,
     ):
         super().__init__()
         if len(features) != len(dilations):
             raise ValueError("features and dilations differ in length")
         self.dtype = dtype
+        self.use_batchnorm = bool(use_batchnorm)
         ins = (1, *features[:-1])
         self.convs = nn.ModuleList(
-            Conv3BiasReLU(ci, co, d)
+            Conv3BiasReLU(ci, co, d, relu=not use_batchnorm)
             for ci, co, d in zip(ins, features, dilations)
         )
+        self.norms = nn.ModuleList(
+            BatchNorm(co) for co in (features if use_batchnorm else ()))
+        self.train(False)
         self.head = Pointwise(features[-1], head_features)
         self.logits = Pointwise(head_features, 1)
         if generator is None:
@@ -164,11 +224,18 @@ class ConvStack(nn.Module):
         for pw in (self.head, self.logits):
             lecun_normal_(pw.weight, pw.weight.shape[0], generator)
             pw.bias.zero_()
+        for norm in self.norms:  # Flax's: scale 1, bias 0, mean 0, var 1
+            norm.scale.fill_(1.0)
+            norm.bias.zero_()
+            norm.mean.zero_()
+            norm.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        for conv in self.convs:
+        for i, conv in enumerate(self.convs):
             x = conv(x)
+            if self.use_batchnorm:
+                x = torch.relu(self.norms[i](x))
         x = torch.relu(self.head(x, self.dtype))
         return self.logits(x, torch.float32)
 
@@ -293,17 +360,21 @@ class UNetValid(nn.Module):
 
 
 def params_from_flax(variables) -> dict[str, torch.Tensor]:
-    """The JAX package's params as the port's state dict: a ``ConvStack``
-    tree (``Conv_0..Conv_{n+1}``) or a ``UNetValid`` tree (``Conv_0..Conv_n``
-    and ``ConvTranspose_0..``), with DHWIO ``kernel`` and ``bias``, as numpy
-    or jax arrays, with or without the ``{"params": ...}`` wrapper."""
+    """The JAX package's variables as the port's state dict: a ``ConvStack``
+    tree (``Conv_0..Conv_{n+1}``, and ``BatchNorm_0..`` with a
+    ``batch_stats`` collection for a BatchNorm stack) or a ``UNetValid``
+    tree (``Conv_0..Conv_n`` and ``ConvTranspose_0..``), with DHWIO
+    ``kernel`` and ``bias``, as numpy or jax arrays, with or without the
+    ``{"params": ...}`` wrapper."""
     params = variables.get("params", variables)
+    stats = variables.get("batch_stats", {}) if "params" in variables else {}
 
     def numbered(prefix):
         return sorted((k for k in params if k.startswith(prefix + "_")),
                       key=lambda k: int(k.split("_")[-1]))
 
     names, ups = numbered("Conv"), numbered("ConvTranspose")
+    bns = numbered("BatchNorm")
     if len(names) < 3:
         raise ValueError(f"expected Conv_0..Conv_n (n >= 2), got {names}")
 
@@ -328,7 +399,47 @@ def params_from_flax(variables) -> dict[str, torch.Tensor]:
         sd[f"convs.{i}.bias"] = t(params[name]["bias"])
     for prefix, name in tail:
         sd.update(pointwise(prefix, name))
+    if bns and len(bns) != len(body):
+        raise ValueError(f"{len(bns)} BatchNorm layers for {len(body)} convs")
+    for i, name in enumerate(bns):
+        if name not in stats:
+            raise ValueError(f"{name}: no batch_stats")
+        sd[f"norms.{i}.scale"] = t(params[name]["scale"])
+        sd[f"norms.{i}.bias"] = t(params[name]["bias"])
+        sd[f"norms.{i}.mean"] = t(stats[name]["mean"])
+        sd[f"norms.{i}.var"] = t(stats[name]["var"])
     return sd
+
+
+def flax_from_params(state_dict) -> dict[str, dict]:
+    """Inverse of :func:`params_from_flax`: a ``ConvStack`` or ``UNetValid``
+    state dict as the JAX package's variables, ``{"params": {...},
+    "batch_stats": {...}}`` of f32 numpy arrays (``batch_stats`` empty
+    without BatchNorm)."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+
+    def count(prefix):
+        return len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
+
+    n_convs = count("convs")
+    params, stats = {}, {}
+    for i in range(n_convs):
+        params[f"Conv_{i}"] = {"kernel": sd[f"convs.{i}.weight"],
+                               "bias": sd[f"convs.{i}.bias"]}
+    for j in range(count("convts")):
+        params[f"ConvTranspose_{j}"] = {"kernel": sd[f"convts.{j}.weight"],
+                                        "bias": sd[f"convts.{j}.bias"]}
+    tail = ["head", "logits"] if "head.weight" in sd else ["logits"]
+    for k, prefix in enumerate(tail):
+        w = sd[f"{prefix}.weight"]
+        params[f"Conv_{n_convs + k}"] = {"kernel": w.reshape(1, 1, 1, *w.shape),
+                                         "bias": sd[f"{prefix}.bias"]}
+    for i in range(count("norms")):
+        params[f"BatchNorm_{i}"] = {"scale": sd[f"norms.{i}.scale"],
+                                    "bias": sd[f"norms.{i}.bias"]}
+        stats[f"BatchNorm_{i}"] = {"mean": sd[f"norms.{i}.mean"],
+                                   "var": sd[f"norms.{i}.var"]}
+    return {"params": params, "batch_stats": stats}
 
 
 def _probe_geometry(out_size: Callable[[int], int | None], lo: int = 8,

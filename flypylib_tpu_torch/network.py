@@ -138,11 +138,13 @@ class FplNetwork:
 
     @property
     def variables(self) -> dict[str, torch.Tensor]:
-        """The model's parameters (a state dict)."""
+        """The model's parameters and a BatchNorm stack's running
+        statistics (a state dict)."""
         return self.module.state_dict()
 
     def load_flax_params(self, variables):
-        """Load the JAX package's ``ConvStack`` or ``UNetValid`` params (see
+        """Load the JAX package's ``ConvStack`` (BatchNorm's ``batch_stats``
+        included) or ``UNetValid`` variables (see
         :func:`~flypylib_tpu_torch.models.zoo.params_from_flax`)."""
         self.module.load_state_dict(params_from_flax(variables))
 

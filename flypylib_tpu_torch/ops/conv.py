@@ -1,7 +1,9 @@
 """Fused valid dilated 3x3x3 conv + bias + ReLU (NDHWC) — the port of K1.
 
 Counterpart of ``flypylib_tpu/ops/pallas_conv.py``: ``conv3d_bias_relu``
-computes one body layer of the baseline ``ConvStack``.  On a CUDA tensor it
+computes one body layer of the baseline ``ConvStack``; with ``relu=False``
+it leaves the ReLU out, for a BatchNorm layer's conv (the normalisation
+comes between the conv and the ReLU).  On a CUDA tensor it
 launches a hand-written kernel (built by ``ops/_build.py`` on first use); on
 a CPU tensor it runs the plain version, :func:`conv3d_reference`.  There is
 no fallback between the two: a CUDA tensor the kernel cannot take raises.
@@ -18,7 +20,8 @@ The Ci = 1 kernel is handed its output box by :func:`ci1_plan`.
 
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
-is applied, and the result is rounded to ``x.dtype`` once.
+is applied (unless ``relu=False``), and the result is rounded to
+``x.dtype`` once.
 
 The f32 products that every plain version shares live here too:
 :func:`conv3d_f32` and :func:`matmul_f32`, with TF32 off on the card
@@ -115,16 +118,18 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     dilation: int = 1) -> torch.Tensor:
-    """Plain PyTorch version: f32 ``F.conv3d`` + f32 bias + ReLU, one
-    rounding to ``x.dtype`` (the rounding point of ``pallas_conv.py:100``).
+                     dilation: int = 1, relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version: f32 ``F.conv3d`` + f32 bias + ReLU (none with
+    ``relu=False``), one rounding to ``x.dtype`` (the rounding point of
+    ``pallas_conv.py:100``).
 
     x (B, D, H, W, Ci), w (3, 3, 3, Ci, Co) DHWIO, b (Co,) ->
     (B, D-2d, H-2d, W-2d, Co) in ``x.dtype``."""
     _out_shape(x, w, b, dilation)
     dt = x.dtype
-    y = conv3d_f32(x, w.to(dt), dilation)
-    y = torch.relu(y + b.to(dt).float())
+    y = conv3d_f32(x, w.to(dt), dilation) + b.to(dt).float()
+    if relu:
+        y = torch.relu(y)
     return y.to(dt).contiguous()
 
 
@@ -267,8 +272,9 @@ def weight_images(w: torch.Tensor,
 
 
 def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     dilation: int = 1) -> torch.Tensor:
-    """Fused valid conv3d (3x3x3, dilated) + bias + ReLU.
+                     dilation: int = 1, relu: bool = True) -> torch.Tensor:
+    """Fused valid conv3d (3x3x3, dilated) + bias + ReLU (no ReLU with
+    ``relu=False``, on every route).
 
     x: (B, D, H, W, Ci) bf16 or f32; w: (3, 3, 3, Ci, Co); b: (Co,).
     Returns (B, D-2d, H-2d, W-2d, Co) in ``x.dtype``.  A CPU tensor runs
@@ -276,7 +282,7 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     :func:`k1_route` names (and adds one to ``conv3d_bias_relu.launches``
     and to that route's ``conv3d_bias_relu.routes``) or raises."""
     if x.device.type == "cpu":
-        return conv3d_reference(x, w, b, dilation)
+        return conv3d_reference(x, w, b, dilation, relu)
     if x.device.type != "cuda":
         raise ValueError(f"no conv3d_bias_relu for device {x.device}")
     shape = _out_shape(x, w, b, dilation)
@@ -298,7 +304,7 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if out.numel() == 0:  # B == 0: a launch with an empty grid is refused
         return out
     B, D, H, W, Ci = x.shape
-    Co, d = shape[4], int(dilation)
+    Co, d, act = shape[4], int(dilation), int(bool(relu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
@@ -310,7 +316,7 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     x.data_ptr(), w32.data_ptr() if w32.numel() else None,
                     w16.data_ptr() if w16 is not None else None,
                     bc[c0:].data_ptr(), out[..., c0:].data_ptr(), B, D, H, W,
-                    Ci, cn, Co, d, n_tile, bz, by, bx, stream)
+                    Ci, cn, Co, d, n_tile, bz, by, bx, act, stream)
                 if err != 0:
                     break
         elif route == "ci1":
@@ -319,12 +325,12 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             err = lib.fpl_conv3d_ci1(
                 x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
                 B, D, H, W, Co, d, bz, by, bx, int(staged),
-                _DTYPE_CODES[x.dtype], stream)
+                _DTYPE_CODES[x.dtype], act, stream)
         else:
             wc = w.to(x.dtype).contiguous()
             err = lib.fpl_conv3d_bias_relu(
                 x.data_ptr(), wc.data_ptr(), bc.data_ptr(), out.data_ptr(),
-                B, D, H, W, Ci, Co, d, _DTYPE_CODES[x.dtype], stream)
+                B, D, H, W, Ci, Co, d, _DTYPE_CODES[x.dtype], act, stream)
     if err != 0:
         raise RuntimeError(f"conv3d_bias_relu kernel launch failed ({route} "
                            f"route): cudaError {err}")
@@ -338,11 +344,13 @@ conv3d_bias_relu.routes = dict.fromkeys(K1_ROUTES, 0)
 
 
 class Conv3dBiasReLU(torch.autograd.Function):
-    """:func:`conv3d_bias_relu` with a gradient.
+    """:func:`conv3d_bias_relu` with a gradient (``apply(x, w, b, dilation,
+    relu=True)``).
 
     Forward: the kernel on a CUDA tensor, :func:`conv3d_reference` on a CPU
-    one; it saves ``x``, ``w`` and the post-ReLU output ``y``.  Backward,
-    with ``g = dy * (y > 0)`` (ReLU'(0) = 0, as JAX's): ``db = sum g`` in
+    one; it saves ``x``, ``w`` and the output ``y``.  Backward, with ``g =
+    dy * (y > 0)`` (ReLU'(0) = 0, as JAX's; ``g = dy`` with ``relu=False``,
+    whose output is the conv itself): ``db = sum g`` in
     f32, ``dw`` and ``dx`` by PyTorch's convolution gradients
     (``torch.nn.grad.conv3d_weight`` / ``conv3d_input``, NCDHW, TF32 off)
     of the model-dtype values, summed in f32 and rounded to the model dtype
@@ -355,10 +363,11 @@ class Conv3dBiasReLU(torch.autograd.Function):
     are those of the parameters before their cast to ``x.dtype``."""
 
     @staticmethod
-    def forward(ctx, x, w, b, dilation):
-        y = conv3d_bias_relu(x, w, b, dilation)
+    def forward(ctx, x, w, b, dilation, relu=True):
+        y = conv3d_bias_relu(x, w, b, dilation, relu)
         ctx.save_for_backward(x, w, y)
         ctx.dilation = int(dilation)
+        ctx.relu = bool(relu)
         ctx.b_dtype = b.dtype
         return y
 
@@ -366,7 +375,7 @@ class Conv3dBiasReLU(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, y = ctx.saved_tensors
         d, dt = ctx.dilation, x.dtype
-        g = dy * (y > 0)
+        g = dy * (y > 0) if ctx.relu else dy
         db = g.float().sum(dim=(0, 1, 2, 3)).to(ctx.b_dtype)
         # the conv operands: the model-dtype values, as f32 on the CPU
         ct = dt if x.device.type == "cuda" else torch.float32
@@ -380,4 +389,4 @@ class Conv3dBiasReLU(torch.autograd.Function):
                 dx = torch.nn.grad.conv3d_input(xn.shape, wn, gn, dilation=d)
                 dx = dx.to(dt).permute(0, 2, 3, 4, 1)
         dw = dw.to(dt).permute(2, 3, 4, 1, 0).to(w.dtype)  # DHWIO
-        return dx, dw, db, None
+        return dx, dw, db, None, None

@@ -26,8 +26,14 @@ custom VJPs of ``parity_split`` / ``parity_merge`` (plain reshapes here,
 differentiable as they stand), the optimization barriers, the
 split-weight bf16 logits (the port keeps the plain ConvStack's f32
 logits, which the reference's docstring puts ~1e-6 relative from them, and
-which its ``forward_train`` uses), ``stage_b="group"`` (measured and
-rejected there) and BatchNorm (the port's ``ConvStack`` has none).
+which its ``forward_train`` uses) and ``stage_b="group"`` (measured and
+rejected there).
+
+A BatchNorm ``ConvStack`` runs packed at inference as in the reference:
+each BN is folded into the conv's epilogue from the running statistics
+(``BatchNorm.affine``: scale and shift in f32, cast to the model dtype; ``y
++ b``, then ``y * scale + shift``, then ReLU).  That is eval-mode
+semantics, so ``forward_train`` refuses such a model, as the reference's.
 """
 
 from __future__ import annotations
@@ -188,22 +194,38 @@ def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return conv3d_f32(x, w.to(x.dtype)).to(x.dtype)
 
 
-def packed_conv_relu(x: torch.Tensor, conv) -> torch.Tensor:
-    """``conv``'s valid 3^3 conv (dilation 1) + bias + ReLU on the packed
-    lattice: the 2^3 conv against ``pack_weight_d1``, rounded to
-    ``x.dtype``, plus the dtype bias on all 8 parity groups, then ReLU."""
+def _epilogue(y: torch.Tensor, conv, norm=None, tile: int = 1) -> torch.Tensor:
+    """The reference's ``_epilogue``: ``y`` (a conv rounded to its dtype)
+    plus the dtype bias, then, with ``norm`` (a ``BatchNorm``), ``y * scale
+    + shift`` from its running statistics (f32, cast to the dtype), then
+    ReLU; the channel vectors repeated ``tile`` times (8 on the packed
+    lattice, one per parity group)."""
+    dt = y.dtype
+    y = y + conv.bias.to(dt).repeat(tile)
+    if norm is not None:
+        scale, shift = norm.affine()
+        y = y * scale.to(dt).repeat(tile) + shift.to(dt).repeat(tile)
+    return torch.relu(y)
+
+
+def packed_conv_relu(x: torch.Tensor, conv, norm=None) -> torch.Tensor:
+    """``conv``'s valid 3^3 conv (dilation 1) + bias (+ ``norm``'s folded
+    BatchNorm) + ReLU on the packed lattice: the 2^3 conv against
+    ``pack_weight_d1``, rounded to ``x.dtype``, then :func:`_epilogue` on
+    all 8 parity groups."""
     dt = x.dtype
     y = _conv(x, pack_weight_d1(conv.weight.to(dt)))
-    return torch.relu(y + conv.bias.to(dt).repeat(8))
+    return _epilogue(y, conv, norm, tile=8)
 
 
 class PackedConvStack(nn.Module):
     """Inference module running a ``ConvStack`` in packed layout.
 
-    It holds the inner module (``self.inner``) and reads its parameters at
-    each forward, so the two share one set of weights.  Dilations must be
-    powers of two and non-decreasing.  Each conv is summed in f32 and
-    rounded to the model dtype, then the dtype bias is added and ReLU
+    It holds the inner module (``self.inner``) and reads its parameters
+    (and a BatchNorm stack's running statistics) at each forward, so the
+    two share one set of weights.  Dilations must be powers of two and
+    non-decreasing.  Each conv is summed in f32 and rounded to the model
+    dtype, then the dtype bias is added, a BatchNorm folded in, and ReLU
     applied (the reference's ``_conv`` + ``_epilogue``)."""
 
     def __init__(self, inner):
@@ -222,6 +244,10 @@ class PackedConvStack(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.inner.dtype
 
+    def _norm(self, i: int):
+        """Layer ``i``'s BatchNorm, or None without BatchNorm."""
+        return self.inner.norms[i] if self.inner.use_batchnorm else None
+
     def apply_stage_a(self, x: torch.Tensor) -> torch.Tensor:
         """Phase 1: cast, pack, the dilation-1 lead convs on the packed
         lattice, then :func:`parity_batch`.  Returns the parity-batched
@@ -232,8 +258,8 @@ class PackedConvStack(nn.Module):
         if not self.n_lead:
             return x
         x = pack_volume(x)
-        for conv in self.inner.convs[: self.n_lead]:
-            x = packed_conv_relu(x, conv)
+        for i, conv in enumerate(self.inner.convs[: self.n_lead]):
+            x = packed_conv_relu(x, conv, self._norm(i))
         return parity_batch(x.contiguous())
 
     def apply_stage_b(self, x: torch.Tensor) -> torch.Tensor:
@@ -243,13 +269,14 @@ class PackedConvStack(nn.Module):
         inner = self.inner
         dt = self.dtype
         level = 1 if self.n_lead else 0
-        for conv, d in zip(inner.convs[self.n_lead:], self.dilations[self.n_lead:]):
+        for i in range(self.n_lead, len(inner.convs)):
+            conv, d = inner.convs[i], self.dilations[i]
             while (1 << level) < d:
                 x = parity_split(x)
                 level += 1
             if (1 << level) != d:
                 raise ValueError(f"dilation {d} below current lattice step {1 << level}")
-            x = torch.relu(_conv(x, conv.weight.to(dt)) + conv.bias.to(dt))
+            x = _epilogue(_conv(x, conv.weight.to(dt)), conv, self._norm(i))
         x = torch.relu(inner.head(x, dt))
         x = inner.logits(x, torch.float32)
         for _ in range(level):
@@ -260,14 +287,21 @@ class PackedConvStack(nn.Module):
         """(B, S, S, S, 1) -> (B, S - 2 context, ..., 1) f32 logits."""
         return self.apply_stage_b(self.apply_stage_a(x))
 
-    # The differentiable packed forward (the reference's ``forward_train``,
-    # ``packed_conv.py:412-431``) is the forward itself: stage A and stage B
-    # with the f32 logits, K5 through :class:`ParityBatch`.  The packed
-    # rewrite re-associates the plain stack's multiply-adds exactly, so its
-    # gradient optimizes the same objective up to rounding, on the inner
-    # module's parameters (an optimizer over ``inner.parameters()`` trains
-    # what the inference engine reads).
-    forward_train = forward
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable packed forward (the reference's
+        ``forward_train``, ``packed_conv.py:412-431``): the forward itself,
+        stage A and stage B with the f32 logits, K5 through
+        :class:`ParityBatch`.  The packed rewrite re-associates the plain
+        stack's multiply-adds exactly, so its gradient optimizes the same
+        objective up to rounding, on the inner module's parameters (an
+        optimizer over ``inner.parameters()`` trains what the inference
+        engine reads).  A BatchNorm stack raises: the packed epilogue folds
+        the running statistics, which is inference-mode semantics."""
+        if self.inner.use_batchnorm:
+            raise ValueError(
+                "packed training requires use_batchnorm=False (the "
+                "packed epilogue folds inference-mode running stats)")
+        return self.forward(x)
 
 
 def _packed_out_size(s: int, dilations: tuple[int, ...]) -> int | None:

@@ -27,11 +27,19 @@ default would round f32 convolution inputs to 10 mantissa bits).
 Engines: "plain" differentiates the plain module (K1 on every 3^3 conv,
 through ``ops.conv.Conv3dBiasReLU``), "packed" the packed engine's
 ``forward_train`` (K5 through ``ops.packed_conv.ParityBatch``), "auto" picks
-by batch size as the reference does.
+by batch size as the reference does, and plain for a BatchNorm model.
+
+A BatchNorm model's loss runs the module in train mode: batch statistics,
+and the running ones updated once a step, as the reference's
+``mutable=["batch_stats"]``.  Everything else (validation, the inference
+engines, which share the module's buffers) runs it in eval mode.
+Checkpoints hold the parameters under ``"params"`` and the buffers (the
+running statistics) under ``"batch_stats"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -76,19 +84,24 @@ def resolve_engine(spec: ModelSpec, cfg: TrainConfig) -> str:
 
     ``engine="auto"`` resolves to "packed" when the batch size is below the
     crossover and the model has a differentiable packed forward (a
-    ``ConvStack`` or a ``UNetValid``, or a spec already packed); otherwise
-    "plain".  Explicit engines pass through (an unsupported model then
-    raises in :func:`resolve_train_spec`)."""
+    ``ConvStack`` without BatchNorm or a ``UNetValid``, or a spec already
+    packed); otherwise "plain".  Explicit engines pass through (an
+    unsupported model then raises in :func:`resolve_train_spec`, a
+    BatchNorm stack in the packed ``forward_train``)."""
     if cfg.engine != "auto":
         if cfg.engine not in ("plain", "packed"):
             raise ValueError(f"unknown engine {cfg.engine!r}")
         return cfg.engine
     if cfg.batch_size >= _PACKED_BATCH_CROSSOVER:
         return "plain"
-    if isinstance(spec.module, _PACKED):
-        return "packed"
-    return "plain" if (packed_spec(spec) or packed_unet_spec(spec)) is None \
-        else "packed"
+    module = spec.module
+    if isinstance(module, _PACKED):
+        module, pspec = module.inner, spec
+    else:
+        pspec = packed_spec(spec) or packed_unet_spec(spec)
+    if pspec is None or getattr(module, "use_batchnorm", False):
+        return "plain"  # no differentiable packed forward for this model
+    return "packed"
 
 
 def resolve_train_spec(spec: ModelSpec, cfg: TrainConfig) -> ModelSpec:
@@ -274,6 +287,18 @@ def _train_forward(spec: ModelSpec, engine: str):
     return module.inner if isinstance(module, _PACKED) else module
 
 
+@contextlib.contextmanager
+def train_mode(module: nn.Module):
+    """``module`` in train mode for the block (BatchNorm on batch
+    statistics, updating its running ones), its mode before restored."""
+    was = module.training
+    module.train(True)
+    try:
+        yield module
+    finally:
+        module.train(was)
+
+
 def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
     """``(loss_fn, sample_fn, patch_size)``.
 
@@ -282,11 +307,13 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
     m (B, p - 2c, ...) the label and mask crops, codes (B,) augmentation
     codes or None.  ``loss_fn(x, y, m, codes)`` augments, runs the engine's
     forward and returns ``(loss, metrics)`` (``loss``, ``pos_frac``,
-    ``pred_mean``, as 0-d tensors).  A batch made elsewhere (a test's, from
-    numpy) goes through ``loss_fn`` alone."""
+    ``pred_mean``, as 0-d tensors); the module runs in train mode (a
+    BatchNorm model's running statistics update once a call).  A batch
+    made elsewhere (a test's, from numpy) goes through ``loss_fn`` alone."""
     engine = resolve_engine(spec, cfg)
     spec = resolve_train_spec(spec, cfg)
     forward = _train_forward(spec, engine)
+    plain = spec.module.inner if isinstance(spec.module, _PACKED) else spec.module
     patch = spec.valid_size(cfg.patch_size)
     ctx = spec.context
     out = patch - 2 * ctx
@@ -312,7 +339,8 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
     def loss_fn(x, y, m, codes):
         if codes is not None:
             x, y, m = (augment_batch(v, codes) for v in (x, y, m))
-        logits = forward(x[..., None])[..., 0]
+        with train_mode(plain):
+            logits = forward(x[..., None])[..., 0]
         loss = masked_bce_loss(logits, y, m)
         metrics = {
             "loss": loss.detach(),
@@ -509,19 +537,22 @@ class Trainer:
 
     def save(self, path: str):
         """``torch.save`` of ``{"params", "batch_stats"}`` (the content the
-        reference's orbax checkpoint holds; the params as the module's
-        state dict, on the CPU)."""
+        reference's orbax checkpoint holds): the module's parameters and its
+        buffers (a BatchNorm stack's running statistics), by state-dict
+        name, on the CPU."""
         torch.save({
             "params": {k: v.detach().cpu()
-                       for k, v in self.module.state_dict().items()},
-            "batch_stats": {},
+                       for k, v in self.module.named_parameters()},
+            "batch_stats": {k: v.detach().cpu()
+                            for k, v in self.module.named_buffers()},
         }, path)
 
     def restore(self, path: str) -> TrainState:
-        """Load a :meth:`save` checkpoint into the module (the optimizer's
-        state is kept, as the reference keeps its ``opt_state``)."""
+        """Load a :meth:`save` checkpoint into the module, parameters and
+        running statistics (the optimizer's state is kept, as the reference
+        keeps its ``opt_state``)."""
         if self.state is None:
             self.init_state()
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        self.module.load_state_dict(ckpt["params"])
+        self.module.load_state_dict({**ckpt["params"], **ckpt["batch_stats"]})
         return self.state

@@ -50,6 +50,13 @@ The staged engine (``FplNetwork.detect_large``) runs on the card in roi and
 shared modes, and its lists must equal ``detect``'s on the scaled volume at
 the same tiling, exactly (the map is the same function of the same
 values).
+
+K1 with ``relu=False`` (a BatchNorm layer's conv) runs on every route
+against ``conv3d_reference(relu=False)`` under the same limits, and an
+output clamped anyway must fail them.  A BatchNorm ``ConvStack`` (f32,
+plain and packed) on the card matches the CPU's to 1e-4, and
+``TiledInference.infer(host_stream=True)`` gives the device sweep's map bit
+for bit (tile batch 1, many batches; f32 and uint8).
 """
 
 import numpy as np
@@ -93,17 +100,17 @@ def _route(x, ci, co):
     return "wgmma" if aligned else "wmma"
 
 
-def _check(x, w, b, d):
+def _check(x, w, b, d, relu=True):
     route = _route(x, x.shape[-1], w.shape[-1])
     assert k1_route(x, w) == route
     before = conv3d_bias_relu.launches
     routes = dict(conv3d_bias_relu.routes)
-    got = conv3d_bias_relu(x, w, b, d)
+    got = conv3d_bias_relu(x, w, b, d, relu)
     torch.cuda.synchronize()
     assert conv3d_bias_relu.launches == before + 1
     routes[route] += 1
     assert conv3d_bias_relu.routes == routes
-    ref = conv3d_reference(x, w, b, d)
+    ref = conv3d_reference(x, w, b, d, relu)
     assert got.shape == ref.shape and got.dtype == x.dtype
     err, ok = chip_smoke.conv_check(got.cpu(), ref.cpu())
     assert ok, f"max |err| {err}"
@@ -681,3 +688,82 @@ def test_one_train_step_on_the_card_matches_the_cpu(cuda, model, engine):
     assert chip_smoke.case_ok(res, torch.float32), res["errs"]
     want = chip_smoke.grad_launch_want(model, engine, torch.float32)
     assert res["launches"] == {k: want.get(k, 0) for k in res["launches"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ci,co,d", [
+    (1, 24, 1), (1, 136, 2),                   # the Ci = 1 kernel
+    (24, 32, 1), (48, 64, 2), (96, 192, 1),    # wgmma (bf16) / fma (f32)
+    (5, 7, 1), (16, 33, 3),                    # wmma (bf16) / fma (f32)
+])
+def test_kernel_without_relu_matches_plain(cuda, ci, co, d, dtype):
+    """``relu=False`` on every route against ``conv3d_reference(relu=
+    False)``; the output has negative values, and the kernel's output
+    with the clamp (``relu=True``) must fail the same check."""
+    x, w, b = _inputs((13, 17, 22), ci, co, batch=2, seed=ci + co)
+    x, w, b = x.to(dtype).to(cuda), w.to(cuda), b.to(cuda)
+    _check(x, w, b, d, relu=False)
+    ref = conv3d_reference(x, w, b, d, relu=False)
+    assert bool((ref < 0).any())
+    clamped = conv3d_bias_relu(x, w, b, d)
+    torch.cuda.synchronize()
+    assert not chip_smoke.conv_check(clamped.cpu(), ref.cpu())[1]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+def test_batchnorm_stack_on_the_card_matches_the_cpu(cuda, packed):
+    """An f32 BatchNorm ``ConvStack`` with non-trivial statistics, eval
+    mode, on the card (K1 with relu=False, or the packed engine's folded
+    BatchNorm and K5) against the CPU's plain versions, 1e-4."""
+    from flypylib_tpu_torch.models import zoo
+    from flypylib_tpu_torch.ops.packed_conv import packed_spec
+
+    module = zoo.ConvStack(features=(8, 16, 16, 24), dilations=(1, 1, 2, 2),
+                           head_features=16, dtype=torch.float32,
+                           use_batchnorm=True)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for norm in module.norms:
+            for t, lo, hi in ((norm.scale, 0.5, 1.5), (norm.bias, -0.3, 0.3),
+                              (norm.mean, -0.3, 0.3), (norm.var, 0.5, 2.0)):
+                t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=g))
+    spec = zoo.ModelSpec(name="bn", module=module, context=6, min_size=13)
+    if packed:
+        spec = packed_spec(spec)
+    s = spec.valid_size(spec.min_size + 8)
+    x = np.random.default_rng(0).random((2, s, s, s, 1)).astype(np.float32)
+    with torch.no_grad():
+        want = spec.module(torch.from_numpy(x))
+        k1, k5 = conv3d_bias_relu.launches, parity_split_kernel.launches
+        got = spec.module.to(cuda)(torch.from_numpy(x).to(cuda))
+        torch.cuda.synchronize()
+    if packed:
+        assert parity_split_kernel.launches == k5 + 1
+    else:
+        assert conv3d_bias_relu.launches == k1 + 4
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["f32", "uint8"])
+@pytest.mark.parametrize("packed", [False, "auto"], ids=["plain", "packed"])
+def test_host_stream_on_the_card_equals_the_device_sweep(cuda, packed, dtype):
+    """``infer(host_stream=True)`` (pinned buffers, a copy stream, events)
+    against the whole-volume upload, bitwise, at tile batch 1 (one batch
+    per tile, so the two buffers turn over many times) and 3."""
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.infer.tiled import TiledInference
+
+    net = FplNetwork("baseline", device="cuda", packed=packed,
+                     features=(8, 16, 16, 24))
+    vol = np.random.default_rng(1).random((60, 52, 44)).astype(np.float32)
+    if dtype == "uint8":
+        vol = (vol * 255).astype(np.uint8)
+    for tile_batch in (1, 3):
+        eng = TiledInference(net.infer_spec, tile_out=16,
+                             tile_batch=tile_batch)
+        assert eng.n_batches(vol.shape) >= 12
+        want = eng.infer(vol)
+        got = eng.infer(vol, host_stream=True)
+        np.testing.assert_array_equal(got, want)
