@@ -6,7 +6,9 @@
                                        # with torch.profiler
 
 Phase 13 alone (after ``_build.build()``): ``chip_smoke.bn_roi_phase(
-chip_smoke.import_port(), chip_smoke.card())``.
+chip_smoke.import_port(), chip_smoke.card())``; phase 14 alone:
+``chip_smoke.multi_device_phase(port, card, vol, refs)`` with 10(a)'s
+volume and ``staged_phase(...)["refs"]``.
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -180,6 +182,35 @@ prints no result line):
    union; Mvox/s per ROI and in total.  (e) ``infer(host_stream=True)``
    bit for bit the whole-volume upload's map at 256^3, packed baseline and
    plain U-Net, both times printed.
+
+14. The multi-device layer (``flypylib_tpu_torch/parallel/``,
+   ``detect_large(devices=)``) on the one card, at the packed baseline's
+   full width (bf16, seed-0 weights) on 10(a)'s 256^3 volume.  (a) The
+   fan-out: staged ``devices=[cuda:0]`` (run as one device), ``* 2`` and
+   ``* 3`` and streamed ``* 2``, roi and shared, ``method="both"`` at core
+   128 and 10(a)'s tiling and threshold, and the plain baseline staged roi
+   on two slots: every list bit for bit the single-device call's, K5 (K1)
+   launched once (four times) per tile batch of the mode (the ROI sweep's,
+   or one band grid per band of ``_band_partition``); one and two slots of
+   each staged mode timed.  (b) ``sharded_infer`` over 1-D (4), 2-D
+   (2, 2) and 3-D (2, 2, 2) meshes of cuda:0 slots at tile 64, batch 8:
+   the map bit for bit ``TiledInference``'s at that tile and batch, K5
+   once per tile batch of every shard, and ``sharded_nms`` /
+   ``sharded_components`` on it equal to ``nms_host`` / ``components_host``;
+   whole blocks (no ``tile_out``: cuDNN at other shapes) held to the packed
+   map limit on the logits and their lists to the host reference on their
+   own map; Mvox/s beside ``TiledInference``.  (c) A world of one on NCCL
+   (a subprocess): the 1-D map and lists (b)'s bit for bit, and the f32 DP
+   step of the full-width baseline (packed, b32, patch 34) bit for bit the
+   single step, both timed.  (d) Two gloo ranks sharing the card
+   (subprocesses; NCCL refuses two ranks on one GPU): the 1-D and 2-D
+   meshes spanning both ranks give (b)'s map and lists bit for bit, and the
+   f32 DP steps of the baseline and of the BatchNorm baseline equal the
+   single step on the same global batch (loss rtol 1e-5, parameters atol
+   1e-5 where the gradient is not 0 up to rounding, gradients 1e-4 of the
+   largest), the loss the same on both ranks; two broken controls (local
+   mask counts, per-rank BatchNorm moments) must fail that check.  Times are
+   one card's: the cost of the fan-out, not a scaling.
 
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
@@ -3480,6 +3511,620 @@ def bn_roi_phase(port, card_str: str, vol: np.ndarray | None = None,
     return res
 
 
+# phase 14, the multi-device layer (parallel/, detect_large(devices=)) on
+# the one card: repeated cuda:0 slots, a world of one on NCCL, two gloo ranks
+FANOUT_CORE = 128  # 14(a): 8 ROIs of the 256^3 volume in two z-rows
+FANOUT_SLOTS = (1, 2, 3)  # the staged fan-out's lists of cuda:0
+SHARD_MESHES = (  # 14(b): (label, mesh shape, axis names)
+    ("1-D", (4,), ("space",)),
+    ("2-D", (2, 2), ("z", "y")),
+    ("3-D", (2, 2, 2), ("z", "y", "x")),
+)
+DIST_MESHES = SHARD_MESHES[:2]  # 14(d): meshes that span both gloo ranks
+SHARD_TILING = (64, 8)  # detect's tiling of the 256^3 volume
+DP_PATCH, DP_BATCH = 34, 32  # 14(c)/(d): the f32 full-width DP step
+DP_VOLUME = 64  # its training volume (random, seeded)
+DP_SEED = 3     # the generator both steps draw the global batch from
+# the reference's limits for DP == single (tests/test_parallel.py): loss
+# rtol, parameters atol after one Adam step; gradients per tensor relative
+# to its max |g|, 12(a)'s f32 limit.  DP_FALLBACK_ATOL (12(a)'s f32 limit)
+# holds the parameters instead if the ranks' sum order alone moves them
+# past DP_PARAM_ATOL.  The BatchNorm baseline's gradients: BatchNorm's
+# backward subtracts each channel's mean and its part along the normalised
+# input, which leaves the lower layers' gradients 30-45x smaller per layer
+# than the rounding from above (13(c)), so two f32 sum orders of the
+# full-width b32 step put them up to 2.8e-03 apart on an H100 (the control
+# with per-rank moments: 0.02-0.12); they are held to DP_BN_GRAD_TOL.
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_ATOL = 1e-5
+DP_GRAD_TOL = {"baseline": 1e-4, "bn": 1e-2}
+DP_FALLBACK_ATOL = 1e-4
+DP_ZERO_GRAD = 1e-6  # a gradient tensor below this fraction of the largest
+DP_TIMED_STEPS = 10
+WORKER_TIMEOUT = 300  # seconds a phase-14 subprocess may take
+
+
+def mesh_of(port, dims, axes, devices):
+    """A port mesh of ``dims`` over ``devices`` (this rank's slots)."""
+    P = port.parallel
+    if len(dims) == 1:
+        return P.make_mesh(dims[0], axis=axes[0], devices=devices)
+    if len(dims) == 2:
+        return P.make_mesh_2d(tuple(dims), axes=tuple(axes), devices=devices)
+    return P.make_mesh_3d(tuple(dims), axes=tuple(axes), devices=devices)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_models(port, small: bool) -> dict:
+    """The DP cases: ``{name: (make_spec, TrainConfig)}``.  Full width: the
+    f32 baseline (packed, b32, patch 34) and the f32 BatchNorm baseline
+    (plain); ``small``: the test stacks (features 4/6, dilations 1/2, head
+    8), batch 8, patch 10."""
+    zoo = port.models
+    from flypylib_tpu_torch.train import TrainConfig
+
+    kw = (dict(features=(4, 6), dilations=(1, 2), head_features=8) if small
+          else {})
+    patch, batch = (10, 8) if small else (DP_PATCH, DP_BATCH)
+
+    def bn():
+        m = zoo.ConvStack(dtype=torch.float32, use_batchnorm=True,
+                          generator=torch.Generator().manual_seed(0), **kw)
+        ctx = sum(kw.get("dilations", (1, 1, 2, 2)))
+        return zoo.ModelSpec(name="baseline_bn", module=m, context=ctx,
+                             min_size=2 * ctx + 1)
+
+    return {
+        "baseline": (lambda: zoo.baseline_model(dtype=torch.float32, seed=0,
+                                                **kw),
+                     TrainConfig(patch_size=patch, batch_size=batch,
+                                 engine="packed")),
+        "bn": (bn, TrainConfig(patch_size=patch, batch_size=batch,
+                               engine="plain")),
+    }
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN on deterministic algorithms for the block: its default
+    weight-gradient algorithms sum with atomics, so two runs of one step
+    differ in the last bits and only a deterministic pair can be compared
+    bit for bit."""
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def dp_case(port, device: str, make_spec, cfg, grad_tol: float,
+            control=None, timed: bool = False) -> dict:
+    """One DP step over a mesh of one slot a rank against the single-device
+    step on the same global batch (the same seed), from the same weights:
+    the loss's relative gap, the parameters' max gap (where the gradient is
+    not 0 within the gradients' limit; ``params_at_rounding`` counts the
+    others), the gradients' max gap relative to each tensor's largest (to
+    the largest of all for a tensor of rounding noise), and whether all
+    three are bit for bit; both steps on deterministic cuDNN algorithms.
+    ``control``: ``(name, value)`` patched into ``parallel/train.py`` for
+    the DP step (a broken control).  ``timed``: then also steps/s of both,
+    on the default algorithms."""
+    from flypylib_tpu_torch.parallel import train as ptrain
+    from flypylib_tpu_torch.train import TrainData
+    from flypylib_tpu_torch.train.trainer import TrainState, make_train_step
+
+    rng = np.random.default_rng(0)
+    size = 24 if cfg.batch_size <= 8 else DP_VOLUME
+    image = rng.random((size,) * 3).astype(np.float32)
+    labels = (rng.random((size,) * 3) > 0.9).astype(np.float32)
+    mask = (rng.random((size,) * 3) > 0.1).astype(np.float32)
+    dev = torch.device(device)
+    out, steps = {}, {}
+    for kind in ("single", "dp"):
+        spec = make_spec()
+        spec.module.to(dev)
+        ctx = (patched(ptrain, *control) if control and kind == "dp"
+               else contextlib.nullcontext())
+        with ctx, deterministic():
+            if kind == "dp":
+                mesh = port.parallel.make_mesh(devices=[device])
+                step, _, patch = port.parallel.make_dp_train_step(spec, cfg,
+                                                                  mesh)
+            else:
+                step, _, patch = make_train_step(spec, cfg)
+            data = TrainData.build(image, labels, mask, patch, device=dev)
+            state = TrainState.create(spec.module, cfg.learning_rate)
+            gen = torch.Generator(device=dev).manual_seed(DP_SEED)
+            reset_launch_counts()
+            m = step(state, gen, data)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = launch_counts()
+        out[kind] = (float(m["loss"]),
+                     {n: p.detach().float().cpu().clone()
+                      for n, p in spec.module.named_parameters()},
+                     {n: p.grad.detach().float().cpu().clone()
+                      for n, p in spec.module.named_parameters()},
+                     launches)
+        if timed:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                step(state, gen, data)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            steps[kind] = DP_TIMED_STEPS / (time.perf_counter() - t0)
+    (l1, p1, g1, _), (l2, p2, g2, launches) = out["single"], out["dp"]
+    # each gradient against its own tensor's scale; a tensor whose gradient
+    # is 0 up to rounding (below DP_ZERO_GRAD of the largest: a conv bias
+    # before BatchNorm, whose batch mean cancels it) against the largest
+    gmax = max(float(g1[n].abs().max()) for n in g1)
+    scale = {n: float(g1[n].abs().max()) for n in g1}
+    scale = {n: v if v > DP_ZERO_GRAD * gmax else gmax
+             for n, v in scale.items()}
+    # Adam's first step moves an element by lr * g / (|g| + eps): where the
+    # gradient is 0 up to the gradients' limit, two sum orders may move it
+    # by up to lr either way, so the parameters are compared elsewhere
+    live = {n: g1[n].abs() > grad_tol * scale[n] for n in g1}
+    res = {
+        "loss": l2, "single_loss": l1, "loss_rel": abs(l2 - l1) / abs(l1),
+        "param_err": max(float((p2[n] - p1[n])[live[n]].abs().max())
+                         if live[n].any() else 0.0 for n in p1),
+        "param_err_all": max(float((p2[n] - p1[n]).abs().max()) for n in p1),
+        "params_at_rounding": sum(int((~v).sum()) for v in live.values()),
+        "grad_errs": {n: float((g2[n] - g1[n]).abs().max()) / scale[n]
+                      for n in g1},
+        "bitwise": l1 == l2 and all(torch.equal(p1[n], p2[n]) for n in p1)
+        and all(torch.equal(g1[n], g2[n]) for n in g1),
+        "launches": {k: v for k, v in launches.items()
+                     if ":" not in k and v},
+    }
+    res["grad_err"] = max(res["grad_errs"].values())
+    res["grad_worst"] = max(res["grad_errs"], key=res["grad_errs"].get)
+    res["grad_scale"] = {n: v / gmax for n, v in scale.items()}
+    res["grad_tol"] = grad_tol
+    if timed:
+        res["steps_per_s"] = steps
+    return res
+
+
+def dp_ok(res: dict, param_atol: float = DP_PARAM_ATOL) -> bool:
+    """The DP == single check: loss, parameters and gradients within their
+    limits (the gradients' is the case's ``grad_tol``)."""
+    return (res["loss_rel"] <= DP_LOSS_RTOL and res["param_err"] <= param_atol
+            and res["grad_err"] <= res["grad_tol"])
+
+
+def dist_worker(cfg: dict) -> int:
+    """One rank of a phase-14 world (14(c), 14(d), and the CPU rehearsal in
+    ``tests/test_torch_distributed.py``): joins the world, sums a value
+    over it, runs ``sharded_infer`` / ``sharded_nms`` /
+    ``sharded_components`` over each of ``cfg["meshes"]`` (rank 0 writes
+    the gathered map and the lists under ``cfg["out"]``), then the DP cases
+    ``cfg["dp"]`` against the single-device step.  Prints one JSON line."""
+    port = import_port()
+    P = port.parallel
+    from flypylib_tpu_torch.parallel import distributed
+
+    device, world, rank = cfg["device"], cfg["world"], cfg["rank"]
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    t0 = time.perf_counter()
+    P.ensure_initialized(f"localhost:{cfg['port']}", world, rank,
+                         backend=cfg["backend"])
+    res = {"rank": rank, "world": torch.distributed.get_world_size(),
+           "backend": torch.distributed.get_backend(),
+           "psum": float(distributed.all_reduce_sum(
+               torch.tensor([rank + 1.0], device=device))[0]),
+           "local_batch": P.local_batch_size(8), "sharded": {}, "dp": {}}
+    kw = (dict(features=(4, 6), dilations=(1, 2), head_features=8,
+               dtype=torch.float32) if cfg["small"] else {})
+    spec = port.FplNetwork("baseline", device=device, seed=0, **kw).infer_spec
+    vol = make_volume_u8(cfg["volume"], max(1, cfg["volume"] // 16), seed=0)
+    out = Path(cfg["out"])
+    tile, batch = cfg["tiling"]
+    for label, dims, axes in cfg["meshes"]:
+        n = int(np.prod(dims))
+        mesh = mesh_of(port, dims, axes, [device] * (n // world))
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        prob = P.sharded_infer(spec, None, vol, mesh, axis=tuple(axes),
+                               tile_out=tile, tile_batch=batch)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        t_inf = time.perf_counter() - t1
+        launches = launch_counts()["parity_split_kernel"]
+        full = prob.gather()
+        thr = cfg["threshold"]
+        nms = P.sharded_nms(prob, mesh, tuple(axes), NMS_WINDOW, thr)
+        cc = P.sharded_components(prob, mesh, tuple(axes), thr)
+        if rank == 0:
+            np.save(out / f"{label}.npy", full)
+            np.savez(out / f"{label}_lists.npz", nms_locs=nms.locs,
+                     nms_conf=nms.conf, cc_locs=cc.locs, cc_conf=cc.conf)
+        res["sharded"][label] = {"k5_launches": launches, "n_nms": len(nms),
+                                 "n_cc": len(cc), "infer_s": t_inf}
+    models = dp_models(port, cfg["small"])
+    from flypylib_tpu_torch.parallel import train as ptrain
+
+    controls = {"local_count": ("baseline", ("_global_count", lambda c: c)),
+                "local_moments": ("bn", ("_global_moments", lambda s: s))}
+    tols = cfg.get("grad_tol", DP_GRAD_TOL)
+    for case in cfg["dp"]:
+        model, control = controls.get(case, (case, None))
+        assert control is None or hasattr(ptrain, control[0])
+        res["dp"][case] = dp_case(port, device, *models[model], tols[model],
+                                  control=control,
+                                  timed=cfg.get("timed", False))
+    res["seconds"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def run_dist_workers(cfg: dict, world: int) -> list[dict]:
+    """``world`` ranks of :func:`dist_worker` as subprocesses on a free
+    localhost port, each within WORKER_TIMEOUT; their JSON lines in rank
+    order.  A rank that fails or times out fails the phase, and every
+    process is stopped."""
+    cfg = {**cfg, "port": free_port(), "world": world}
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "sys.exit(chip_smoke.dist_worker(json.loads(sys.argv[2])))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), json.dumps({**cfg,
+                                                            "rank": r})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    results = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                so, se = p.communicate(timeout=WORKER_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                require(False, f"rank {r} of {world} ({cfg['backend']}) did "
+                               f"not finish in {WORKER_TIMEOUT} s")
+            require(p.returncode == 0, f"rank {r} of {world} "
+                                       f"({cfg['backend']}) failed:\n"
+                                       f"{se[-3000:]}")
+            results.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def same_list_bitwise(got, ref, what: str) -> None:
+    """Detection lists bit for bit: same length, order, locations, conf."""
+    require(len(got) == len(ref) and np.array_equal(got.locs, ref.locs)
+            and np.array_equal(np.asarray(got.conf, np.float64),
+                               np.asarray(ref.conf, np.float64)),
+            f"{what}: {len(got)} detections differ from the reference's "
+            f"{len(ref)}")
+
+
+def fanout_batches(plan, forward: str, n: int, rpb: int | None = None) -> int:
+    """Tile batches a ``devices=`` list of ``n`` slots runs: the ROI sweep's
+    (unchanged by the fan-out), the whole-volume grid (one slot), or one
+    band grid per band of :meth:`_band_partition` (or of ``rpb`` rows, the
+    streaming bands)."""
+    if forward == "roi":
+        return len(plan.grid) * plan.pipe.n_batches
+    if rpb is None:
+        if n == 1:
+            return plan.full_pipe().n_batches
+        rpb, nb, _ = plan._band_partition(n)
+        if nb == 1:
+            return plan.full_pipe().n_batches
+    return len(plan._band_starts(rpb)) * plan.band_pipe(rpb).n_batches
+
+
+def check_fanout(port, card_str: str, vol: np.ndarray, refs: dict) -> dict:
+    """14(a): ``detect_large(devices=)`` on lists of cuda:0 slots.  The
+    packed baseline staged (lists of one, two and three slots; one runs
+    the single-device path) and
+    streamed (two slots), roi and shared, ``method="both"`` at core
+    FANOUT_CORE and 10(a)'s tiling and threshold; the plain baseline
+    staged roi on two slots.  Every list must equal the single-device
+    call's bit for bit, and each call launch K5 (K1) once (four times) per
+    tile batch its mode runs.  Times one and two slots of each staged
+    mode."""
+    from flypylib_tpu_torch.infer.large import make_stream_plan
+    from flypylib_tpu_torch.infer.tiled import default_tiling
+
+    cuda0 = torch.device("cuda", 0)
+    counts, times = {}, {}
+    for label, kw in (("packed baseline", {}),
+                      ("plain baseline", {"packed": False})):
+        packed = not kw
+        net = port.FplNetwork("baseline", device="cuda", seed=0, **kw)
+        thr = refs[label][0]
+        tiling = default_tiling(net.infer_spec, vol.shape)
+        for forward in ("roi", "shared") if packed else ("roi",):
+            plan = make_stream_plan(net.infer_spec, None, vol.shape,
+                                    core=FANOUT_CORE, tile_out=tiling[0],
+                                    tile_batch=tiling[1], window=NMS_WINDOW,
+                                    threshold=thr, method="both")
+            kw_call = dict(threshold=thr, method="both", forward=forward,
+                           plan=plan)
+            for staged in (True, False) if packed else (True,):
+                want = net.detect_large(vol, staged=staged, **kw_call)
+                for n in (FANOUT_SLOTS if staged and packed else (2,)):
+                    rpb = None
+                    if not staged and forward == "shared":
+                        rpb = min(plan.band_rpb(1, cost_gate=False),
+                                  plan._band_partition(n)[0])
+                    reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = net.detect_large(vol, staged=staged,
+                                           devices=[cuda0] * n, **kw_call)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    got_counts = launch_counts()
+                    nb = fanout_batches(plan, forward, n, rpb)
+                    mode = "staged" if staged else "streamed"
+                    what = (f"{label} detect_large({mode}, {forward}, "
+                            f"devices=[cuda:0] * {n})")
+                    require(got_counts == staged_launch_want(packed, nb),
+                            f"{what}: launches {got_counts}, expected "
+                            f"{staged_launch_want(packed, nb)}")
+                    for g, w, m in zip(got, want, ("nms", "components")):
+                        same_list_bitwise(g, w, f"{what} {m} vs one device")
+                    counts[(label, mode, forward, n)] = got_counts
+                    print(f"{what}: {nb} tile batches, launches K1 "
+                          f"{got_counts['conv3d_bias_relu']} K5 "
+                          f"{got_counts['parity_split_kernel']}; nms "
+                          f"{len(got[0])}, components {len(got[1])}: bit for "
+                          f"bit the single-device call's; {dt * 1e3:.2f} ms "
+                          f"(first call of its list) [{card_str}]",
+                          flush=True)
+            if packed:
+                for n in (1, 2):
+                    devs = [cuda0] * n
+                    times[(forward, n)] = median_s(
+                        lambda: net.detect_large(vol, devices=devs,
+                                                 **kw_call))
+                print(f"{label} detect_large staged {forward} both "
+                      f"{VOLUME}^3: one slot {times[(forward, 1)] * 1e3:.2f} "
+                      f"ms, devices=[cuda:0] * 2 "
+                      f"{times[(forward, 2)] * 1e3:.2f} ms (one card: the "
+                      f"cost of the fan-out, not a scaling) [{card_str}]",
+                      flush=True)
+        del net
+        torch.cuda.empty_cache()
+    return {"launches": counts, "times": times}
+
+
+def shard_tile_batches(prob, tile: int, batch: int) -> int:
+    """Tile batches of ``sharded_infer``'s sweep: per shard the tiles of its
+    block, in batches of ``min(batch, tiles)``."""
+    tiles = int(np.prod([-(-e // tile) for e in prob.extent]))
+    per = -(-tiles // min(batch, tiles))
+    return per * int(np.prod(prob.grid))
+
+
+def check_sharded(port, card_str: str, vol: np.ndarray) -> dict:
+    """14(b): ``sharded_infer`` over meshes of cuda:0 slots at detect's
+    tiling (SHARD_TILING) on the packed baseline: the map bit for bit
+    ``TiledInference``'s at that tile and batch, K5 once per tile batch of
+    every shard, and ``sharded_nms`` / ``sharded_components`` on the
+    sharded map equal to ``nms_host`` / ``components_host`` on it.  Then
+    the whole-block forward (no ``tile_out``: cuDNN at other shapes) held
+    to the packed map limit on the logits, its lists to the host reference
+    on its own map.  Times each mesh beside ``TiledInference``."""
+    from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
+
+    P = port.parallel
+    net = port.FplNetwork("baseline", device="cuda", seed=0)
+    spec = net.infer_spec
+    tile, batch = SHARD_TILING
+    want = net.infer(vol, tile, batch, keep_on_device=True)
+    thr = float(torch.topk(want.reshape(-1), N_CAND).values[-1])
+    host = want.cpu().numpy()
+    ref = {"nms": nms_host(host, window=NMS_WINDOW, threshold=thr),
+           "components": components_host(host, threshold=thr)}
+    n_tiled = net.tiled_inference(vol.shape, tile, batch).n_batches(vol.shape)
+    t_tiled = median_s(lambda: net.infer(vol, tile, batch,
+                                         keep_on_device=True))
+    mvox = vol.size / 1e6
+    res = {"map": host, "thr": thr, "ref": ref, "launches": {},
+           "mvox_s": {"TiledInference": mvox / t_tiled}}
+    for label, dims, axes in SHARD_MESHES:
+        mesh = mesh_of(port, dims, axes, ["cuda:0"] * int(np.prod(dims)))
+        reset_launch_counts()
+        prob = P.sharded_infer(spec, None, vol, mesh, axis=axes,
+                               tile_out=tile, tile_batch=batch)
+        torch.cuda.synchronize()
+        k5 = launch_counts()
+        nb = shard_tile_batches(prob, tile, batch)
+        require(k5 == staged_launch_want(True, nb),
+                f"sharded_infer {label}: launches {k5}, expected "
+                f"{staged_launch_want(True, nb)}")
+        require(np.array_equal(prob.gather(), host),
+                f"sharded_infer {label} at tile {tile} batch {batch} is not "
+                "TiledInference's map bit for bit")
+        got = {"nms": P.sharded_nms(prob, mesh, axes, NMS_WINDOW, thr),
+               "components": P.sharded_components(prob, mesh, axes, thr)}
+        for m in got:
+            same_list_bitwise(got[m], ref[m], f"sharded {m} {label}")
+        t = median_s(lambda: P.sharded_infer(spec, None, vol, mesh, axis=axes,
+                                             tile_out=tile, tile_batch=batch))
+        res["launches"][label] = k5["parity_split_kernel"]
+        res["mvox_s"][label] = mvox / t
+        print(f"sharded_infer {label} mesh {dims} of cuda:0 ({VOLUME}^3 "
+              f"uint8, packed baseline bf16, tile {tile} batch {batch}): the "
+              f"map bit for bit TiledInference's, K5 {nb} launches; nms "
+              f"{len(got['nms'])}, components {len(got['components'])} equal "
+              f"the host reference; {mvox / t:.3f} Mvox/s against "
+              f"TiledInference's {mvox / t_tiled:.3f} (one card: the cost of "
+              f"the exchange and the per-slot sweep) [{card_str}]",
+              flush=True)
+        del prob
+    # the whole-block forward: one shard input of 76 x 268 x 268
+    label, dims, axes = SHARD_MESHES[0]
+    mesh = mesh_of(port, dims, axes, ["cuda:0"] * dims[0])
+    reset_launch_counts()
+    prob = P.sharded_infer(spec, None, vol, mesh, axis=axes)
+    torch.cuda.synchronize()
+    k5 = launch_counts()
+    require(k5 == staged_launch_want(True, dims[0]),
+            f"whole-block sharded_infer: launches {k5}")
+    whole = prob.gather()
+    err = float(np.abs(logits(whole) - logits(host)).max())
+    require(np.isfinite(err) and err <= PACKED_LOGIT_TOL_BF16,
+            f"whole-block sharded_infer logits differ from the tiled map's "
+            f"by {err} (limit {PACKED_LOGIT_TOL_BF16})")
+    thr_w = float(np.sort(whole.reshape(-1))[-N_CAND])
+    got = {"nms": P.sharded_nms(prob, mesh, axes, NMS_WINDOW, thr_w),
+           "components": P.sharded_components(prob, mesh, axes, thr_w)}
+    same_list_bitwise(got["nms"], nms_host(whole, window=NMS_WINDOW,
+                                           threshold=thr_w),
+                      "whole-block sharded nms")
+    same_list_bitwise(got["components"], components_host(whole,
+                                                         threshold=thr_w),
+                      "whole-block sharded components")
+    t = median_s(lambda: P.sharded_infer(spec, None, vol, mesh, axis=axes))
+    res["mvox_s"]["1-D whole block"] = mvox / t
+    res["launches"]["1-D whole block"] = k5["parity_split_kernel"]
+    print(f"sharded_infer 1-D whole blocks (no tile_out): max|dlogit| {err:.6g} "
+          f"against the tiled map (limit {PACKED_LOGIT_TOL_BF16}); nms "
+          f"{len(got['nms'])}, components {len(got['components'])} equal the "
+          f"host reference on its map; {mvox / t:.3f} Mvox/s [{card_str}]",
+          flush=True)
+    del net, prob
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_worlds(port, card_str: str, sharded: dict) -> dict:
+    """14(c) a world of one on NCCL and 14(d) two gloo ranks sharing the
+    card (NCCL refuses two ranks on one GPU), each rank a subprocess
+    (:func:`run_dist_workers`).  Both: the maps of their meshes bit for bit
+    (b)'s and the lists (b)'s; (c) the DP step bit for bit the
+    single-process step, with both timed; (d) the f32 DP step of the
+    full-width baseline and of the BatchNorm baseline within the
+    reference's limits (:func:`dp_ok`), the loss the same on both ranks,
+    and the two broken controls (local mask counts, per-rank BatchNorm
+    moments) failing the same check."""
+    out = ROOT / "build" / "phase14"
+    out.mkdir(parents=True, exist_ok=True)
+    base = {"device": "cuda:0", "small": False, "volume": VOLUME,
+            "threshold": sharded["thr"], "tiling": list(SHARD_TILING),
+            "out": str(out)}
+    res = {}
+    for world, backend, meshes, dp in (
+            (1, "nccl", SHARD_MESHES[:1], ["baseline"]),
+            (2, "gloo", DIST_MESHES,
+             ["baseline", "bn", "local_count", "local_moments"])):
+        for f in out.glob("*"):
+            f.unlink()
+        t0 = time.perf_counter()
+        ranks = run_dist_workers({**base, "backend": backend,
+                                  "meshes": [list(m) for m in meshes],
+                                  "dp": dp, "timed": world == 1}, world)
+        dt = time.perf_counter() - t0
+        what = f"world of {world} on {backend}"
+        for r in ranks:
+            require(r["world"] == world and r["backend"] == backend
+                    and r["psum"] == world * (world + 1) / 2
+                    and r["local_batch"] == 8 // world,
+                    f"{what}: rank {r['rank']} read {r}")
+        for label, dims, axes in meshes:
+            got = np.load(out / f"{label}.npy")
+            require(np.array_equal(got, sharded["map"]),
+                    f"{what}: {label} map is not 14(b)'s bit for bit")
+            lists = np.load(out / f"{label}_lists.npz")
+            for m, key in (("nms", "nms"), ("components", "cc")):
+                ref = sharded["ref"][m]
+                require(np.array_equal(lists[f"{key}_locs"], ref.locs)
+                        and np.array_equal(lists[f"{key}_conf"],
+                                           np.asarray(ref.conf, np.float64)),
+                        f"{what}: {label} {m} list differs from 14(b)'s")
+        dps = [r["dp"] for r in ranks]
+        if world == 1:
+            d = dps[0]["baseline"]
+            require(d["bitwise"], f"{what}: the DP step is not the single "
+                                  f"step bit for bit: {d}")
+            sps = d["steps_per_s"]
+            print(f"{what}: sharded_infer 1-D map and lists bit for bit "
+                  f"14(b)'s; the f32 DP step (full-width baseline, packed, "
+                  f"b{DP_BATCH}, patch {DP_PATCH}) bit for bit the single "
+                  f"step, launches {d['launches']}; DP {sps['dp']:.3f} "
+                  f"steps/s beside the plain trainer's {sps['single']:.3f} "
+                  f"(world of one: the cost of the collectives, not a "
+                  f"scaling); {dt:.1f} s with start-up [{card_str}]",
+                  flush=True)
+        else:
+            require(dps[0]["baseline"]["loss"] == dps[1]["baseline"]["loss"],
+                    f"{what}: the ranks' DP losses differ")
+            sound = ("baseline", "bn")
+            worst = max(dps[r][c]["param_err"] for r in range(2) for c in sound)
+            limit = DP_PARAM_ATOL
+            if worst > DP_PARAM_ATOL:
+                print(f"{what}: the DP parameters read {worst:.3g} from the "
+                      f"single step's, past {DP_PARAM_ATOL:g}: held to "
+                      f"{DP_FALLBACK_ATOL:g} (12(a)'s f32 limit)", flush=True)
+                limit = DP_FALLBACK_ATOL
+            for r in range(2):
+                for case, d in dps[r].items():
+                    ok = dp_ok(d, limit)
+                    require(ok == (case in sound),
+                            f"{what} rank {r}: DP case {case} "
+                            f"{'fails' if case in sound else 'passes'} the "
+                            f"check: {d}")
+            for case, d in dps[0].items():
+                print(f"{what}: DP {case} (f32, b{DP_BATCH}, patch "
+                      f"{DP_PATCH}): loss rel {d['loss_rel']:.3g}, params "
+                      f"{d['param_err']:.3g}, grads {d['grad_err']:.3g} of "
+                      f"a tensor's max |g| (worst {d['grad_worst']}) -> "
+                      f"{'within' if case in sound else 'fails'} (limits "
+                      f"{DP_LOSS_RTOL:g}, {limit:g}, {d['grad_tol']:g}); "
+                      f"params over all elements {d['param_err_all']:.3g}; "
+                      f"launches {d['launches']} "
+                      f"[{card_str}]", flush=True)
+            print(f"{what}: sharded_infer / nms / components over "
+                  f"{', '.join(m[0] for m in meshes)} meshes spanning both "
+                  f"ranks bit for bit 14(b)'s; {dt:.1f} s with start-up "
+                  f"[{card_str}]", flush=True)
+        res[backend] = {"ranks": ranks, "seconds": dt}
+    for f in out.glob("*"):
+        f.unlink()
+    return res
+
+
+def multi_device_phase(port, card_str: str, vol: np.ndarray,
+                       refs: dict) -> dict:
+    """Phase 14: the fan-out (a), sharded meshes of cuda:0 slots (b), a
+    world of one on NCCL (c) and two gloo ranks (d), with (e)'s one-card
+    times printed by each."""
+    t0 = time.perf_counter()
+    res = {"fanout": check_fanout(port, card_str, vol, refs)}
+    t1 = time.perf_counter()
+    res["sharded"] = check_sharded(port, card_str, vol)
+    t2 = time.perf_counter()
+    res["worlds"] = check_worlds(port, card_str, res["sharded"])
+    t3 = time.perf_counter()
+    res["seconds"] = t3 - t0
+    print(f"phase 14 (multi-device on one card): {t3 - t0:.1f} s = fan-out "
+          f"{t1 - t0:.1f} + sharded meshes {t2 - t1:.1f} + worlds "
+          f"{t3 - t2:.1f} [{card_str}]", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3641,6 +4286,18 @@ def main(argv=None) -> int:
                    **bn["train"]["launches_per_step"]}
     bn_runs = bn["paths"]
 
+    # 14. the multi-device layer on the one card: detect_large(devices=),
+    #     sharded meshes of cuda:0 slots, a world of one on NCCL, two gloo
+    #     ranks
+    multi = multi_device_phase(port, card_str, vol, staged["refs"])
+    fan = multi["fanout"]["launches"]
+    worlds = multi["worlds"]
+
+    def world_launches(name: str) -> dict:
+        return {f"{backend} rank {r['rank']} {case}": d["launches"].get(name, 0)
+                for backend, w in worlds.items() for r in w["ranks"]
+                for case, d in r["dp"].items()}
+
     def per_step(name: str) -> dict:
         return {case: c[name] for case, c in train_steps.items() if name in c}
 
@@ -3668,6 +4325,12 @@ def main(argv=None) -> int:
             for fwd in ("roi", "shared")},
         "train_launches_per_step": per_step("conv3d_bias_relu"),
         "train_step_ms": train["kernel_times"]["conv3d_bias_relu"],
+        "multi_device_launches": {
+            **{f"{lab} {mode} {fwd} devices=[cuda:0] * {n} both 256^3":
+               c["conv3d_bias_relu"] for (lab, mode, fwd, n), c in fan.items()
+               if lab == "plain baseline"},
+            **{f"DP step {k}": v for k, v in world_launches(
+                "conv3d_bias_relu").items() if v}},
         "relu_false": {
             **bn["k1"],
             "launches": {r: bn_runs["plain baseline_bn"]["launches"][
@@ -3751,6 +4414,17 @@ def main(argv=None) -> int:
         "bn_launches": bn_runs["packed baseline_bn"]["launches"][
             "parity_split_kernel"],
         "stream_rois_launches": bn["rois"]["launches"]["parity_split_kernel"],
+        "multi_device_launches": {
+            **{f"{lab} {mode} {fwd} devices=[cuda:0] * {n} both 256^3":
+               c["parity_split_kernel"] for (lab, mode, fwd, n), c in
+               fan.items() if lab == "packed baseline"},
+            **{f"sharded_infer {m} 256^3": n for m, n in
+               multi["sharded"]["launches"].items()},
+            **{f"{backend} rank {r['rank']} sharded_infer {m} 256^3":
+               v["k5_launches"] for backend, w in worlds.items()
+               for r in w["ranks"] for m, v in r["sharded"].items()},
+            **{f"DP step {k}": v for k, v in world_launches(
+                "parity_split_kernel").items() if v}},
         "at": "packed baseline stage-A -> stage-B boundary, bf16, one tile "
               "batch; launches from the packed baseline path",
     })

@@ -24,6 +24,14 @@ Either runs one of two forward modes:
   outside the volume, the rule ``mask_valid_region`` applies per ROI,
   applied once), and each postprocess box is a window of that map.
 
+``devices=`` fans either transport over several devices (or repeated
+slots of one): ROI forwards round-robin over them, shared forwards split
+the grid's z-rows into one band per device.  The staged volume and the
+module are copied once per distinct device (``parallel/mesh.per_device``);
+every device forwards the same plan and tiling with
+:meth:`DetectPipeline.forward_from`, and the merge runs in grid order, so
+the lists are bitwise the single-device call's.
+
 A postprocess box keeps the candidates of its own core only, so a detection
 at a seam is reported exactly once, with exactly the whole-volume decision:
 NMS candidates (local maximum over a ``window`` box, -inf outside the
@@ -37,12 +45,13 @@ host copy.  The lists equal the host reference's on the whole-volume map,
 in every mode and transport.
 
 Left out, as the reference's TPU and XLA workarounds: the compile caches,
-the dispatch-ahead pipelining and ``copy_to_host_async``, the donated
-buffers, and the slot caps with their grow-and-retry:
-``max_detections_per_roi`` and ``max_components_per_roi`` are accepted
-under their reference names and bound nothing (``torch.nonzero`` compacts
-every candidate).  Not ported yet: ``devices=`` with more than one device,
-which raises ``NotImplementedError`` with its ROADMAP item.
+``copy_to_host_async``, the donated buffers, and the slot caps with their
+grow-and-retry: ``max_detections_per_roi`` and ``max_components_per_roi``
+are accepted under their reference names and bound nothing
+(``torch.nonzero`` compacts every candidate).  Of the reference's
+dispatch-ahead only what the fan-out needs is kept: with ``n`` devices
+about ``n`` forwards (ROIs or bands) are queued before a box's copy to the
+host waits for the oldest.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import os
 import queue
 import threading
 import time
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -70,18 +80,12 @@ from flypylib_tpu_torch.ops.components import (compact_true_indices,
                                                merge_component_fragments)
 from flypylib_tpu_torch.ops.host_reference import sort_detections
 from flypylib_tpu_torch.ops.nms import mask_valid_region, max_filter
+from flypylib_tpu_torch.parallel.mesh import as_device, per_device
 from flypylib_tpu_torch.utils import round_up, to3d
 
 # the dataset h5_reader opens when none is named and the file has it (the
 # reference's io/hdf5.py default)
 DEFAULT_DATASET = "main"
-
-_MULTI = "ROADMAP.md queue 1, item 7 (multi-GPU)"
-
-
-def _not_ported(what: str, item: str = _MULTI):
-    return NotImplementedError(f"{what} is not ported to flypylib_tpu_torch "
-                               f"yet: {item}")
 
 
 def array_reader(vol: np.ndarray):
@@ -171,12 +175,15 @@ def memory_bytes(device) -> tuple[int, int]:
             os.sysconf("SC_PHYS_PAGES") * page)
 
 
-def staged_fits(vol: np.ndarray, device, headroom: float = 0.6) -> bool:
+def staged_fits(vol: np.ndarray, device, headroom: float = 0.6,
+                n_devices: int = 1) -> bool:
     """True when the staged mode fits ``device``: the volume at its wire
-    dtype plus the f32 probability shell within ``headroom`` of the
+    dtype plus this device's share of the f32 probability shell (z-bands
+    split it about evenly over ``n_devices``) within ``headroom`` of the
     device's total memory (the reference's ``_staged_fits_hbm``
     arithmetic, against the card's own size)."""
-    return vol.nbytes + 4 * vol.size <= headroom * memory_bytes(device)[1]
+    shell = 4 * vol.size / max(1, int(n_devices))
+    return vol.nbytes + shell <= headroom * memory_bytes(device)[1]
 
 
 class _StreamPlan:
@@ -483,13 +490,20 @@ class _StreamPlan:
             return tuple(results)
         return results[0]
 
-    def consume(self, outs, progress=None):
+    def consume(self, outs, progress=None, ahead: int = 1):
         """Postprocess and merge an iterator of ``(key, corner, out, vlo,
-        vhi)`` ROI forwards (ROI mode), one ROI at a time, so one ROI map is
-        held at once."""
+        vhi)`` ROI forwards (ROI mode) in grid order.  ``ahead`` forwards
+        are drawn (so queued on their devices) before the oldest one's box
+        is copied to the host: one ROI map is held at a time with the
+        default, about ``ahead`` with the fan-out."""
         self._start()
+        pend = deque()
         for item in outs:
-            self._collect(self._dispatch(*item), progress)
+            pend.append(item)
+            if len(pend) >= ahead:
+                self._collect(self._dispatch(*pend.popleft()), progress)
+        while pend:
+            self._collect(self._dispatch(*pend.popleft()), progress)
         return self._finalize()
 
     # -- shared whole-volume forward ----------------------------------------
@@ -673,18 +687,38 @@ class _StreamPlan:
                 max(sy, h + fp._out_shape[1]), max(sx, h + fp._out_shape[2]))
 
     @torch.no_grad()
+    def _band_shell(self, src: torch.Tensor, at, b0: int, fp: DetectPipeline,
+                    module=None) -> torch.Tensor:
+        """Forward one z-band into a -inf band shell on ``src``'s device:
+        the band's tiles read ``src`` from ``at``, where global ``(b0 - h -
+        ctx, -ctx, -ctx)`` lies; ``module`` as in ``forward_slabs``."""
+        h, tin = self.h, fp._tin
+        _, py, px = fp.padded_shape
+        z0, y0, x0 = at
+        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
+                           dtype=torch.float32, device=src.device)
+        fp.forward_slabs(
+            lambda zs: src[z0 + zs:z0 + zs + tin, y0:y0 + py, x0:x0 + px],
+            out=shell, offset=(0, h, h), module=module)
+        return self._mask_shell(shell, b0 - h)
+
     def shared_prob_band_local(self, W: torch.Tensor, b0: int,
-                               fp: DetectPipeline) -> torch.Tensor:
+                               fp: DetectPipeline, module=None) -> torch.Tensor:
         """Forward one z-band from its band-local padded window ``W`` (from
         :func:`_band_window`: index 0 at global ``(b0 - h - ctx, -ctx,
         -ctx)``) into a -inf band shell on ``W``'s device."""
-        h, tin = self.h, fp._tin
-        _, py, px = fp.padded_shape
-        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
-                           dtype=torch.float32, device=W.device)
-        fp.forward_slabs(lambda zs: W[zs:zs + tin, :py, :px], out=shell,
-                         offset=(0, h, h))
-        return self._mask_shell(shell, b0 - h)
+        return self._band_shell(W, (0, 0, 0), b0, fp, module)
+
+    def shared_prob_band(self, big: torch.Tensor, halo: int, b0: int,
+                         fp: DetectPipeline, module=None) -> torch.Tensor:
+        """Forward one z-band of a staged volume ``big`` (reflect-padded by
+        ``halo`` and zero-extended past the last band's tiles) into its
+        band shell on ``big``'s device: the probabilities of global z
+        ``[b0 - h, b0 - h + band extent)``, bitwise the whole-volume
+        shell's there."""
+        off = halo - self.ctx  # >= h: the staged halo holds the fetch halo
+        return self._band_shell(big, (off + b0 - self.h, off, off), b0, fp,
+                                module)
 
     def _post_bytes(self) -> int:
         """Bytes of the largest postprocess box's temporaries (~6 f32
@@ -708,15 +742,18 @@ class _StreamPlan:
         return (n_sh * fp._tin ** 3
                 <= 0.85 * len(self.grid) * n_roi * self.pipe._tin ** 3)
 
-    def band_rpb(self, itemsize: int = 4, cost_gate: bool = True):
+    def band_rpb(self, itemsize: int = 4, cost_gate: bool = True,
+                 shells: int = 2):
         """Rows per band of the out-of-core shared forward: the largest
         whose peak fits the device now, or ``None`` when none fits or, with
         ``cost_gate``, when the band grids would not cut the conv input
         voxels against the per-ROI sweep (:meth:`_shared_cost_ok`).  The
-        peak holds two band shells, two band windows of ``itemsize`` bytes a
-        voxel, one tile batch's activations (``act_bytes_per_voxel``) and
-        the largest box's temporaries, within 90% of the device's available
-        memory (``memory_bytes``), as :meth:`shared_auto` counts."""
+        peak holds ``shells`` band shells (two on one device; more when the
+        fan-out queues several bands on one), two band windows of
+        ``itemsize`` bytes a voxel, one tile batch's activations
+        (``act_bytes_per_voxel``) and the largest box's temporaries, within
+        90% of the device's available memory (``memory_bytes``), as
+        :meth:`shared_auto` counts."""
         n_rows = len({c[0] for _, c in self.grid}) or 1
         avail = 0.9 * memory_bytes(self.device)[0]
         post = self._post_bytes()
@@ -729,53 +766,81 @@ class _StreamPlan:
             z_top = max(zs for zs, _ in fp._slabs) + fp._tin
             _, py, px = fp.padded_shape
             window = int(itemsize) * z_top * py * px
-            if 2 * shell + 2 * window + self._act_bytes(fp) + post > avail:
+            if (shells * shell + 2 * window + self._act_bytes(fp) + post
+                    > avail):
                 continue
             if cost_gate and not self._shared_cost_ok(fp, nb):
                 return None
             return rpb
         return None
 
-    def consume_shared_stream(self, shell_for, rpb: int, progress=None):
+    def consume_shared_stream(self, shell_for, rpb: int, progress=None,
+                              n_devices: int = 1):
         """:meth:`consume_shared` over band shells built lazily:
-        ``shell_for(band, b0)`` runs once per band, in grid z-row order, and
-        the previous band's shell is dropped first, so one band shell is
-        held at a time.  Grid order is kept, so the merge is the
+        ``shell_for(band, b0)`` runs once per band, in grid z-row order.
+        Each band's shell and the next ``n_devices - 1`` bands' are built
+        (their forwards queued, one per device of the fan-out) before its
+        boxes are copied back, and its shell is dropped after them: one
+        band shell is held at a time on one device, about ``n_devices``
+        with the fan-out.  Grid order is kept, so the merge is the
         whole-volume sweep's."""
         b0s = self._band_starts(rpb)
         nb = len(b0s)
         self._start()
+        shells = {}
         for band, b0 in enumerate(b0s):
             entries = [(k, c) for k, c in self.grid
                        if min(k[0] // rpb, nb - 1) == band]
             shell = None  # the previous band's, dropped before the forward
-            shell = shell_for(band, b0)
+            for k in range(band, min(band + max(1, int(n_devices)), nb)):
+                if k not in shells:
+                    shells[k] = shell_for(k, b0s[k])
+            shell = shells.pop(band)
             for key, corner, dims in self._shared_boxes(entries):
                 local = (corner[0] - b0, corner[1], corner[2])
                 self._collect(self._dispatch_shared(key, corner, shell, dims,
                                                     local), progress)
         return self._finalize()
 
-    def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1) -> bool:
+    def consume_shared_multi(self, shells, rpb: int, progress=None):
+        """:meth:`consume_shared` over per-band shells built already (one
+        per device of the staged fan-out); each box is postprocessed on its
+        band's shell, in grid order."""
+        return self.consume_shared_stream(lambda band, b0: shells[band], rpb,
+                                          progress)
+
+    def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1,
+                    devices=None) -> bool:
         """True when the shared forward's peak fits the device now: the -inf
         shell, one tile batch's activations (``act_bytes_per_voxel``) and
         the largest postprocess box's temporaries (~6 f32 copies of it)
         within 90% of the device's available memory (``memory_bytes``).
-        ``staged_bytes`` is accepted under the reference's signature and not
-        added: the staged volume is resident already, so the available
-        memory excludes it.  For
-        "cover" models also only when the shared grid cuts the conv input
-        voxels by 15% or more against the per-ROI sweep, as the
-        reference."""
+        ``staged_bytes`` is not added on the plan's own device: the staged
+        volume is resident already, so the available memory excludes it.
+        For "cover" models also only when the shared grid cuts the conv
+        input voxels by 15% or more against the per-ROI sweep, as the
+        reference.
+
+        With ``n_devices > 1`` the estimate is per device: each holds its
+        z-band's shell (:meth:`_band_partition`) and, off the plan's
+        device, a copy of the staged volume.  ``devices`` (the fan-out's
+        list) counts the shells that repeated slots put on one device;
+        without it each device holds one band."""
         if n_devices > 1:
-            raise _not_ported("shared_auto over several devices")
-        fp = self.full_pipe()
-        shell = 4 * int(np.prod(self._shell_shape()))
+            rpb, nb, _ = self._band_partition(n_devices)
+            fp = self.band_pipe(rpb)
+            shell = 4 * int(np.prod(self._band_shell_shape(fp)))
+        else:
+            nb, fp = 1, self.full_pipe()
+            shell = 4 * int(np.prod(self._shell_shape()))
         if tiling_regime(self.pipe.spec) == "cover" and \
-                not self._shared_cost_ok(fp):
+                not self._shared_cost_ok(fp, nb):
             return False
-        return (shell + self._act_bytes(fp) + self._post_bytes()
-                <= 0.9 * memory_bytes(self.device)[0])
+        rest = self._act_bytes(fp) + self._post_bytes()
+        share = (Counter(as_device(d) for d in devices[:nb]) if devices
+                 else {self.device: 1})
+        return all(k * shell + rest + (0 if d == self.device else staged_bytes)
+                   <= 0.9 * memory_bytes(d)[0] for d, k in share.items())
 
 
 def _default_core(spec: ModelSpec, window, grid_default: int,
@@ -905,6 +970,13 @@ class _StagedChunks:
         out[:n_real[0], :n_real[1], :n_real[2]] = raw
         return out
 
+    def assemble_full(self) -> tuple[torch.Tensor, int]:
+        """The whole ``(big, halo)`` of :func:`stage_volume` from the chunks
+        (a concatenation and a reflect pad on the device), for the paths
+        that read the whole padded volume (the multi-device fan-out)."""
+        raw = torch.cat(self.chunks) if len(self.chunks) > 1 else self.chunks[0]
+        return reflect_pad(raw, self.halo), self.halo
+
 
 def _staging_device(plan, device):
     if device is not None:
@@ -973,11 +1045,17 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
     ``"auto"``: shared when :meth:`_StreamPlan.shared_auto` says its peak
     fits the device.  The lists are the same in every mode and equal the
     host reference's on the whole-volume map.  ``core=None`` takes 256 for
-    conv stacks.  ``progress(corner, n_nms)`` is called after each box."""
+    conv stacks.  ``progress(corner, n_nms)`` is called after each box.
+
+    ``devices`` (several devices, or repeated slots of one) fans the sweep
+    out: in roi mode the ROIs round-robin over them
+    (:func:`_detect_staged_multi`), in shared mode the grid's z-rows split
+    into one band per device (:func:`_detect_staged_shared_multi`); the
+    lists stay bitwise the single-device call's.  A list of one device runs
+    the single-device path, as the reference."""
     if forward not in ("roi", "shared", "auto"):
         raise ValueError(f"unknown forward mode {forward!r}")
-    if devices is not None:
-        raise _not_ported("detect_staged(devices=...)", _MULTI)
+    multi = devices is not None and len(devices) > 1
     shape = np.shape(volume)
     if plan is None:
         plan = make_stream_plan(
@@ -997,10 +1075,18 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
     if halo < plan.fetch_halo:
         raise ValueError(f"staged halo {halo} < required {plan.fetch_halo} "
                          "(stage with the same window and method)")
-    if forward == "shared" or (forward == "auto" and plan.shared_auto()):
+    chunked = isinstance(staged, _StagedChunks)
+    n_bytes = sum(c.nbytes for c in (staged.chunks if chunked else staged[:1]))
+    if forward == "shared" or (forward == "auto" and plan.shared_auto(
+            n_bytes, len(devices) if multi else 1, devices if multi else None)):
+        if multi:
+            full = staged.assemble_full() if chunked else staged
+            return _detect_staged_shared_multi(plan, full, devices, progress)
         return plan.consume_shared(plan.shared_prob(staged), progress)
-    if isinstance(staged, _StagedChunks):
-        return _detect_staged_chunked(plan, staged, progress)
+    if chunked:
+        if not multi:
+            return _detect_staged_chunked(plan, staged, progress)
+        staged = staged.assemble_full()
     big = staged[0]
     off = halo - plan.fetch_halo  # the staged halo may be generous
     # zero-extend so the highest ROI's window fits: the extension feeds
@@ -1009,6 +1095,8 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
         max(big.shape[d], max(c[d] for _, c in plan.grid) + off
             + plan.pipe.padded_shape[d])
         for d in range(3)])
+    if multi:
+        return _detect_staged_multi(plan, big, off, devices, progress)
 
     def outs():
         for key, corner in plan.grid:
@@ -1017,6 +1105,55 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
             yield key, corner, plan.pipe.forward_from(big, origin), vlo, vhi
 
     return plan.consume(outs(), progress)
+
+
+def _detect_staged_multi(plan, big: torch.Tensor, off: int, devices,
+                         progress=None):
+    """:func:`detect_staged`'s ROI sweep fanned over ``devices``: the staged
+    volume and the module copied once per distinct device, ROI ``i``
+    forwarded on ``devices[i % n]`` with the same plan, about ``n`` forwards
+    queued before a box is copied back, the merge in grid order."""
+    devs = [as_device(d) for d in devices]
+    bigs = per_device(big, devs)
+    modules = per_device(plan.pipe.spec.module, devs)
+
+    def outs():
+        for i, (key, corner) in enumerate(plan.grid):
+            d = devs[i % len(devs)]
+            _, vlo, vhi = plan.region(corner)
+            origin = tuple(c + off for c in corner)
+            yield key, corner, plan.pipe.forward_from(
+                bigs[d], origin, module=modules[d]), vlo, vhi
+
+    return plan.consume(outs(), progress, ahead=len(devs))
+
+
+def _detect_staged_shared_multi(plan, staged, devices, progress=None):
+    """:func:`detect_staged`'s shared forward fanned over ``devices`` by
+    z-bands: the grid's z-rows split into uniform bands
+    (:meth:`_StreamPlan._band_partition`), band ``i`` forwarded into its
+    band shell on ``devices[i]`` (every band's forward queued first), each
+    box postprocessed on its band's shell in grid order.  The band grids
+    anchor at ``b0 - h``, 0 modulo ``size_multiple``, so every probability
+    is the whole-volume shell's."""
+    big, halo = staged
+    rpb, nb, b0s = plan._band_partition(len(devices))
+    if nb == 1:  # one z-row: nothing to fan out
+        return plan.consume_shared(plan.shared_prob(staged), progress)
+    fp = plan.band_pipe(rpb)
+    off = halo - plan.ctx
+    z_top = max(zs for zs, _ in fp._slabs) + fp._tin
+    _, py, px = fp.padded_shape
+    # the zero extension feeds only voxels outside the volume, -inf'd by
+    # the band masks
+    big = zero_extend(big, [max(s, n) for s, n in zip(
+        big.shape, (off + b0s[-1] - plan.h + z_top, off + py, off + px))])
+    devs = [as_device(d) for d in devices[:nb]]
+    bigs = per_device(big, devs)
+    modules = per_device(plan.pipe.spec.module, devs)
+    shells = [plan.shared_prob_band(bigs[d], halo, b0, fp, modules[d])
+              for b0, d in zip(b0s, devs)]
+    return plan.consume_shared_multi(shells, rpb, progress)
 
 
 def _detect_staged_chunked(plan, staged: _StagedChunks, progress=None):
@@ -1115,11 +1252,18 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
     ``progress(corner, n_nms)`` is called after each box; the plan's
     ``fetch_seconds`` holds the prefetch thread's read seconds (and its pad
     seconds, for ROI windows that need several reflections).
-    ``devices`` may name one device (the plan's); more are not ported."""
+
+    ``devices`` (several devices, or repeated slots of one) fans the sweep
+    out: roi windows round-robin over them (the prefetch thread reads
+    ``n + 1`` ahead), bands round-robin over them (the band height sized
+    for one device's budget, split further so that every device gets a
+    band); the module is copied once per distinct device, the read thread
+    and the merge are unchanged, so the lists stay bitwise the
+    single-device call's.  A list of one device runs the single-device
+    path."""
     if forward not in ("roi", "shared", "auto"):
         raise ValueError(f"unknown forward mode {forward!r}")
-    if devices is not None and len(devices) > 1:
-        raise _not_ported("detect_streaming(devices=...)")
+    multi = devices is not None and len(devices) > 1
     if plan is None:
         plan = make_stream_plan(
             spec, variables, shape,
@@ -1138,15 +1282,20 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
         # a band window's single reflect needs every pad under the read
         # extent; smaller volumes stay on the roi path
         probe = np.asarray(read_fn((0, 0, 0), (1, 1, 1)))
+        share = (max(Counter(as_device(d) for d in devices).values())
+                 if multi else 1)
         rpb = plan.band_rpb(itemsize=1 if probe.dtype == np.uint8 else 4,
-                            cost_gate=forward == "auto")
+                            cost_gate=forward == "auto", shells=max(2, share))
     if forward == "shared" and rpb is None:
         raise ValueError(
             "the shared streaming forward does not fit this device or "
             "geometry (no band passes the memory budget, or the volume is "
             "not larger than the fetch halo); use forward='roi'")
     if rpb is not None:
-        return _detect_streaming_shared(plan, read_fn, rpb, progress)
+        if multi:  # split further, never past one device's budget
+            rpb = min(rpb, plan._band_partition(len(devices))[0])
+        return _detect_streaming_shared(plan, read_fn, rpb, progress,
+                                        devices if multi else None)
 
     fh, core_dims = plan.fetch_halo, plan.core_dims
     stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
@@ -1169,16 +1318,21 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
             pads = [(0, 0)] * 3
         return block, pads, vlo, vhi
 
-    def outs():
-        for (key, corner), (block, pads, vlo, vhi) in _prefetched(
-                plan.grid, prep, 2, lambda e: f"ROI {e[1]}"):
-            # ONE reflect pad on the device: the whole-volume run's faces
-            big = zero_extend(
-                reflect_pad(torch.from_numpy(block).to(plan.device), pads),
-                plan.pipe.padded_shape)
-            yield key, corner, plan.pipe.forward_from(big), vlo, vhi
+    devs = [as_device(d) for d in devices] if multi else [plan.device]
+    modules = per_device(plan.pipe.spec.module, devs)
 
-    return plan.consume(outs(), progress)
+    def outs():
+        for i, ((key, corner), (block, pads, vlo, vhi)) in enumerate(
+                _prefetched(plan.grid, prep, len(devs) + 1,
+                            lambda e: f"ROI {e[1]}")):
+            d = devs[i % len(devs)]
+            # ONE reflect pad on the device: the whole-volume run's faces
+            big = zero_extend(reflect_pad(torch.from_numpy(block).to(d), pads),
+                              plan.pipe.padded_shape)
+            yield key, corner, plan.pipe.forward_from(
+                big, module=modules[d]), vlo, vhi
+
+    return plan.consume(outs(), progress, ahead=len(devs))
 
 
 def _read_block(read_fn, lo, hi) -> np.ndarray:
@@ -1223,29 +1377,36 @@ def _band_window(fp: DetectPipeline, block: torch.Tensor,
     return zero_extend(reflect_pad(block, pads), (z_top, py, px))
 
 
-def _detect_streaming_shared(plan, read_fn, rpb: int, progress=None):
+def _detect_streaming_shared(plan, read_fn, rpb: int, progress=None,
+                             devices=None):
     """Out-of-core shared forward: z-bands of ``rpb`` ROI rows, each band's
     planes read once by a prefetch thread (the next band's while this one
     runs), uploaded, reflect-padded on the device (:func:`_band_window`),
     forwarded once into its band shell and postprocessed box by box
     (:meth:`_StreamPlan.consume_shared_stream`).  The band maps are bitwise
-    the staged shared map's."""
+    the staged shared map's.  With ``devices`` band ``i`` runs on
+    ``devices[i % n]`` with that device's module copy, ``n`` bands read
+    ahead."""
     fp = plan.band_pipe(rpb)
+    devs = [as_device(d) for d in devices] if devices else [plan.device]
+    modules = per_device(plan.pipe.spec.module, devs)
     stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
     bands = _prefetched(
         plan._band_starts(rpb),
         lambda b0: _timed(stats, "read", _band_read, plan, fp, read_fn, b0),
-        1, lambda b0: f"band z0={b0}")
+        len(devs), lambda b0: f"band z0={b0}")
 
     def shell_for(band, b0):
         got, (block, pads) = next(bands)
         if got != b0:
             raise RuntimeError(f"band z0={b0} read out of order ({got})")
-        W = _band_window(fp, torch.from_numpy(block).to(plan.device), pads)
-        return plan.shared_prob_band_local(W, b0, fp)
+        d = devs[band % len(devs)]
+        W = _band_window(fp, torch.from_numpy(block).to(d), pads)
+        return plan.shared_prob_band_local(W, b0, fp, modules[d])
 
     try:
-        return plan.consume_shared_stream(shell_for, rpb, progress)
+        return plan.consume_shared_stream(shell_for, rpb, progress,
+                                          n_devices=len(devs))
     finally:
         bands.close()
 

@@ -226,17 +226,19 @@ class DetectPipeline:
     # -- forward -----------------------------------------------------------
     @torch.no_grad()
     def forward_slabs(self, slab_for, out: torch.Tensor | None = None,
-                      offset=(0, 0, 0)) -> torch.Tensor:
+                      offset=(0, 0, 0), module=None) -> torch.Tensor:
         """The forward over caller-provided slabs: ``slab_for(zs)`` returns
         the ``(tin, py, px)`` window whose planes start at padded-volume z
         ``zs``.  Tiles land in ``out`` (default: a fresh f32 map of
-        ``_out_shape``) at ``offset`` plus their grid position."""
+        ``_out_shape`` on the module's device) at ``offset`` plus their grid
+        position.  ``module`` (default the spec's) is a copy of it on
+        another device, for the multi-device fan-out."""
+        module = self.spec.module if module is None else module
         if out is None:
             out = torch.zeros(self._out_shape, dtype=torch.float32,
-                              device=self.device)
+                              device=next(module.parameters()).device)
         oz, oy, ox = to3d(offset)
         tin, tout = self._tin, self._tiled.tile_out
-        module = self.spec.module
         for zs, batches in self._slabs:
             slab = slab_for(zs)
             for batch in batches:
@@ -253,10 +255,11 @@ class DetectPipeline:
 
     def forward_from(self, big: torch.Tensor, origin=(0, 0, 0),
                      out: torch.Tensor | None = None,
-                     offset=(0, 0, 0)) -> torch.Tensor:
+                     offset=(0, 0, 0), module=None) -> torch.Tensor:
         """Forward over the window of a device-resident volume ``big`` that
         starts at ``origin`` (``big[origin : origin + padded_shape]`` is
-        what :meth:`stage` would have made for this volume)."""
+        what :meth:`stage` would have made for this volume), through
+        ``module`` (:meth:`forward_slabs`)."""
         oz, oy, ox = to3d(origin)
         _, py, px = self.padded_shape
         z_top = max(zs for zs, _ in self._slabs) + self._tin
@@ -266,7 +269,7 @@ class DetectPipeline:
                              f"{need}")
         return self.forward_slabs(
             lambda zs: big[oz + zs:oz + zs + self._tin, oy:oy + py, ox:ox + px],
-            out=out, offset=offset)
+            out=out, offset=offset, module=module)
 
     def forward_staged(self, staged: torch.Tensor) -> torch.Tensor:
         """Staged volume (from :meth:`stage`) -> f32 map of ``_out_shape``

@@ -109,7 +109,14 @@ class BatchNorm(nn.Module):
     ``r = momentum * r + (1 - momentum) * batch`` (``F.batch_norm`` would
     use the unbiased one).  Eval mode normalises with the buffers.  Both
     compute ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 and
-    round to the input dtype once."""
+    round to the input dtype once.
+
+    ``reduce`` (None: the local batch) takes a (3, C) f32 tensor of
+    per-channel ``[sum, sum of squares, count]`` and returns it summed over
+    a data-parallel world (``parallel/train.py`` sets it for a step), so
+    train mode normalises with the global batch's moments."""
+
+    reduce = None
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.99):
@@ -125,8 +132,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            if self.reduce is None:
+                mean = xf.mean(axes)
+                var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            else:
+                n = xf.new_full((xf.shape[-1],), xf.numel() // xf.shape[-1])
+                s = self.reduce(torch.stack([xf.sum(axes), (xf * xf).sum(axes),
+                                             n]))
+                mean = s[0] / s[2]
+                var = torch.clamp(s[1] / s[2] - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

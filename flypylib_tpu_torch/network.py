@@ -220,7 +220,9 @@ class FplNetwork:
         ``(shape, read_fn)`` pair (:func:`~flypylib_tpu_torch.infer.large.
         detect_streaming`); ``kw`` goes to the engine (``forward``,
         ``tile_out``, ``tile_batch``, ``plan``, ``cc_impl``, ...).
-        ``method`` is ``"nms"``, ``"components"`` or ``"both"``.
+        ``method`` is ``"nms"``, ``"components"`` or ``"both"``;
+        ``devices=`` (several devices, or repeated slots of one) fans the
+        engine out, the lists bitwise the single-device call's.
 
         An array is staged on the network's device
         (:func:`~flypylib_tpu_torch.infer.large.detect_staged`) when
@@ -248,7 +250,8 @@ class FplNetwork:
                                     **common)
         vol = np.asarray(volume)
         if staged is None:
-            staged = staged_fits(vol, self.device)
+            staged = staged_fits(vol, self.device,
+                                 n_devices=len(kw.get("devices") or ()) or 1)
         if staged is False:
             shape, read = array_reader(vol)
             return detect_streaming(self.infer_spec, None, shape, read,

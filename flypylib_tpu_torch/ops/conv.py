@@ -112,7 +112,14 @@ def conv3d_f32(x: torch.Tensor, w: torch.Tensor,
 
 def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` over the last axis with both cast to f32 (exact from bf16)
-    and summed in f32, TF32 off on CUDA: a (..., K) @ w (K, N) -> (..., N)."""
+    and summed in f32, TF32 off on CUDA: a (..., K) @ w (K, N) -> (..., N).
+
+    On the CPU one output column (the logits) is a row sum of the products:
+    BLAS's matrix-vector path sums a row in an order that follows the row
+    count, so the logits of a voxel would follow the size of the block it
+    was computed in (tiled or sharded against monolithic)."""
+    if a.device.type == "cpu" and w.shape[-1] == 1:
+        return (a.float() * w.float()[:, 0]).sum(-1, keepdim=True)
     with no_tf32(a.device):
         return torch.matmul(a.float(), w.float())
 

@@ -131,12 +131,16 @@ def resolve_train_spec(spec: ModelSpec, cfg: TrainConfig) -> ModelSpec:
 
 
 def masked_bce_loss(logits: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, count=None) -> torch.Tensor:
     """Loss-mask-weighted sigmoid binary cross-entropy (mean over mask), in
-    f32: ``optax.sigmoid_binary_cross_entropy``'s formula."""
+    f32: ``optax.sigmoid_binary_cross_entropy``'s formula.  ``count``
+    (default: ``mask.sum()``) maps the mask's sum to the denominator; a
+    data-parallel shard passes the sum over the world, so its part of the
+    loss is its share of the global mean."""
     logits, labels, mask = logits.float(), labels.float(), mask.float()
     bce = -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
-    return (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    den = mask.sum() if count is None else count(mask.sum())
+    return (bce * mask).sum() / torch.clamp(den, min=1.0)
 
 
 @dataclass
@@ -308,8 +312,9 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
     codes or None.  ``loss_fn(x, y, m, codes)`` augments, runs the engine's
     forward and returns ``(loss, metrics)`` (``loss``, ``pos_frac``,
     ``pred_mean``, as 0-d tensors); the module runs in train mode (a
-    BatchNorm model's running statistics update once a call).  A batch
-    made elsewhere (a test's, from numpy) goes through ``loss_fn`` alone."""
+    BatchNorm model's running statistics update once a call); ``count`` is
+    :func:`masked_bce_loss`'s.  A batch made elsewhere (a test's, from
+    numpy) goes through ``loss_fn`` alone."""
     engine = resolve_engine(spec, cfg)
     spec = resolve_train_spec(spec, cfg)
     forward = _train_forward(spec, engine)
@@ -336,12 +341,12 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
                                   generator=gen, device=x.device)
         return x, y, m, codes
 
-    def loss_fn(x, y, m, codes):
+    def loss_fn(x, y, m, codes, count=None):
         if codes is not None:
             x, y, m = (augment_batch(v, codes) for v in (x, y, m))
         with train_mode(plain):
             logits = forward(x[..., None])[..., 0]
-        loss = masked_bce_loss(logits, y, m)
+        loss = masked_bce_loss(logits, y, m, count)
         metrics = {
             "loss": loss.detach(),
             "pos_frac": y.float().mean(),
@@ -423,6 +428,7 @@ class Trainer:
         self.generator = torch.Generator(device=device).manual_seed(int(seed))
         self.state: TrainState | None = None
         self._train_steps = None
+        self._fit_mesh = None
         self._val_engine = None  # cached TiledInference
         self._val_engine_key = None
         self.history: list[dict] = []
@@ -462,19 +468,29 @@ class Trainer:
         (NMS at ``val_window``/``val_threshold``, greedy matching within
         ``val_dist_thresh``).  ``metrics_log``: optional
         :class:`flypylib_tpu_torch.utils.metrics.MetricsLog` receiving every
-        epoch record.  ``mesh`` (data-parallel training) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer.fit(mesh=...): multi-GPU data-parallel training is "
-                "not ported yet (ROADMAP queue 1, item 7)")
+        epoch record.
+
+        ``mesh``: a :class:`flypylib_tpu_torch.parallel.mesh.Mesh` with a
+        ``"data"`` axis; the steps are then data-parallel
+        (``parallel/train.py``: the global ``cfg.batch_size`` split over the
+        axis, gradients summed over the ranks).  Every rank runs ``fit``
+        with the same seed and data; the same seed gives the same
+        parameters as the single-device path."""
         patch = resolve_train_spec(self.spec, self.cfg).valid_size(
             self.cfg.patch_size
         )
         data = TrainData.build(image, labels, mask, patch, device=self.device)
         if self.state is None:
             self.init_state()
-        if self._train_steps is None:
-            _, self._train_steps, _ = make_train_step(self.spec, self.cfg)
+        if self._train_steps is None or mesh is not self._fit_mesh:
+            if mesh is not None:
+                from flypylib_tpu_torch.parallel.train import make_dp_train_step
+
+                _, self._train_steps, _ = make_dp_train_step(
+                    self.spec, self.cfg, mesh)
+            else:
+                _, self._train_steps, _ = make_train_step(self.spec, self.cfg)
+            self._fit_mesh = mesh
 
         for epoch in range(epochs):
             metrics = self._train_steps(self.state, self.generator, data,

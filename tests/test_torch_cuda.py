@@ -57,6 +57,12 @@ output clamped anyway must fail them.  A BatchNorm ``ConvStack`` (f32,
 plain and packed) on the card matches the CPU's to 1e-4, and
 ``TiledInference.infer(host_stream=True)`` gives the device sweep's map bit
 for bit (tile batch 1, many batches; f32 and uint8).
+
+The multi-device layer on repeated cuda:0 slots: ``sharded_infer`` over
+1-, 2- and 3-D meshes gives ``TiledInference``'s map bit for bit where the
+tile grids coincide, with the host reference's lists from the sharded
+NMS and CC; ``detect_large(devices=)`` staged and streamed gives the
+single-device lists bit for bit.
 """
 
 import numpy as np
@@ -767,3 +773,61 @@ def test_host_stream_on_the_card_equals_the_device_sweep(cuda, packed, dtype):
         want = eng.infer(vol)
         got = eng.infer(vol, host_stream=True)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["1-D", "2-D", "3-D"])
+def test_sharded_infer_on_cuda_slots_equals_tiled(cuda, kind):
+    """``sharded_infer`` over a mesh of repeated cuda:0 slots at a tile
+    grid that coincides with ``TiledInference``'s (shard extents multiples
+    of the tile): the map bit for bit, K5 once per shard's tile batch, and
+    the sharded lists equal the host reference's on it."""
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.ops.host_reference import components_host, nms_host
+
+    port = chip_smoke.import_port()
+    label, dims, axes = {m[0]: m for m in chip_smoke.SHARD_MESHES}[kind]
+    net = FplNetwork("baseline", device="cuda", seed=0)
+    vol = chip_smoke.make_volume_u8(64, 4, seed=2)
+    want = net.infer(vol, 16, 4)
+    mesh = chip_smoke.mesh_of(port, dims, axes, ["cuda:0"] * int(np.prod(dims)))
+    before = parity_split_kernel.launches
+    prob = port.sharded_infer(net.infer_spec, None, vol, mesh, axis=axes,
+                              tile_out=16, tile_batch=4)
+    torch.cuda.synchronize()
+    assert parity_split_kernel.launches - before == \
+        chip_smoke.shard_tile_batches(prob, 16, 4)
+    np.testing.assert_array_equal(np.asarray(prob), want)
+    thr = float(np.sort(want.reshape(-1))[-300])
+    for got, ref in ((port.sharded_nms(prob, mesh, axes, 5, thr),
+                      nms_host(want, window=5, threshold=thr)),
+                     (port.sharded_components(prob, mesh, axes, thr),
+                      components_host(want, threshold=thr))):
+        assert len(ref) > 0
+        np.testing.assert_array_equal(got.locs, ref.locs)
+        np.testing.assert_array_equal(got.conf, ref.conf)
+
+
+@pytest.mark.parametrize("forward", ["roi", "shared"])
+def test_detect_large_devices_on_cuda_slots(cuda, forward):
+    """``detect_large(devices=[cuda:0] * n)``, staged (n = 1, 2, 3) and
+    streamed (n = 2): the lists bit for bit the single-device call's."""
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.infer.large import make_stream_plan
+
+    net = FplNetwork("baseline", device="cuda", seed=0)
+    vol = chip_smoke.make_volume_u8(64, 4, seed=2)
+    prob = net.infer(chip_smoke.scaled(vol), keep_on_device=True)
+    thr = float(torch.topk(prob.reshape(-1), 300).values[-1])
+    plan = make_stream_plan(net.infer_spec, None, vol.shape, core=16,
+                            tile_out=16, tile_batch=4, window=5,
+                            threshold=thr, method="both")
+    kw = dict(threshold=thr, method="both", forward=forward, plan=plan)
+    for staged, ns in ((True, (1, 2, 3)), (False, (2,))):
+        want = net.detect_large(vol, staged=staged, **kw)
+        for n in ns:
+            got = net.detect_large(vol, staged=staged,
+                                   devices=[torch.device("cuda", 0)] * n, **kw)
+            for g, w in zip(got, want):
+                assert len(g) == len(w) > 0
+                np.testing.assert_array_equal(g.locs, w.locs)
+                np.testing.assert_array_equal(g.conf, w.conf)

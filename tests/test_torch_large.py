@@ -349,24 +349,108 @@ def test_forward_auto_follows_the_memory_test(net, rng, monkeypatch):
     assert not tlarge.staged_fits(vol, "cpu")
 
 
-@pytest.mark.parametrize("call", ["devices", "shared_auto_devices",
-                                  "streaming_devices"])
-def test_unported_options_raise(net, rng, call):
-    """Only the multi-device forms are left to port (ROADMAP queue 1, item
-    7); each names its item."""
-    vol = rng.random((20, 20, 20)).astype(np.float32)
-    spec = net.infer_spec
+def _same_lists_bitwise(got, want):
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        np.testing.assert_array_equal(g.locs, w.locs)
+        np.testing.assert_array_equal(g.conf, w.conf)
+
+
+FANOUT_SHAPE = (40, 33, 37)
+FANOUT_CORE = (12, 24, 20)  # four z-rows of ROIs: bands for 2 and 3 slots
+
+
+@pytest.fixture(scope="module")
+def fanout_case(net):
+    """A uint8 volume, its threshold and a ``method="both"`` plan (small
+    tiles, three to a batch)."""
+    rng = np.random.default_rng(3)
+    vol = (rng.random(FANOUT_SHAPE) * 255).astype(np.uint8)
+    prob = net.infer(_scaled(vol), tile_out=48, tile_batch=1)
+    thr = float(np.quantile(prob, 0.99))
+    plan = tlarge.make_stream_plan(net.infer_spec, None, FANOUT_SHAPE,
+                                   core=FANOUT_CORE, tile_out=8, tile_batch=3,
+                                   window=5, threshold=thr, method="both")
+    return vol, thr, plan
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("forward", ["roi", "shared"])
+def test_detect_staged_devices_equal_one_device(net, fanout_case, forward, n,
+                                                monkeypatch):
+    """``detect_staged(devices=)`` on repeated CPU slots, from a whole and a
+    chunked upload: the lists are bit for bit the single-device call's.  A
+    list of one device runs the single-device path (as the reference's
+    ``multi = len(devices) > 1``); longer lists run the fan-out, the shared
+    one with one band per slot (two here: four rows in bands of two)."""
+    vol, thr, plan = fanout_case
+    kw = dict(plan=plan, threshold=thr, window=5, method="both",
+              forward=forward)
+    want = tlarge.detect_staged(net.infer_spec, None, vol, **kw)
+    calls = []
+    for name in ("_detect_staged_multi", "_detect_staged_shared_multi"):
+        real = getattr(tlarge, name)
+        monkeypatch.setattr(tlarge, name, lambda *a, real=real, name=name,
+                            **k: calls.append(name) or real(*a, **k))
+    for staged in (None, tlarge.stage_volume_chunked(vol, plan=plan,
+                                                     chunk=12)):
+        got = tlarge.detect_staged(net.infer_spec, None, vol, staged=staged,
+                                   devices=["cpu"] * n, **kw)
+        _same_lists_bitwise(got, want)
+    fan = {"roi": "_detect_staged_multi",
+           "shared": "_detect_staged_shared_multi"}[forward]
+    assert calls == ([] if n == 1 else [fan] * 2)
+    if forward == "shared" and n > 1:
+        assert plan._band_partition(n)[:2] == (2, 2)
+
+
+@pytest.mark.parametrize("forward", ["roi", "shared"])
+def test_detect_streaming_devices_equal_one_device(net, fanout_case,
+                                                   forward):
+    """``detect_streaming(devices=)`` on two CPU slots: ROI windows and
+    bands round-robin over them, the lists bit for bit the single-device
+    call's and the staged call's; shared bands split so that each slot gets
+    one."""
+    vol, thr, plan = fanout_case
     shape, read = tlarge.array_reader(vol)
     assert shape == vol.shape and np.array_equal(read((1, 2, 3), (4, 5, 6)),
                                                  vol[1:4, 2:5, 3:6])
-    calls = {
-        "devices": lambda: tlarge.detect_staged(spec, None, vol,
-                                                devices=["cpu", "cpu"]),
-        "shared_auto_devices": lambda: tlarge.make_stream_plan(
-            spec, None, shape).shared_auto(0, n_devices=2),
-        "streaming_devices": lambda: tlarge.detect_streaming(
-            spec, None, shape, read, devices=["cpu", "cpu"]),
-    }
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 7"):
-        calls[call]()
+    kw = dict(plan=plan, threshold=thr, window=5, method="both",
+              forward=forward)
+    want = tlarge.detect_streaming(net.infer_spec, None, shape, read, **kw)
+    _same_lists_bitwise(want, tlarge.detect_staged(net.infer_spec, None, vol,
+                                                   **kw))
+    got = tlarge.detect_streaming(net.infer_spec, None, shape, read,
+                                  devices=["cpu", "cpu"], **kw)
+    _same_lists_bitwise(got, want)
+    _same_lists_bitwise(net.detect_large(vol, staged=False,
+                                         devices=["cpu", "cpu"], **kw), want)
+
+
+def test_fanout_memory_rules(net, fanout_case, monkeypatch):
+    """``shared_auto`` over several devices sizes one band shell per device
+    (the reference's rule) and, given the list, as many as repeated slots
+    put on one; ``staged_fits`` divides the f32 shell among the devices;
+    ``consume(ahead=)`` keeps grid order."""
+    vol, thr, plan = fanout_case
+    assert plan.shared_auto(0, n_devices=2, devices=["cpu", "cpu"])
+    rpb, nb, _ = plan._band_partition(2)
+    fp = plan.band_pipe(rpb)
+    shell = 4 * int(np.prod(plan._band_shell_shape(fp)))
+    rest = plan._act_bytes(fp) + plan._post_bytes()
+    avail = (shell + rest) / 0.9 + 1  # one band shell fits, two do not
+    monkeypatch.setattr(tlarge, "memory_bytes", lambda d: (avail, avail))
+    assert plan.shared_auto(0, n_devices=2)
+    assert not plan.shared_auto(0, n_devices=2, devices=["cpu", "cpu"])
+    big = np.zeros((100, 100, 100), np.uint8)  # 1 MB + a 4 MB shell
+    monkeypatch.setattr(tlarge, "memory_bytes",
+                        lambda d: (0, int(3.1e6 / 0.6)))
+    assert not tlarge.staged_fits(big, "cpu")
+    assert tlarge.staged_fits(big, "cpu", n_devices=2)
+    items = [((i,), (0, 0, 0), None, None, None) for i in range(5)]
+    seen = []
+    monkeypatch.setattr(plan, "_dispatch", lambda key, *a: {"key": key})
+    monkeypatch.setattr(plan, "_collect", lambda rec, p: seen.append(rec["key"]))
+    monkeypatch.setattr(plan, "_finalize", lambda: None)
+    plan.consume(iter(items), ahead=3)
+    assert seen == [(i,) for i in range(5)]

@@ -550,9 +550,6 @@ def test_unknown_and_unsupported_engines_raise():
     with pytest.raises(ValueError, match="ConvStack or UNetValid"):
         Trainer(odd, TrainConfig(engine="packed"), device=CPU).fit(
             image, labels, mask)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        Trainer(small_spec(), TrainConfig(), device=CPU).fit(
-            image, labels, mask, mesh=object())
 
 
 def test_network_train_evaluate_save_restore(tmp_path):
