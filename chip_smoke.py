@@ -207,10 +207,13 @@ prints no result line):
    meshes spanning both ranks give (b)'s map and lists bit for bit, and the
    f32 DP steps of the baseline and of the BatchNorm baseline equal the
    single step on the same global batch (loss rtol 1e-5, parameters atol
-   1e-5 where the gradient is not 0 up to rounding, gradients 1e-4 of the
-   largest), the loss the same on both ranks; two broken controls (local
-   mask counts, per-rank BatchNorm moments) must fail that check.  Times are
-   one card's: the cost of the fan-out, not a scaling.
+   1e-5 where the gradient is not 0 up to its limit, gradients 1e-4 of the
+   largest; the BatchNorm baseline's gradients, each step's against an f64
+   truth on the global batch, the DP step's within max(1e-4, 2 x the single
+   step's distance), as 13(c)), the loss the same on both ranks; two
+   broken controls (local mask counts, per-rank BatchNorm moments) must
+   fail that check.  Times are one card's: the cost of the fan-out, not a
+   scaling.
 
 Every count of launches is set to 0 just before a path runs and read just
 after it.  The line before the last but one is one JSON object with each
@@ -3104,19 +3107,21 @@ def check_bn_paths(port, card_str: str, state: dict, vol: np.ndarray) -> dict:
     return runs
 
 
-def bn_f64_grads(state: dict, batch, masks) -> dict:
-    """Loss gradients of the BatchNorm baseline (``state``) in f64 autograd
-    on the CPU, its body ReLUs on ``masks`` (a run's ``grad_decisions``
-    "y"): the truth 13(c) holds both f32 steps to."""
+def bn_f64_grads(state: dict, batch, masks=None, dilations=(1, 1, 2, 2),
+                 device: str = "cpu") -> dict:
+    """Loss gradients of a BatchNorm stack (``state``; the baseline's
+    ``dilations`` by default) in f64 autograd on ``device``, its body ReLUs
+    on ``masks`` (a run's ``grad_decisions`` "y"; None: f64's own): the
+    truth 13(c) and 14(d) hold the f32 steps to."""
     from flypylib_tpu_torch.ops.augment import augment_batch
 
     F = torch.nn.functional
-    P = {k: v.double().clone().requires_grad_(not k.endswith(("mean", "var")))
-         for k, v in state.items()}
-    x, y, m, codes = (torch.from_numpy(a) for a in batch)
+    P = {k: v.to(device, torch.float64).clone().requires_grad_(
+        not k.endswith(("mean", "var"))) for k, v in state.items()}
+    x, y, m, codes = (torch.from_numpy(a).to(device) for a in batch)
     x, y, m = (augment_batch(v.double(), codes) for v in (x, y, m))
     h = x[..., None]
-    for i, d in enumerate((1, 1, 2, 2)):
+    for i, d in enumerate(dilations):
         w = P[f"convs.{i}.weight"]
         h = F.conv3d(h.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
                      dilation=d).permute(0, 2, 3, 4, 1) + P[f"convs.{i}.bias"]
@@ -3124,12 +3129,12 @@ def bn_f64_grads(state: dict, batch, masks) -> dict:
         var = torch.clamp((h * h).mean((0, 1, 2, 3)) - mu * mu, min=0.0)
         h = ((h - mu) * (torch.rsqrt(var + 1e-5) * P[f"norms.{i}.scale"])
              + P[f"norms.{i}.bias"])
-        h = h * (masks[i].cpu() > 0)
+        h = torch.relu(h) if masks is None else h * (masks[i].to(device) > 0)
     h = torch.relu(h @ P["head.weight"] + P["head.bias"])
     lg = (h @ P["logits.weight"] + P["logits.bias"])[..., 0]
     bce = -y * F.logsigmoid(lg) - (1 - y) * F.logsigmoid(-lg)
     ((bce * m).sum() / m.sum().clamp(min=1)).backward()
-    return {k: p.grad for k, p in P.items() if p.grad is not None}
+    return {k: p.grad.cpu() for k, p in P.items() if p.grad is not None}
 
 
 def bn_truth_errors(grads: dict, g64: dict) -> dict:
@@ -3526,19 +3531,19 @@ DP_PATCH, DP_BATCH = 34, 32  # 14(c)/(d): the f32 full-width DP step
 DP_VOLUME = 64  # its training volume (random, seeded)
 DP_SEED = 3     # the generator both steps draw the global batch from
 # the reference's limits for DP == single (tests/test_parallel.py): loss
-# rtol, parameters atol after one Adam step; gradients per tensor relative
-# to its max |g|, 12(a)'s f32 limit.  DP_FALLBACK_ATOL (12(a)'s f32 limit)
-# holds the parameters instead if the ranks' sum order alone moves them
-# past DP_PARAM_ATOL.  The BatchNorm baseline's gradients: BatchNorm's
-# backward subtracts each channel's mean and its part along the normalised
-# input, which leaves the lower layers' gradients 30-45x smaller per layer
-# than the rounding from above (13(c)), so two f32 sum orders of the
-# full-width b32 step put them up to 2.8e-03 apart on an H100 (the control
-# with per-rank moments: 0.02-0.12); they are held to DP_BN_GRAD_TOL.
+# rtol, parameters atol after one Adam step (where the gradient is not 0 up
+# to the gradients' limit: there Adam's first step moves an element by
+# about lr either way); gradients per tensor relative to its max |g|,
+# 12(a)'s f32 limit.  A BatchNorm stack's gradients are held to an f64
+# truth instead, as 13(c) holds them: BatchNorm's backward leaves the lower
+# layers' gradients 30-45x smaller per layer than the rounding from above,
+# so two f32 sum orders of the full-width b32 step differ there by far
+# more than 1e-4 of a tensor's max |g|.  Each tensor of the DP step must lie
+# within max(DP_GRAD_TOL, BN_TRUTH_RATIO x the single step's own distance)
+# of the truth.
 DP_LOSS_RTOL = 1e-5
 DP_PARAM_ATOL = 1e-5
-DP_GRAD_TOL = {"baseline": 1e-4, "bn": 1e-2}
-DP_FALLBACK_ATOL = 1e-4
+DP_GRAD_TOL = 1e-4
 DP_ZERO_GRAD = 1e-6  # a gradient tensor below this fraction of the largest
 DP_TIMED_STEPS = 10
 WORKER_TIMEOUT = 300  # seconds a phase-14 subprocess may take
@@ -3607,21 +3612,30 @@ def deterministic():
          torch.backends.cudnn.benchmark) = old
 
 
-def dp_case(port, device: str, make_spec, cfg, grad_tol: float,
-            control=None, timed: bool = False) -> dict:
+def dp_case(port, device: str, make_spec, cfg, control=None,
+            timed: bool = False, dump: str | None = None) -> dict:
     """One DP step over a mesh of one slot a rank against the single-device
-    step on the same global batch (the same seed), from the same weights:
-    the loss's relative gap, the parameters' max gap (where the gradient is
-    not 0 within the gradients' limit; ``params_at_rounding`` counts the
-    others), the gradients' max gap relative to each tensor's largest (to
-    the largest of all for a tensor of rounding noise), and whether all
-    three are bit for bit; both steps on deterministic cuDNN algorithms.
-    ``control``: ``(name, value)`` patched into ``parallel/train.py`` for
-    the DP step (a broken control).  ``timed``: then also steps/s of both,
-    on the default algorithms."""
+    step on the same global batch (the same seed), from the same weights,
+    both on deterministic cuDNN algorithms: the loss's relative gap, the
+    parameters' max gap (where the gradient is not 0 within the gradients'
+    limit; ``params_at_rounding`` counts the others), the gradients' max
+    gap relative to each tensor's largest (to the largest of all for a
+    tensor of rounding noise) and ``grad_ok``, their check against
+    ``grad_limits``: DP_GRAD_TOL, or for a BatchNorm stack the distance to
+    an f64 truth (:func:`bn_f64_grads` on the global batch) within
+    max(DP_GRAD_TOL, BN_TRUTH_RATIO x the single step's), both distances
+    kept in ``truth``.  ``bitwise``: all three bit for bit.  ``control``:
+    ``(name, value)`` patched into ``parallel/train.py`` for the DP step
+    (a broken control).  ``timed``: then also steps/s of both, on the
+    default algorithms.  ``dump``: an ``.npz`` path that gets the weights
+    before the step (``w0:``), the augmented global batch (``x``, ``y``,
+    ``m``), the DP step's loss, gradients (``grad:``) and state after it
+    (``after:``), for a comparison with the reference's DP step."""
+    from flypylib_tpu_torch.ops.augment import augment_batch
     from flypylib_tpu_torch.parallel import train as ptrain
     from flypylib_tpu_torch.train import TrainData
-    from flypylib_tpu_torch.train.trainer import TrainState, make_train_step
+    from flypylib_tpu_torch.train.trainer import (TrainState, make_loss_fn,
+                                                  make_train_step)
 
     rng = np.random.default_rng(0)
     size = 24 if cfg.batch_size <= 8 else DP_VOLUME
@@ -3633,6 +3647,8 @@ def dp_case(port, device: str, make_spec, cfg, grad_tol: float,
     for kind in ("single", "dp"):
         spec = make_spec()
         spec.module.to(dev)
+        state0 = {k: v.detach().cpu().clone()
+                  for k, v in spec.module.state_dict().items()}
         ctx = (patched(ptrain, *control) if control and kind == "dp"
                else contextlib.nullcontext())
         with ctx, deterministic():
@@ -3643,19 +3659,34 @@ def dp_case(port, device: str, make_spec, cfg, grad_tol: float,
             else:
                 step, _, patch = make_train_step(spec, cfg)
             data = TrainData.build(image, labels, mask, patch, device=dev)
+            # the global batch both steps draw (the generator's first draw)
+            x, y, m, codes = make_loss_fn(spec, cfg)[1](
+                torch.Generator(device=dev).manual_seed(DP_SEED), data)
+            if codes is None:
+                codes = torch.zeros(cfg.batch_size, dtype=torch.int64)
+            batch = tuple(a.cpu().numpy() for a in (x, y, m, codes))
             state = TrainState.create(spec.module, cfg.learning_rate)
             gen = torch.Generator(device=dev).manual_seed(DP_SEED)
             reset_launch_counts()
-            m = step(state, gen, data)
+            metrics = step(state, gen, data)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             launches = launch_counts()
-        out[kind] = (float(m["loss"]),
+        out[kind] = (float(metrics["loss"]),
                      {n: p.detach().float().cpu().clone()
                       for n, p in spec.module.named_parameters()},
                      {n: p.grad.detach().float().cpu().clone()
                       for n, p in spec.module.named_parameters()},
                      launches)
+        if kind == "dp" and dump:
+            np.savez(dump, loss=out[kind][0],
+                     **{f"w0:{k}": v.numpy() for k, v in state0.items()},
+                     **{k: augment_batch(torch.from_numpy(a), batch[3]).numpy()
+                        for k, a in zip("xym", batch)},
+                     **{f"grad:{k}": v.numpy()
+                        for k, v in out[kind][2].items()},
+                     **{f"after:{k}": v.detach().float().cpu().numpy()
+                        for k, v in spec.module.state_dict().items()})
         if timed:
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -3673,37 +3704,46 @@ def dp_case(port, device: str, make_spec, cfg, grad_tol: float,
     scale = {n: float(g1[n].abs().max()) for n in g1}
     scale = {n: v if v > DP_ZERO_GRAD * gmax else gmax
              for n, v in scale.items()}
+    errs = {n: float((g2[n] - g1[n]).abs().max()) / scale[n] for n in g1}
+    limits, truth = {n: DP_GRAD_TOL for n in g1}, None
+    if getattr(spec.module, "use_batchnorm", False):
+        g64 = bn_f64_grads(state0, batch, None,
+                           tuple(c.dilation for c in spec.module.convs), dev)
+        truth = {"single": bn_truth_errors(g1, g64),
+                 "dp": bn_truth_errors(g2, g64)}
+        limits = {n: max(DP_GRAD_TOL, BN_TRUTH_RATIO * truth["single"][n])
+                  for n in g1}
+    held = errs if truth is None else truth["dp"]
     # Adam's first step moves an element by lr * g / (|g| + eps): where the
-    # gradient is 0 up to the gradients' limit, two sum orders may move it
-    # by up to lr either way, so the parameters are compared elsewhere
-    live = {n: g1[n].abs() > grad_tol * scale[n] for n in g1}
+    # gradient is 0 up to its limit, two sum orders may move it by up to lr
+    # either way, so the parameters are compared elsewhere
+    live = {n: g1[n].abs() > limits[n] * scale[n] for n in g1}
     res = {
         "loss": l2, "single_loss": l1, "loss_rel": abs(l2 - l1) / abs(l1),
         "param_err": max(float((p2[n] - p1[n])[live[n]].abs().max())
                          if live[n].any() else 0.0 for n in p1),
         "param_err_all": max(float((p2[n] - p1[n]).abs().max()) for n in p1),
         "params_at_rounding": sum(int((~v).sum()) for v in live.values()),
-        "grad_errs": {n: float((g2[n] - g1[n]).abs().max()) / scale[n]
-                      for n in g1},
+        "grad_errs": errs, "truth": truth, "grad_limits": limits,
+        "grad_ok": all(held[n] <= limits[n] for n in held),
         "bitwise": l1 == l2 and all(torch.equal(p1[n], p2[n]) for n in p1)
         and all(torch.equal(g1[n], g2[n]) for n in g1),
         "launches": {k: v for k, v in launches.items()
                      if ":" not in k and v},
     }
-    res["grad_err"] = max(res["grad_errs"].values())
-    res["grad_worst"] = max(res["grad_errs"], key=res["grad_errs"].get)
+    res["grad_err"] = max(errs.values())
+    res["grad_worst"] = max(errs, key=errs.get)
     res["grad_scale"] = {n: v / gmax for n, v in scale.items()}
-    res["grad_tol"] = grad_tol
     if timed:
         res["steps_per_s"] = steps
     return res
 
 
-def dp_ok(res: dict, param_atol: float = DP_PARAM_ATOL) -> bool:
-    """The DP == single check: loss, parameters and gradients within their
-    limits (the gradients' is the case's ``grad_tol``)."""
-    return (res["loss_rel"] <= DP_LOSS_RTOL and res["param_err"] <= param_atol
-            and res["grad_err"] <= res["grad_tol"])
+def dp_ok(res: dict) -> bool:
+    """The DP == single check: the loss and the parameters within the
+    reference's limits, the gradients within theirs (``grad_ok``)."""
+    return (res["loss_rel"] <= DP_LOSS_RTOL
+            and res["param_err"] <= DP_PARAM_ATOL and res["grad_ok"])
 
 
 def dist_worker(cfg: dict) -> int:
@@ -3760,13 +3800,14 @@ def dist_worker(cfg: dict) -> int:
 
     controls = {"local_count": ("baseline", ("_global_count", lambda c: c)),
                 "local_moments": ("bn", ("_global_moments", lambda s: s))}
-    tols = cfg.get("grad_tol", DP_GRAD_TOL)
     for case in cfg["dp"]:
         model, control = controls.get(case, (case, None))
         assert control is None or hasattr(ptrain, control[0])
-        res["dp"][case] = dp_case(port, device, *models[model], tols[model],
+        dump = (str(out / f"dp_{case}.npz")
+                if cfg.get("dump") and rank == 0 and control is None else None)
+        res["dp"][case] = dp_case(port, device, *models[model],
                                   control=control,
-                                  timed=cfg.get("timed", False))
+                                  timed=cfg.get("timed", False), dump=dump)
     res["seconds"] = time.perf_counter() - t0
     torch.distributed.destroy_process_group()
     print(json.dumps(res), flush=True)
@@ -4072,30 +4113,34 @@ def check_worlds(port, card_str: str, sharded: dict) -> dict:
             require(dps[0]["baseline"]["loss"] == dps[1]["baseline"]["loss"],
                     f"{what}: the ranks' DP losses differ")
             sound = ("baseline", "bn")
-            worst = max(dps[r][c]["param_err"] for r in range(2) for c in sound)
-            limit = DP_PARAM_ATOL
-            if worst > DP_PARAM_ATOL:
-                print(f"{what}: the DP parameters read {worst:.3g} from the "
-                      f"single step's, past {DP_PARAM_ATOL:g}: held to "
-                      f"{DP_FALLBACK_ATOL:g} (12(a)'s f32 limit)", flush=True)
-                limit = DP_FALLBACK_ATOL
             for r in range(2):
                 for case, d in dps[r].items():
-                    ok = dp_ok(d, limit)
-                    require(ok == (case in sound),
+                    require(dp_ok(d) == (case in sound),
                             f"{what} rank {r}: DP case {case} "
                             f"{'fails' if case in sound else 'passes'} the "
                             f"check: {d}")
             for case, d in dps[0].items():
+                gl = d["grad_limits"]
+                if d["truth"] is None:
+                    grads = (f"grads {d['grad_err']:.3g} of a tensor's max "
+                             f"|g| from the single step's (worst "
+                             f"{d['grad_worst']}, limit {DP_GRAD_TOL:g})")
+                else:
+                    t1, t2 = d["truth"]["single"], d["truth"]["dp"]
+                    worst = max(t2, key=lambda n: t2[n] / gl[n])
+                    grads = (f"grads against the f64 truth: DP worst "
+                             f"{max(t2.values()):.3g}, single worst "
+                             f"{max(t1.values()):.3g}; tightest {worst} DP "
+                             f"{t2[worst]:.3g} vs limit {gl[worst]:.3g} "
+                             f"(single {t1[worst]:.3g}); DP vs single "
+                             f"{d['grad_err']:.3g} (worst {d['grad_worst']})")
                 print(f"{what}: DP {case} (f32, b{DP_BATCH}, patch "
                       f"{DP_PATCH}): loss rel {d['loss_rel']:.3g}, params "
-                      f"{d['param_err']:.3g}, grads {d['grad_err']:.3g} of "
-                      f"a tensor's max |g| (worst {d['grad_worst']}) -> "
-                      f"{'within' if case in sound else 'fails'} (limits "
-                      f"{DP_LOSS_RTOL:g}, {limit:g}, {d['grad_tol']:g}); "
-                      f"params over all elements {d['param_err_all']:.3g}; "
-                      f"launches {d['launches']} "
-                      f"[{card_str}]", flush=True)
+                      f"{d['param_err']:.3g} (limits {DP_LOSS_RTOL:g}, "
+                      f"{DP_PARAM_ATOL:g}), {grads} -> "
+                      f"{'within' if case in sound else 'fails'}; params "
+                      f"over all elements {d['param_err_all']:.3g}; "
+                      f"launches {d['launches']} [{card_str}]", flush=True)
             print(f"{what}: sharded_infer / nms / components over "
                   f"{', '.join(m[0] for m in meshes)} meshes spanning both "
                   f"ranks bit for bit 14(b)'s; {dt:.1f} s with start-up "

@@ -176,14 +176,18 @@ def memory_bytes(device) -> tuple[int, int]:
 
 
 def staged_fits(vol: np.ndarray, device, headroom: float = 0.6,
-                n_devices: int = 1) -> bool:
+                devices=None) -> bool:
     """True when the staged mode fits ``device``: the volume at its wire
-    dtype plus this device's share of the f32 probability shell (z-bands
-    split it about evenly over ``n_devices``) within ``headroom`` of the
-    device's total memory (the reference's ``_staged_fits_hbm``
-    arithmetic, against the card's own size)."""
-    shell = 4 * vol.size / max(1, int(n_devices))
-    return vol.nbytes + shell <= headroom * memory_bytes(device)[1]
+    dtype plus the most loaded device's share of the f32 probability shell
+    within ``headroom`` of the device's total memory (the reference's
+    ``_staged_fits_hbm`` arithmetic, against the card's own size).  With
+    the fan-out's ``devices`` the shell splits into one z-band per slot, so
+    a device holding ``k`` of ``n`` slots holds ``k / n`` of it: the whole
+    shell when every slot is one device."""
+    share = (max(Counter(as_device(d) for d in devices).values())
+             / len(devices) if devices else 1)
+    return vol.nbytes + 4 * vol.size * share <= \
+        headroom * memory_bytes(device)[1]
 
 
 class _StreamPlan:
@@ -562,24 +566,12 @@ class _StreamPlan:
         ctx, h = self.ctx, self.h
         tin = fp._tin
         _, py, px = fp.padded_shape
-        if isinstance(staged, _StagedChunks):
-            off = staged.halo - ctx
-            fetch = staged.window
-        else:
-            big, halo = staged
-            off = halo - ctx
-            z_top = max(zs for zs, _ in fp._slabs) + tin
-            # the zero extension feeds only voxels outside the volume,
-            # -inf'd below
-            big = zero_extend(big, [max(s, off + p) for s, p in
-                                    zip(big.shape, (z_top, py, px))])
-
-            def fetch(start, size):
-                return big[start[0]:start[0] + size[0],
-                           start[1]:start[1] + size[1],
-                           start[2]:start[2] + size[2]]
+        off = _staged_halo(staged) - ctx
         if off < 0:
             raise ValueError(f"staged halo {off + ctx} < context {ctx}")
+        z_top = max(zs for zs, _ in fp._slabs) + tin
+        fetch = _staged_windows(staged, [self.device],
+                                (off + z_top, off + py, off + px))[self.device]
         shell = torch.full(self._shell_shape(), -torch.inf,
                            dtype=torch.float32, device=self.device)
         fp.forward_slabs(lambda zs: fetch((off + zs, off, off), (tin, py, px)),
@@ -687,38 +679,21 @@ class _StreamPlan:
                 max(sy, h + fp._out_shape[1]), max(sx, h + fp._out_shape[2]))
 
     @torch.no_grad()
-    def _band_shell(self, src: torch.Tensor, at, b0: int, fp: DetectPipeline,
-                    module=None) -> torch.Tensor:
-        """Forward one z-band into a -inf band shell on ``src``'s device:
-        the band's tiles read ``src`` from ``at``, where global ``(b0 - h -
-        ctx, -ctx, -ctx)`` lies; ``module`` as in ``forward_slabs``."""
-        h, tin = self.h, fp._tin
-        _, py, px = fp.padded_shape
-        z0, y0, x0 = at
-        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
-                           dtype=torch.float32, device=src.device)
-        fp.forward_slabs(
-            lambda zs: src[z0 + zs:z0 + zs + tin, y0:y0 + py, x0:x0 + px],
-            out=shell, offset=(0, h, h), module=module)
-        return self._mask_shell(shell, b0 - h)
-
     def shared_prob_band_local(self, W: torch.Tensor, b0: int,
                                fp: DetectPipeline, module=None) -> torch.Tensor:
-        """Forward one z-band from its band-local padded window ``W`` (from
-        :func:`_band_window`: index 0 at global ``(b0 - h - ctx, -ctx,
-        -ctx)``) into a -inf band shell on ``W``'s device."""
-        return self._band_shell(W, (0, 0, 0), b0, fp, module)
-
-    def shared_prob_band(self, big: torch.Tensor, halo: int, b0: int,
-                         fp: DetectPipeline, module=None) -> torch.Tensor:
-        """Forward one z-band of a staged volume ``big`` (reflect-padded by
-        ``halo`` and zero-extended past the last band's tiles) into its
-        band shell on ``big``'s device: the probabilities of global z
-        ``[b0 - h, b0 - h + band extent)``, bitwise the whole-volume
-        shell's there."""
-        off = halo - self.ctx  # >= h: the staged halo holds the fetch halo
-        return self._band_shell(big, (off + b0 - self.h, off, off), b0, fp,
-                                module)
+        """Forward one z-band from its band-local padded window ``W`` (index
+        0 at global ``(b0 - h - ctx, -ctx, -ctx)``: :func:`_band_window`
+        streamed, or a window of a staged volume) into a -inf band shell on
+        ``W``'s device: the probabilities of global z ``[b0 - h, b0 - h +
+        band extent)``, bitwise the whole-volume shell's there; ``module``
+        as in ``forward_slabs``."""
+        h, tin = self.h, fp._tin
+        _, py, px = fp.padded_shape
+        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
+                           dtype=torch.float32, device=W.device)
+        fp.forward_slabs(lambda zs: W[zs:zs + tin, :py, :px],
+                         out=shell, offset=(0, h, h), module=module)
+        return self._mask_shell(shell, b0 - h)
 
     def _post_bytes(self) -> int:
         """Bytes of the largest postprocess box's temporaries (~6 f32
@@ -801,13 +776,6 @@ class _StreamPlan:
                 self._collect(self._dispatch_shared(key, corner, shell, dims,
                                                     local), progress)
         return self._finalize()
-
-    def consume_shared_multi(self, shells, rpb: int, progress=None):
-        """:meth:`consume_shared` over per-band shells built already (one
-        per device of the staged fan-out); each box is postprocessed on its
-        band's shell, in grid order."""
-        return self.consume_shared_stream(lambda band, b0: shells[band], rpb,
-                                          progress)
 
     def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1,
                     devices=None) -> bool:
@@ -970,12 +938,39 @@ class _StagedChunks:
         out[:n_real[0], :n_real[1], :n_real[2]] = raw
         return out
 
-    def assemble_full(self) -> tuple[torch.Tensor, int]:
-        """The whole ``(big, halo)`` of :func:`stage_volume` from the chunks
-        (a concatenation and a reflect pad on the device), for the paths
-        that read the whole padded volume (the multi-device fan-out)."""
-        raw = torch.cat(self.chunks) if len(self.chunks) > 1 else self.chunks[0]
-        return reflect_pad(raw, self.halo), self.halo
+    def to(self, device) -> "_StagedChunks":
+        """The same chunks on ``device`` (``self`` when they live there)."""
+        device = as_device(device)
+        if self.chunks[0].device == device:
+            return self
+        return _StagedChunks([c.to(device) for c in self.chunks], self.halo,
+                             self.bounds)
+
+
+def _staged_halo(staged) -> int:
+    """The reflect halo of a staged upload of either form."""
+    return staged.halo if isinstance(staged, _StagedChunks) else staged[1]
+
+
+def _staged_windows(staged, devices, extent) -> dict:
+    """``{device: window(start, size)}`` over a staged upload of either
+    form, copied once per distinct device of ``devices``: ``window``
+    returns ``B[start : start + size]`` there, ``B`` the volume
+    reflect-padded by the staged halo and zero-extended to at least
+    ``extent`` (the zeros feed only voxels outside the volume, masked or
+    -inf'd before use).  A whole upload gives views; chunks assemble each
+    window from the chunks it covers (:meth:`_StagedChunks.window`)."""
+    if isinstance(staged, _StagedChunks):
+        return {d: staged.to(d).window
+                for d in dict.fromkeys(as_device(x) for x in devices)}
+    big = staged[0]
+    big = zero_extend(big, [max(s, n) for s, n in zip(big.shape, extent)])
+
+    def view(b):
+        return lambda start, size: b[tuple(slice(a, a + n)
+                                           for a, n in zip(start, size))]
+
+    return {d: view(b) for d, b in per_device(big, devices).items()}
 
 
 def _staging_device(plan, device):
@@ -1049,13 +1044,12 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
 
     ``devices`` (several devices, or repeated slots of one) fans the sweep
     out: in roi mode the ROIs round-robin over them
-    (:func:`_detect_staged_multi`), in shared mode the grid's z-rows split
-    into one band per device (:func:`_detect_staged_shared_multi`); the
+    (:func:`_detect_staged_roi`), in shared mode the grid's z-rows split
+    into one band per device (:func:`_detect_staged_shared`); the
     lists stay bitwise the single-device call's.  A list of one device runs
     the single-device path, as the reference."""
     if forward not in ("roi", "shared", "auto"):
         raise ValueError(f"unknown forward mode {forward!r}")
-    multi = devices is not None and len(devices) > 1
     shape = np.shape(volume)
     if plan is None:
         plan = make_stream_plan(
@@ -1071,104 +1065,77 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
                            core, tile_out, tile_batch)
     if staged is None:
         staged = stage_volume(volume, plan=plan)
-    halo = staged.halo if isinstance(staged, _StagedChunks) else staged[1]
-    if halo < plan.fetch_halo:
-        raise ValueError(f"staged halo {halo} < required {plan.fetch_halo} "
-                         "(stage with the same window and method)")
-    chunked = isinstance(staged, _StagedChunks)
-    n_bytes = sum(c.nbytes for c in (staged.chunks if chunked else staged[:1]))
+    if _staged_halo(staged) < plan.fetch_halo:
+        raise ValueError(f"staged halo {_staged_halo(staged)} < required "
+                         f"{plan.fetch_halo} (stage with the same window "
+                         "and method)")
+    devs = _fanout_devices(plan, devices)
+    n_bytes = sum(c.nbytes for c in (staged.chunks if isinstance(
+        staged, _StagedChunks) else staged[:1]))
     if forward == "shared" or (forward == "auto" and plan.shared_auto(
-            n_bytes, len(devices) if multi else 1, devices if multi else None)):
-        if multi:
-            full = staged.assemble_full() if chunked else staged
-            return _detect_staged_shared_multi(plan, full, devices, progress)
-        return plan.consume_shared(plan.shared_prob(staged), progress)
-    if chunked:
-        if not multi:
-            return _detect_staged_chunked(plan, staged, progress)
-        staged = staged.assemble_full()
-    big = staged[0]
-    off = halo - plan.fetch_halo  # the staged halo may be generous
-    # zero-extend so the highest ROI's window fits: the extension feeds
+            n_bytes, len(devs), devs)):
+        return _detect_staged_shared(plan, staged, devs, progress)
+    return _detect_staged_roi(plan, staged, devs, progress)
+
+
+def _fanout_devices(plan, devices) -> list:
+    """The devices a sweep runs on: ``devices`` when it lists several
+    (slots of one device may repeat), else the plan's one device (a list
+    of one runs the single-device path, as the reference)."""
+    if devices is not None and len(devices) > 1:
+        return [as_device(d) for d in devices]
+    return [plan.device]
+
+
+def _detect_staged_roi(plan, staged, devs, progress=None):
+    """:func:`detect_staged`'s ROI sweep over ``devs`` (one device, or the
+    fan-out's slots): the staged volume and the module copied once per
+    distinct device, ROI ``i`` forwarded on ``devs[i % n]`` from its padded
+    window with the same plan, about ``n`` forwards queued before a box is
+    copied back, the merge in grid order."""
+    off = _staged_halo(staged) - plan.fetch_halo  # the halo may be generous
+    P = plan.pipe.padded_shape
+    # zero-extended so the highest ROI's window fits: the extension feeds
     # only voxels outside the volume, masked by [vlo, vhi) before use
-    big = zero_extend(big, [
-        max(big.shape[d], max(c[d] for _, c in plan.grid) + off
-            + plan.pipe.padded_shape[d])
-        for d in range(3)])
-    if multi:
-        return _detect_staged_multi(plan, big, off, devices, progress)
-
-    def outs():
-        for key, corner in plan.grid:
-            _, vlo, vhi = plan.region(corner)
-            origin = tuple(c + off for c in corner)
-            yield key, corner, plan.pipe.forward_from(big, origin), vlo, vhi
-
-    return plan.consume(outs(), progress)
-
-
-def _detect_staged_multi(plan, big: torch.Tensor, off: int, devices,
-                         progress=None):
-    """:func:`detect_staged`'s ROI sweep fanned over ``devices``: the staged
-    volume and the module copied once per distinct device, ROI ``i``
-    forwarded on ``devices[i % n]`` with the same plan, about ``n`` forwards
-    queued before a box is copied back, the merge in grid order."""
-    devs = [as_device(d) for d in devices]
-    bigs = per_device(big, devs)
+    windows = _staged_windows(staged, devs, [
+        max(c[d] for _, c in plan.grid) + off + P[d] for d in range(3)])
     modules = per_device(plan.pipe.spec.module, devs)
 
     def outs():
         for i, (key, corner) in enumerate(plan.grid):
             d = devs[i % len(devs)]
             _, vlo, vhi = plan.region(corner)
-            origin = tuple(c + off for c in corner)
+            win = windows[d](tuple(c + off for c in corner), P)
             yield key, corner, plan.pipe.forward_from(
-                bigs[d], origin, module=modules[d]), vlo, vhi
+                win, module=modules[d]), vlo, vhi
 
     return plan.consume(outs(), progress, ahead=len(devs))
 
 
-def _detect_staged_shared_multi(plan, staged, devices, progress=None):
-    """:func:`detect_staged`'s shared forward fanned over ``devices`` by
-    z-bands: the grid's z-rows split into uniform bands
-    (:meth:`_StreamPlan._band_partition`), band ``i`` forwarded into its
-    band shell on ``devices[i]`` (every band's forward queued first), each
-    box postprocessed on its band's shell in grid order.  The band grids
-    anchor at ``b0 - h``, 0 modulo ``size_multiple``, so every probability
-    is the whole-volume shell's."""
-    big, halo = staged
-    rpb, nb, b0s = plan._band_partition(len(devices))
-    if nb == 1:  # one z-row: nothing to fan out
+def _detect_staged_shared(plan, staged, devs, progress=None):
+    """:func:`detect_staged`'s shared forward over ``devs``: one
+    whole-volume shell on one device; with the fan-out the grid's z-rows
+    split into uniform bands (:meth:`_StreamPlan._band_partition`), band
+    ``i`` forwarded into its band shell on ``devs[i]`` (every band's
+    forward queued first), each box postprocessed on its band's shell in
+    grid order.  The band grids anchor at ``b0 - h``, 0 modulo
+    ``size_multiple``, so every probability is the whole-volume shell's."""
+    rpb, nb, b0s = plan._band_partition(len(devs))
+    if nb == 1:
         return plan.consume_shared(plan.shared_prob(staged), progress)
     fp = plan.band_pipe(rpb)
-    off = halo - plan.ctx
+    off = _staged_halo(staged) - plan.ctx
     z_top = max(zs for zs, _ in fp._slabs) + fp._tin
     _, py, px = fp.padded_shape
-    # the zero extension feeds only voxels outside the volume, -inf'd by
-    # the band masks
-    big = zero_extend(big, [max(s, n) for s, n in zip(
-        big.shape, (off + b0s[-1] - plan.h + z_top, off + py, off + px))])
-    devs = [as_device(d) for d in devices[:nb]]
-    bigs = per_device(big, devs)
+    devs = devs[:nb]
+    windows = _staged_windows(staged, devs, (
+        off + b0s[-1] - plan.h + z_top, off + py, off + px))
     modules = per_device(plan.pipe.spec.module, devs)
-    shells = [plan.shared_prob_band(bigs[d], halo, b0, fp, modules[d])
-              for b0, d in zip(b0s, devs)]
-    return plan.consume_shared_multi(shells, rpb, progress)
-
-
-def _detect_staged_chunked(plan, staged: _StagedChunks, progress=None):
-    """ROI sweep over a chunk-staged volume: each ROI's padded window is
-    assembled from its chunks, then runs the same per-ROI forward."""
-    off = staged.halo - plan.fetch_halo
-    P = plan.pipe.padded_shape
-
-    def outs():
-        for key, corner in plan.grid:
-            _, vlo, vhi = plan.region(corner)
-            win = staged.window(tuple(c + off for c in corner), P)
-            yield key, corner, plan.pipe.forward_from(win), vlo, vhi
-
-    return plan.consume(outs(), progress)
+    shells = [plan.shared_prob_band_local(
+        windows[d]((off + b0 - plan.h, off, off), (z_top, py, px)), b0, fp,
+        modules[d]) for b0, d in zip(b0s, devs)]
+    return plan.consume_shared_stream(lambda band, b0: shells[band], rpb,
+                                      progress)
 
 
 def _prefetched(items, fetch, depth: int, name):
@@ -1263,7 +1230,6 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
     path."""
     if forward not in ("roi", "shared", "auto"):
         raise ValueError(f"unknown forward mode {forward!r}")
-    multi = devices is not None and len(devices) > 1
     if plan is None:
         plan = make_stream_plan(
             spec, variables, shape,
@@ -1277,25 +1243,25 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
         plan = _check_plan(plan, shape, window, method, threshold, cc_impl,
                            core, tile_out, tile_batch)
     shape = plan.shape
+    devs = _fanout_devices(plan, devices)
     rpb = None
     if forward != "roi" and min(shape) > plan.fetch_halo:
         # a band window's single reflect needs every pad under the read
         # extent; smaller volumes stay on the roi path
         probe = np.asarray(read_fn((0, 0, 0), (1, 1, 1)))
-        share = (max(Counter(as_device(d) for d in devices).values())
-                 if multi else 1)
         rpb = plan.band_rpb(itemsize=1 if probe.dtype == np.uint8 else 4,
-                            cost_gate=forward == "auto", shells=max(2, share))
+                            cost_gate=forward == "auto",
+                            shells=max(2, *Counter(devs).values()))
     if forward == "shared" and rpb is None:
         raise ValueError(
             "the shared streaming forward does not fit this device or "
             "geometry (no band passes the memory budget, or the volume is "
             "not larger than the fetch halo); use forward='roi'")
     if rpb is not None:
-        if multi:  # split further, never past one device's budget
-            rpb = min(rpb, plan._band_partition(len(devices))[0])
-        return _detect_streaming_shared(plan, read_fn, rpb, progress,
-                                        devices if multi else None)
+        # split further so every device gets a band, never past one
+        # device's budget
+        rpb = min(rpb, plan._band_partition(len(devs))[0])
+        return _detect_streaming_shared(plan, read_fn, rpb, progress, devs)
 
     fh, core_dims = plan.fetch_halo, plan.core_dims
     stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
@@ -1318,7 +1284,6 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
             pads = [(0, 0)] * 3
         return block, pads, vlo, vhi
 
-    devs = [as_device(d) for d in devices] if multi else [plan.device]
     modules = per_device(plan.pipe.spec.module, devs)
 
     def outs():
@@ -1378,17 +1343,17 @@ def _band_window(fp: DetectPipeline, block: torch.Tensor,
 
 
 def _detect_streaming_shared(plan, read_fn, rpb: int, progress=None,
-                             devices=None):
+                             devs=None):
     """Out-of-core shared forward: z-bands of ``rpb`` ROI rows, each band's
     planes read once by a prefetch thread (the next band's while this one
     runs), uploaded, reflect-padded on the device (:func:`_band_window`),
     forwarded once into its band shell and postprocessed box by box
     (:meth:`_StreamPlan.consume_shared_stream`).  The band maps are bitwise
-    the staged shared map's.  With ``devices`` band ``i`` runs on
-    ``devices[i % n]`` with that device's module copy, ``n`` bands read
-    ahead."""
+    the staged shared map's.  Band ``i`` runs on ``devs[i % n]`` (the
+    fan-out's slots; the plan's device by default) with that device's
+    module copy, ``n`` bands read ahead."""
     fp = plan.band_pipe(rpb)
-    devs = [as_device(d) for d in devices] if devices else [plan.device]
+    devs = devs or [plan.device]
     modules = per_device(plan.pipe.spec.module, devs)
     stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
     bands = _prefetched(

@@ -250,8 +250,7 @@ class FplNetwork:
                                     **common)
         vol = np.asarray(volume)
         if staged is None:
-            staged = staged_fits(vol, self.device,
-                                 n_devices=len(kw.get("devices") or ()) or 1)
+            staged = staged_fits(vol, self.device, devices=kw.get("devices"))
         if staged is False:
             shape, read = array_reader(vol)
             return detect_streaming(self.infer_spec, None, shape, read,

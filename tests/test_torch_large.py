@@ -381,25 +381,26 @@ def test_detect_staged_devices_equal_one_device(net, fanout_case, forward, n,
     """``detect_staged(devices=)`` on repeated CPU slots, from a whole and a
     chunked upload: the lists are bit for bit the single-device call's.  A
     list of one device runs the single-device path (as the reference's
-    ``multi = len(devices) > 1``); longer lists run the fan-out, the shared
-    one with one band per slot (two here: four rows in bands of two)."""
+    ``multi = len(devices) > 1``); longer lists run the same sweep over
+    their slots, the shared one with one band per slot (two here: four rows
+    in bands of two)."""
     vol, thr, plan = fanout_case
     kw = dict(plan=plan, threshold=thr, window=5, method="both",
               forward=forward)
     want = tlarge.detect_staged(net.infer_spec, None, vol, **kw)
-    calls = []
-    for name in ("_detect_staged_multi", "_detect_staged_shared_multi"):
-        real = getattr(tlarge, name)
-        monkeypatch.setattr(tlarge, name, lambda *a, real=real, name=name,
-                            **k: calls.append(name) or real(*a, **k))
+    sweep = {"roi": "_detect_staged_roi",
+             "shared": "_detect_staged_shared"}[forward]
+    real = getattr(tlarge, sweep)
+    slots = []
+    monkeypatch.setattr(tlarge, sweep, lambda plan, staged, devs, *a:
+                        slots.append(list(devs)) or real(plan, staged, devs,
+                                                         *a))
     for staged in (None, tlarge.stage_volume_chunked(vol, plan=plan,
                                                      chunk=12)):
         got = tlarge.detect_staged(net.infer_spec, None, vol, staged=staged,
                                    devices=["cpu"] * n, **kw)
         _same_lists_bitwise(got, want)
-    fan = {"roi": "_detect_staged_multi",
-           "shared": "_detect_staged_shared_multi"}[forward]
-    assert calls == ([] if n == 1 else [fan] * 2)
+    assert slots == [[torch.device("cpu")] * n] * 2
     if forward == "shared" and n > 1:
         assert plan._band_partition(n)[:2] == (2, 2)
 
@@ -430,7 +431,8 @@ def test_detect_streaming_devices_equal_one_device(net, fanout_case,
 def test_fanout_memory_rules(net, fanout_case, monkeypatch):
     """``shared_auto`` over several devices sizes one band shell per device
     (the reference's rule) and, given the list, as many as repeated slots
-    put on one; ``staged_fits`` divides the f32 shell among the devices;
+    put on one; ``staged_fits`` divides the f32 shell among distinct
+    devices, and repeated slots of one device hold all of it;
     ``consume(ahead=)`` keeps grid order."""
     vol, thr, plan = fanout_case
     assert plan.shared_auto(0, n_devices=2, devices=["cpu", "cpu"])
@@ -446,7 +448,12 @@ def test_fanout_memory_rules(net, fanout_case, monkeypatch):
     monkeypatch.setattr(tlarge, "memory_bytes",
                         lambda d: (0, int(3.1e6 / 0.6)))
     assert not tlarge.staged_fits(big, "cpu")
-    assert tlarge.staged_fits(big, "cpu", n_devices=2)
+    assert tlarge.staged_fits(big, "cpu", devices=["cpu", "meta"])
+    assert not tlarge.staged_fits(big, "cpu", devices=["cpu", "cpu"])
+    assert tlarge.staged_fits(big, "cpu",
+                              devices=["cpu", "cpu", "meta", "meta"])
+    assert not tlarge.staged_fits(big, "cpu",
+                                  devices=["cpu", "cpu", "cpu", "meta"])
     items = [((i,), (0, 0, 0), None, None, None) for i in range(5)]
     seen = []
     monkeypatch.setattr(plan, "_dispatch", lambda key, *a: {"key": key})

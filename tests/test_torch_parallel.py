@@ -410,9 +410,14 @@ def _params(module):
 
 @pytest.mark.parametrize("bn", [False, True], ids=["baseline", "batchnorm"])
 def test_dp_step_equals_the_single_step(bn):
-    """Same seed, same start: the DP step over a 4-slot data axis gives the
-    single step's loss and parameters (BatchNorm's running statistics
-    included)."""
+    """Same seed, same start: ``make_dp_train_step`` over a one-process
+    mesh of 4 CPU slots gives the single step's loss and parameters
+    (BatchNorm's running statistics included).  One process holds every
+    row of the data axis and no world, so this runs the step's world-less
+    path, the single step on the mesh's rows; the split batch, the global
+    mask count, the summed BatchNorm moments and the gradient bucket run in
+    ``tests/test_torch_distributed.py``'s two gloo ranks, held there
+    against this single step and against the reference's DP step."""
     cfg = TrainConfig(patch_size=9, batch_size=8, augment=True)
     image, labels, mask = _task()
     out = []
@@ -436,8 +441,11 @@ def test_dp_step_equals_the_single_step(bn):
 
 
 def test_dp_step_equals_jax_on_one_batch(monkeypatch):
-    """On a fixed batch and the same f32 weights, one DP step over a 4-slot
-    data axis equals JAX's loss, gradients and optax Adam update."""
+    """On a fixed batch and the same f32 weights, ``make_dp_train_step``
+    over a one-process mesh of 4 CPU slots (the world-less path: the
+    single step on all rows) equals JAX's loss, gradients and optax Adam
+    update.  The two-rank DP step is held against the reference's
+    ``make_dp_train_step`` in ``tests/test_torch_distributed.py``."""
     cfg = TrainConfig(patch_size=12, batch_size=8, augment=True,
                       engine="plain")
     jm = jzoo.ConvStack(features=(4, 6), dilations=(1, 2), head_features=8,
