@@ -23,10 +23,15 @@ prints no result line):
    -> 96 channels at dilation 4), in f32 and bf16, with the median times of
    both and of one cuDNN call.  Each case prints the kernel's route
    (``k1_route``); every bf16 case with Ci > 1 and Ci, Co multiples of 8
-   must take the wgmma/TMA kernel.  Small cases at a dilation of 3 and at
-   Co > 128 (192, 136) run on every route.  Two broken outputs (baseline
-   layer 3 on the wgmma kernel and layer 0 on the Ci = 1 kernel, the centre
-   tap's weights zeroed) must fail the same check.
+   must take the wgmma/TMA kernel, every f32 case with Ci > 1, Ci a
+   multiple of 4 and a dilation of at most 7 the f32 kernel ("simt"),
+   whose sums over baseline layers 1-3 and U-Net convs 1-9 are printed.
+   Small cases at a dilation of 3, at Co > 128 (192, 136) and at Ci = 6
+   run on every route.  Three broken outputs (baseline layer 3 on the
+   wgmma and the f32 kernel and layer 0 on the Ci = 1 kernel, the centre
+   tap's weights zeroed) must fail the same check.  The f32 kernel's
+   output at baseline layer 2 must be the same bits in a second launch
+   and, on a sub-window of the input, the overlap of the full output.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
    versions.  Small cases first (ragged box edges, odd extents, one and two
    operands, a 16-channel rest, batch > 1, logits in and out of the
@@ -65,7 +70,11 @@ prints no result line):
    on the Ci = 1 kernel), and both detection lists must
    equal the host (numpy/scipy) reference on the same probability map.
    Times follow, and where one infer's time goes (host pad, upload,
-   forwards, the rest).  A baseline with dilations (1, 1, 3, 3) (no packed
+   forwards, the rest).  The same again for the f32 model
+   (``dtype=torch.float32``): K1 four launches per tile batch and forward,
+   three on the f32 kernel and one on the Ci = 1 kernel, lists equal to the
+   host reference, times and the infer's split.  A baseline with dilations
+   (1, 1, 3, 3) (no packed
    engine takes it, so the plain stack runs) must return the CPU's map too.
 8. The packed ConvStack paths, the default engine: the 48^3 map check for
    ``FplNetwork("baseline")``, then ``baseline`` and ``vgg_like`` at bf16 on
@@ -155,9 +164,9 @@ prints no result line):
 13. BatchNorm models, resumable ROI streaming, host-streamed tiling.
    (a) K1 with ``relu=False`` (a BatchNorm layer's conv) against its plain
    version at the baseline's four layer shapes under phase 3's limits, on
-   all four routes (bf16 "wgmma" and "ci1", f32 "fma" and "ci1", bf16 with
-   the input off a 16-byte boundary on "wmma"); on each route the clamped
-   output must fail the same check.  (b) The full-width BatchNorm baseline
+   all five routes (bf16 "wgmma" and "ci1", f32 "simt" and "ci1", the input
+   off a 16-byte boundary on "wmma" (bf16) and "fma" (f32)); on each route
+   the clamped output must fail the same check.  (b) The full-width BatchNorm baseline
    (``ConvStack(use_batchnorm=True)``, seed-0 conv weights, running
    statistics and affine from a seeded calibration, ``bn_state``): the
    48^3 maps, plain and packed, card against CPU under phase 7's and 8's
@@ -166,7 +175,8 @@ prints no result line):
    the plain one (K1 relu=False, per-route counts exact), lists equal to the
    host reference.  (c) One f32 and one bf16 train step of it ("auto" ->
    plain) on the card and on the CPU, the CPU on the card's branch points
-   (the ReLUs after BatchNorm), both held to an f64 truth on those branch
+   (the ReLUs after BatchNorm and the head's), both held to an f64 truth on
+   those branch
    points: each of the card's gradients within BN_TRUTH_RATIO times the
    CPU's own distance or GRAD_TOL, whichever is larger (BatchNorm's
    backward shrinks the gradient 30-45x below the last layer, so two f32
@@ -210,7 +220,8 @@ prints no result line):
    1e-5 where the gradient is not 0 up to its limit, gradients 1e-4 of the
    largest; the BatchNorm baseline's gradients, each step's against an f64
    truth on the global batch, the DP step's within max(1e-4, 2 x the single
-   step's distance), as 13(c)), the loss the same on both ranks; two
+   step's distance), as 13(c): the DP step and the truth on the single
+   step's branch points), the loss the same on both ranks; two
    broken controls (local mask counts, per-rank BatchNorm moments) must
    fail that check.  Times are one card's: the cost of the fan-out, not a
    scaling.
@@ -488,13 +499,16 @@ def median_s(fn, iters: int = 3) -> float:
 # Co = 192 (the three-level U-Net's bottleneck, two 96-wide N blocks on the
 # wgmma route), Co = 192 at d = 3 and Co = 136 at d = 2 on the Ci = 1 kernel
 # (two launches of at most 128 channels) and widths off the multiples of 8 (bf16: the WMMA
-# kernel's N blocks; f32: the FMA kernel's).  (label, B, size, Ci, Co, d)
+# kernel's N blocks; f32: the f32 kernel's channel blocks of 48, and at Ci = 6,
+# off the multiples of 4, the first-version FMA kernel's).
+# (label, B, size, Ci, Co, d)
 WIDE_CONV_CASES = (
     ("wide d=3", 2, 21, 32, 48, 3),
     ("wide Co=192", 2, 15, 96, 192, 1),
     ("wide Ci=1 Co=192 d=3", 2, 21, 1, 192, 3),
     ("wide Ci=1 Co=136 d=2", 2, 17, 1, 136, 2),
     ("wide Ci=12 Co=136 d=3", 2, 19, 12, 136, 3),
+    ("wide Ci=6 Co=20 d=2", 2, 15, 6, 20, 2),
 )
 
 
@@ -543,9 +557,33 @@ def conv_cases():
     return cases + list(WIDE_CONV_CASES)
 
 
+def simt_bitwise(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int,
+                 got: torch.Tensor, label: str, card_str: str) -> None:
+    """The f32 kernel is blind to placement and to the run: a second launch
+    gives ``got``'s bits, and the output of a sub-window of ``x`` (offset
+    5, 3, 11: another box grid, every voxel at another place in its box)
+    is bit for bit the overlap of ``got``."""
+    from flypylib_tpu_torch.ops.conv import conv3d_bias_relu, simt_plan
+
+    again = conv3d_bias_relu(x, w, b, d)
+    sub = x[:, 5:, 3:, 11:].contiguous()
+    part = conv3d_bias_relu(sub, w, b, d)
+    torch.cuda.synchronize()
+    want = got[:, 5:, 3:, 11:]
+    same, window = torch.equal(again, got), torch.equal(part, want)
+    print(f"K1 {label} float32 [simt]: a second launch bit for bit "
+          f"{same}; sub-window {tuple(sub.shape)} (box "
+          f"{simt_plan(tuple(part.shape[1:4]), d, w.shape[-1])[:3]} against "
+          f"{simt_plan(tuple(got.shape[1:4]), d, w.shape[-1])[:3]}) bit for "
+          f"bit the full output's overlap {window} [{card_str}]", flush=True)
+    require(same and window, f"K1 {label} f32: the simt kernel's bits follow "
+                             "the run or the box")
+
+
 def check_kernels(card_str: str) -> dict:
     """K1 against its plain version at every case, in f32 and bf16."""
-    from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu, conv3d_reference,
+    from flypylib_tpu_torch.ops.conv import (SIMT_MAX_DILATION,
+                                             conv3d_bias_relu, conv3d_reference,
                                              k1_route)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -560,6 +598,10 @@ def check_kernels(card_str: str) -> dict:
     broken_done = set()  # the routes whose zeroed-tap control ran
     wide_routes = set()  # the routes WIDE_CONV_CASES ran on
     unet_sum = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    # the f32 kernel ("simt"): baseline layers 1-3 and U-Net convs 1-9
+    simt = {group: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "max_abs_err"), 0.0)
+            for group in ("baseline", "unet")}
     for label, B, S, Ci, Co, d in conv_cases():
         for dtype in (torch.float32, torch.bfloat16):
             shape = (B, S, S, S, Ci)
@@ -571,11 +613,15 @@ def check_kernels(card_str: str) -> dict:
             w = torch.randn((3, 3, 3, Ci, Co), generator=gen, device="cuda")
             w = w / math.sqrt(27 * Ci)
             b = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
-            route = k1_route(x, w)
+            route = k1_route(x, w, d)
             dt = str(dtype).replace("torch.", "")
             if dtype == torch.bfloat16 and Ci > 1 and Ci % 8 == Co % 8 == 0:
                 require(route == "wgmma", f"K1 {label} {dt}: route {route}, "
                                           "not the wgmma kernel")
+            if (dtype == torch.float32 and Ci > 1 and Ci % 4 == 0
+                    and d <= SIMT_MAX_DILATION):
+                require(route == "simt", f"K1 {label} {dt}: route {route}, "
+                                         "not the f32 kernel")
             got = conv3d_bias_relu(x, w, b, d)
             ref = conv3d_reference(x, w, b, d)
             torch.cuda.synchronize()
@@ -596,7 +642,8 @@ def check_kernels(card_str: str) -> dict:
                   f"({by}) [{card_str}]", flush=True)
             require(ok, f"K1 {label} {dt}: outside tolerance (max|err| {err})")
             if (route, label) in (("wgmma", "baseline layer 3"),
-                                  ("ci1", "baseline layer 0")):
+                                  ("ci1", "baseline layer 0"),
+                                  ("simt", "baseline layer 3")):
                 # the centre tap's weights zeroed: the check must see it
                 w_broken = w.clone()
                 w_broken[1, 1, 1] = 0
@@ -621,6 +668,15 @@ def check_kernels(card_str: str) -> dict:
                 bf16_main["bound_ms"] += bnd
                 if by == "operations":
                     bf16_main["op_ms"] += bnd
+            if route == "simt" and label == "baseline layer 2":
+                simt_bitwise(x, w, b, d, got, label, card_str)
+            group = label.split(" ")[0]
+            if route == "simt" and group in simt:
+                tot = simt[group]
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bnd)):
+                    tot[key] += v
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
             if label.startswith("wide"):
                 wide_routes.add(route)
             if label.startswith("unet"):
@@ -630,15 +686,24 @@ def check_kernels(card_str: str) -> dict:
     for dtype, (ms, plain) in unet_sum.items():
         print(f"K1 unet convs 0-9 summed, {str(dtype).replace('torch.', '')}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms [{card_str}]")
-    require(broken_done == {"wgmma", "ci1"},
+    for group, convs in (("baseline", "layers 1-3"), ("unet", "convs 1-9")):
+        t = simt[group]
+        print(f"K1 {group} {convs} summed, float32 [simt]: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"(operations; {t['bound_ms'] / t['ms']:.1%} of the f32 FMA "
+              f"rate) [{card_str}]", flush=True)
+    require(broken_done == {"wgmma", "ci1", "simt"},
             f"K1: the zeroed-tap controls ran on {sorted(broken_done)} only")
-    require(wide_routes == {"wgmma", "wmma", "ci1", "fma"},
+    require(wide_routes == {"wgmma", "wmma", "ci1", "simt", "fma"},
             f"K1: the wide cases ran on {sorted(wide_routes)} only")
     torch.cuda.empty_cache()
     # the summed bound is bounded by what bounds the larger share of it
     op_ms = bf16_main.pop("op_ms")
     bf16_main["bound_by"] = ("operations" if 2 * op_ms >= bf16_main["bound_ms"]
                              else "bytes")
+    bf16_main["simt"] = {**simt["baseline"], "bound_by": "operations",
+                         "unet_convs_1_9": simt["unet"]}
     return bf16_main
 
 
@@ -1381,6 +1446,8 @@ def check_deep_unet(port, card_str: str) -> None:
     exactly 0 or 1 in places), so the logits are compared as the module
     returns them, relative to their largest magnitude: f32
     DEEP_UNET_RTOL_F32, bf16 DEEP_UNET_RTOL_BF16."""
+    from flypylib_tpu_torch.ops.conv import K1_ROUTES
+
     vol = make_volume_u8(DEEP_UNET_SMALL, 2, seed=1)
     for dtype, rtol in ((torch.float32, DEEP_UNET_RTOL_F32),
                         (torch.bfloat16, DEEP_UNET_RTOL_BF16)):
@@ -1393,9 +1460,8 @@ def check_deep_unet(port, card_str: str) -> None:
         prob = gpu.infer(vol, *DEEP_UNET_TILING)
         counts = launch_counts()
         n = gpu.tiled_inference(vol.shape, *DEEP_UNET_TILING).n_batches(vol.shape)
-        routes = {r: counts[f"conv3d_bias_relu:{r}"]
-                  for r in ("wgmma", "wmma", "ci1", "fma")}
-        main = "fma" if dtype == torch.float32 else "wgmma"
+        routes = {r: counts[f"conv3d_bias_relu:{r}"] for r in K1_ROUTES}
+        main = "simt" if dtype == torch.float32 else "wgmma"
         want = dict.fromkeys(routes, 0)
         want.update({"ci1": n, main: (len(gpu.module.convs) - 1) * n})
         require(prob.shape == vol.shape and bool(np.isfinite(prob).all())
@@ -1534,11 +1600,12 @@ def time_main_path(net, vol: np.ndarray, thr: float, card_str: str,
             lambda: net.detect(vol, threshold=thr, method="components")),
     }
     peak = torch.cuda.max_memory_allocated() / 2**30
+    dt = str(net.module.dtype).replace("torch.", "")
     for k, s in t.items():
         print(f"{label} {k}: {s * 1e3:.2f} ms"
               + (f", {mvox / s:.3f} Mvox/s" if k != "nms" and
                  k != "components" else "")
-              + f" ({VOLUME}^3, bf16) [{card_str}]")
+              + f" ({VOLUME}^3, {dt}) [{card_str}]")
     print(f"{label} peak device memory {peak:.3f} GiB [{card_str}]")
     return t
 
@@ -2226,10 +2293,11 @@ def train_grads(spec, engine: str, batch, device: str):
 def grad_decisions(module, ref: dict | None = None,
                    zero_dw: int | None = None):
     """Within the block, the steps of a plain model (``ConvStack`` or
-    ``UNetValid``) keep its branch points in the dict it yields: every body
+    ``UNetValid``) keep its branch points in the dict it yields: every
     ReLU's output ("y", its mask y > 0: K1's own, or for a BatchNorm stack
-    the ReLU after each BatchNorm, K1 running without one) and every pool's
-    windows ("win", their first maxima).  Given ``ref``, another run's dict, each
+    the ReLU after each BatchNorm, K1 running without one; then a
+    ``ConvStack``'s head ReLU) and every pool's windows ("win", their first
+    maxima).  Given ``ref``, another run's dict, each
     backward takes its ReLU mask and first maxima from ``ref``: the same
     piecewise-linear function is differentiated on both sides.  The forward
     is the model's own (K1 on a CUDA tensor, the plain version on a CPU one)
@@ -2262,7 +2330,8 @@ def grad_decisions(module, ref: dict | None = None,
             return dx, dw, db, dd, dr
 
     class Relu(torch.autograd.Function):
-        """The ReLU after a BatchNorm, its mask y > 0 (or ``ref``'s)."""
+        """A ReLU outside K1 (after a BatchNorm, after the head), its mask
+        y > 0 (or ``ref``'s)."""
 
         @staticmethod
         def forward(ctx, z):
@@ -2293,13 +2362,15 @@ def grad_decisions(module, ref: dict | None = None,
     for c in convs:
         c.forward = lambda x, c=c: Conv.apply(x, c.weight, c.bias, c.dilation,
                                               c.relu)
-    bn = getattr(module, "use_batchnorm", False)
-    if bn:  # ConvStack.forward, its ReLUs after BatchNorm through Relu
+    stack = isinstance(module, zoo.ConvStack)
+    if stack:  # ConvStack.forward, its ReLUs outside K1 through Relu
         def forward(x, m=module):
             x = x.to(m.dtype)
-            for conv, norm in zip(m.convs, m.norms):
-                x = Relu.apply(norm(conv(x)))
-            x = torch.relu(m.head(x, m.dtype))
+            for i, conv in enumerate(m.convs):
+                x = conv(x)
+                if m.use_batchnorm:
+                    x = Relu.apply(m.norms[i](x))
+            x = Relu.apply(m.head(x, m.dtype))
             return m.logits(x, torch.float32)
 
         module.forward = forward
@@ -2310,7 +2381,7 @@ def grad_decisions(module, ref: dict | None = None,
         zoo.WindowMax = real
         for c in convs:
             del c.forward
-        if bn:
+        if stack:
             del module.forward
 
 
@@ -2396,14 +2467,15 @@ def grads_ok(errs: dict, tol: float) -> bool:
 def grad_launch_want(model: str, engine: str, dtype) -> dict:
     """Launches of one train step (forward; no kernel runs backward) by
     kernel and route: K5 once (packed baseline), K1 on every conv (plain
-    baseline 4, plain U-Net 10; conv 0 on the Ci = 1 kernel), else none."""
+    baseline 4, plain U-Net 10; conv 0 on the Ci = 1 kernel, the others on
+    the wgmma (bf16) or the f32 kernel), else none."""
     want = {}
     if engine == "packed":
         if model == "baseline":
             want["parity_split_kernel"] = 1
         return want
     n = 4 if model == "baseline" else 10
-    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
     want.update({"conv3d_bias_relu": n, f"conv3d_bias_relu:{route}": n - 1,
                  "conv3d_bias_relu:ci1": 1})
     return want
@@ -2936,7 +3008,14 @@ BN_STATS_RTOL = 1e-5  # 13(c): f32 running statistics, card vs CPU, per buffer
 # above is that much larger beside it.  Card against CPU, two f32 steps,
 # then reads up to 5.1e-04: 12(a)'s 1e-4 holds two sums of one gradient, not
 # this loss of scale.  The ratio is the card's worst over the CPU's, 1.67
-# on that run, with room; TF32 in the card's step must fail it.
+# on that run, with room; TF32 in the card's step must fail it.  The head's
+# ReLU is a branch point too (grad_decisions): at batch seeds 1-9, 1-5 of
+# its 8.2 M inputs, each within 2.4e-06 of 0, fall on the other side on the
+# card than in f64, and one of them moved a step by up to 1.9e-03 from a
+# truth that took its own head ReLU (either kernel of K1's f32 forward,
+# whatever the size of its rounding; scripts/probe_k1_f32_accuracy.py).
+# With the card's head decisions taken, both f32 routes read 0.17-0.69 of
+# the limit at seeds 1-9 and TF32 8.0-9.6.
 BN_TRUTH_RATIO = 2.0
 BN_TRAIN_STEPS = 100  # 13(c): steps an epoch of the BatchNorm throughput run
 
@@ -3001,11 +3080,11 @@ def baseline_layer_cases() -> list:
 def check_k1_no_relu(card_str: str) -> dict:
     """13(a): K1 with ``relu=False`` against ``conv3d_reference(relu=False)``
     at the baseline's layer shapes, phase 3's limits: bf16 on "wgmma"
-    (layers 1-3) and "ci1" (layer 0), f32 on "fma" and "ci1", and bf16
-    layer 1 with the input 2 bytes off a 16-byte boundary on "wmma".  On
-    every route the kernel's clamped output (``relu=True``) must fail the
-    same check.  The bf16 main-route cases are timed beside the plain
-    version: the BatchNorm stack's K1 launches."""
+    (layers 1-3) and "ci1" (layer 0), f32 on "simt" (layers 1-3) and "ci1",
+    and layer 1 with the input one element off a 16-byte boundary, bf16 on
+    "wmma" and f32 on "fma".  On every route the kernel's clamped output
+    (``relu=True``) must fail the same check.  The bf16 main-route cases are
+    timed beside the plain version: the BatchNorm stack's K1 launches."""
     from flypylib_tpu_torch.ops.conv import (conv3d_bias_relu,
                                              conv3d_reference, k1_route)
 
@@ -3014,7 +3093,8 @@ def check_k1_no_relu(card_str: str) -> dict:
     routes_seen = set()
     cases = [(c, dt, False) for c in baseline_layer_cases()
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((cases[2][0], torch.bfloat16, True))  # layer 1, unaligned
+    cases += [(cases[2][0], dt, True)  # layer 1, unaligned
+              for dt in (torch.float32, torch.bfloat16)]
     for (label, B, S, Ci, Co, d), dtype, unaligned in cases:
         shape = (B, S, S, S, Ci)
         if Ci == 1:
@@ -3022,16 +3102,19 @@ def check_k1_no_relu(card_str: str) -> dict:
         else:
             x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
         x = x.to(dtype)
-        if unaligned:  # the same values from an address 2 bytes past 16
+        if unaligned:  # the same values from one element past 16 bytes
             buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
             buf[1:] = x.reshape(-1)
             x = buf[1:].view(shape)
         w = torch.randn((3, 3, 3, Ci, Co), generator=gen,
                         device="cuda") / math.sqrt(27 * Ci)
         b = 0.1 * torch.randn((Co,), generator=gen, device="cuda")
-        route = k1_route(x, w)
-        want_route = ("ci1" if Ci == 1 else "fma" if dtype == torch.float32
-                      else "wmma" if unaligned else "wgmma")
+        route = k1_route(x, w, d)
+        want_route = ("ci1" if Ci == 1
+                      else {(torch.float32, False): "simt",
+                            (torch.float32, True): "fma",
+                            (torch.bfloat16, False): "wgmma",
+                            (torch.bfloat16, True): "wmma"}[dtype, unaligned])
         dt = str(dtype).replace("torch.", "")
         require(route == want_route, f"K1 relu=False {label} {dt}: route "
                                      f"{route}, expected {want_route}")
@@ -3061,7 +3144,7 @@ def check_k1_no_relu(card_str: str) -> dict:
                                      "check passes a clamped output")
         routes_seen.add(route)
         del x, w, b, got, ref, clamped
-    require(routes_seen == {"wgmma", "wmma", "ci1", "fma"},
+    require(routes_seen == {"wgmma", "wmma", "ci1", "simt", "fma"},
             f"K1 relu=False ran on {sorted(routes_seen)} only")
     torch.cuda.empty_cache()
     return summed
@@ -3110,9 +3193,9 @@ def check_bn_paths(port, card_str: str, state: dict, vol: np.ndarray) -> dict:
 def bn_f64_grads(state: dict, batch, masks=None, dilations=(1, 1, 2, 2),
                  device: str = "cpu") -> dict:
     """Loss gradients of a BatchNorm stack (``state``; the baseline's
-    ``dilations`` by default) in f64 autograd on ``device``, its body ReLUs
-    on ``masks`` (a run's ``grad_decisions`` "y"; None: f64's own): the
-    truth 13(c) and 14(d) hold the f32 steps to."""
+    ``dilations`` by default) in f64 autograd on ``device``, its ReLUs (the
+    body's, then the head's) on ``masks`` (a run's ``grad_decisions`` "y";
+    None: f64's own): the truth 13(c) and 14(d) hold the f32 steps to."""
     from flypylib_tpu_torch.ops.augment import augment_batch
 
     F = torch.nn.functional
@@ -3130,7 +3213,9 @@ def bn_f64_grads(state: dict, batch, masks=None, dilations=(1, 1, 2, 2),
         h = ((h - mu) * (torch.rsqrt(var + 1e-5) * P[f"norms.{i}.scale"])
              + P[f"norms.{i}.bias"])
         h = torch.relu(h) if masks is None else h * (masks[i].to(device) > 0)
-    h = torch.relu(h @ P["head.weight"] + P["head.bias"])
+    h = h @ P["head.weight"] + P["head.bias"]
+    h = (torch.relu(h) if masks is None
+         else h * (masks[len(dilations)].to(device) > 0))
     lg = (h @ P["logits.weight"] + P["logits.bias"])[..., 0]
     bce = -y * F.logsigmoid(lg) - (1 - y) * F.logsigmoid(-lg)
     ((bce * m).sum() / m.sum().clamp(min=1)).backward()
@@ -3540,7 +3625,11 @@ DP_SEED = 3     # the generator both steps draw the global batch from
 # so two f32 sum orders of the full-width b32 step differ there by far
 # more than 1e-4 of a tensor's max |g|.  Each tensor of the DP step must lie
 # within max(DP_GRAD_TOL, BN_TRUTH_RATIO x the single step's own distance)
-# of the truth.
+# of the truth.  As 13(c), the DP step runs on the single step's branch
+# points and the truth on the same ones: a ReLU input within rounding of 0
+# that lands on the other side in one step (the DP step sums BatchNorm's
+# moments in another order) moves it by ~1e-3 from the other, and Adam's
+# first step moves such an element by lr either way (fault F6).
 DP_LOSS_RTOL = 1e-5
 DP_PARAM_ATOL = 1e-5
 DP_GRAD_TOL = 1e-4
@@ -3624,7 +3713,9 @@ def dp_case(port, device: str, make_spec, cfg, control=None,
     ``grad_limits``: DP_GRAD_TOL, or for a BatchNorm stack the distance to
     an f64 truth (:func:`bn_f64_grads` on the global batch) within
     max(DP_GRAD_TOL, BN_TRUTH_RATIO x the single step's), both distances
-    kept in ``truth``.  ``bitwise``: all three bit for bit.  ``control``:
+    kept in ``truth``; as 13(c), the DP step runs on the single step's
+    branch points (each rank on its rows of them, :func:`grad_decisions`)
+    and the truth on the same ones.  ``bitwise``: all three bit for bit.  ``control``:
     ``(name, value)`` patched into ``parallel/train.py`` for the DP step
     (a broken control).  ``timed``: then also steps/s of both, on the
     default algorithms.  ``dump``: an ``.npz`` path that gets the weights
@@ -3643,10 +3734,11 @@ def dp_case(port, device: str, make_spec, cfg, control=None,
     labels = (rng.random((size,) * 3) > 0.9).astype(np.float32)
     mask = (rng.random((size,) * 3) > 0.1).astype(np.float32)
     dev = torch.device(device)
-    out, steps = {}, {}
+    out, steps, branch = {}, {}, None
     for kind in ("single", "dp"):
         spec = make_spec()
         spec.module.to(dev)
+        bn = getattr(spec.module, "use_batchnorm", False)
         state0 = {k: v.detach().cpu().clone()
                   for k, v in spec.module.state_dict().items()}
         ctx = (patched(ptrain, *control) if control and kind == "dp"
@@ -3667,11 +3759,19 @@ def dp_case(port, device: str, make_spec, cfg, control=None,
             batch = tuple(a.cpu().numpy() for a in (x, y, m, codes))
             state = TrainState.create(spec.module, cfg.learning_rate)
             gen = torch.Generator(device=dev).manual_seed(DP_SEED)
+            ref = None
+            if bn and kind == "dp":  # this rank's rows of the single step's
+                rows = ptrain.rank_rows(mesh, "data", cfg.batch_size)[0]
+                ref = {"y": [t[rows] for t in branch["y"]], "win": []}
             reset_launch_counts()
-            metrics = step(state, gen, data)
+            with (grad_decisions(spec.module, ref=ref) if bn
+                  else contextlib.nullcontext()) as dec:
+                metrics = step(state, gen, data)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             launches = launch_counts()
+            if bn and kind == "single":
+                branch = dec
         out[kind] = (float(metrics["loss"]),
                      {n: p.detach().float().cpu().clone()
                       for n, p in spec.module.named_parameters()},
@@ -3706,8 +3806,8 @@ def dp_case(port, device: str, make_spec, cfg, control=None,
              for n, v in scale.items()}
     errs = {n: float((g2[n] - g1[n]).abs().max()) / scale[n] for n in g1}
     limits, truth = {n: DP_GRAD_TOL for n in g1}, None
-    if getattr(spec.module, "use_batchnorm", False):
-        g64 = bn_f64_grads(state0, batch, None,
+    if branch is not None:
+        g64 = bn_f64_grads(state0, batch, branch["y"],
                            tuple(c.dilation for c in spec.module.convs), dev)
         truth = {"single": bn_truth_errors(g1, g64),
                  "dp": bn_truth_errors(g2, g64)}
@@ -4233,6 +4333,26 @@ def main(argv=None) -> int:
         profile_detect(net, vol, res["threshold"], card_str)
     del net
     torch.cuda.empty_cache()
+    # the f32 model (the port's exactness mode): layers 1-3 on the f32 kernel
+    net = port.FplNetwork("baseline", device="cuda", seed=0,
+                          dtype=torch.float32, packed=False)
+    require(net.infer_spec is net.spec and net.module.dtype == torch.float32,
+            "the plain f32 baseline is not an f32 ConvStack")
+    res32 = run_main_path(net, vol)
+    nb32 = res32["n_batches"]
+    require_launches(res32, {"conv3d_bias_relu": 4 * nb32,
+                             "conv3d_bias_relu:simt": 3 * nb32,
+                             "conv3d_bias_relu:ci1": nb32}, "f32 baseline")
+    print(f"main path f32: {nb32} tile batches, launches "
+          f"{res32['launches']} (K1 = 3 forwards x 4 layers x {nb32}: layers "
+          f"1-3 simt, layer 0 ci1); threshold {res32['threshold']:.9g} "
+          f"({res32['above_threshold']} voxels above); nms {res32['n_nms']} "
+          f"detections, components {res32['n_cc']}; both equal the host "
+          "reference", flush=True)
+    time_main_path(net, vol, res32["threshold"], card_str, "main path f32")
+    infer_phases(net, vol, card_str, "main path f32")
+    del net
+    torch.cuda.empty_cache()
     # a dilation outside the packed engine's powers of two: the default
     # packed="auto" finds no packed spec, so the plain stack runs, K1 at d = 3
     reset_launch_counts()
@@ -4346,8 +4466,12 @@ def main(argv=None) -> int:
     def per_step(name: str) -> dict:
         return {case: c[name] for case, c in train_steps.items() if name in c}
 
-    k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu"}
+    from flypylib_tpu_torch.ops.conv import K1_ROUTES
+
+    k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu",
+                  "simt": "flypylib_tpu_torch/csrc/conv3d_f32.cu"}
     k1_routes = k1.pop("routes")
+    simt = k1.pop("simt")
     kernels = [{
         "name": "conv3d_bias_relu",
         "route": "cuda",
@@ -4359,7 +4483,7 @@ def main(argv=None) -> int:
                        "source": k1_sources.get(
                            r, "flypylib_tpu_torch/csrc/conv3d_bias_relu.cu"),
                        **k1_routes.get(r, {})}
-                   for r in ("wgmma", "wmma", "ci1", "fma")},
+                   for r in K1_ROUTES},
         "staged_launches": {
             f"plain baseline {fwd} {m} 256^3": staged["256"][
                 ("plain baseline", fwd, m)]["conv3d_bias_relu"]
@@ -4379,14 +4503,29 @@ def main(argv=None) -> int:
         "relu_false": {
             **bn["k1"],
             "launches": {r: bn_runs["plain baseline_bn"]["launches"][
-                f"conv3d_bias_relu:{r}"] for r in ("wgmma", "wmma", "ci1",
-                                                    "fma")},
+                f"conv3d_bias_relu:{r}"] for r in K1_ROUTES},
             "at": "relu=False (a BatchNorm layer's conv), baseline layers "
                   "0-3 summed, bf16, one tile batch; launches over infer + 2 "
                   "detects of the plain BatchNorm baseline at 256^3"},
         "at": "baseline layers 0-3 summed, bf16, one tile batch (layers 1-3 "
               "on the wgmma route, layer 0 on ci1; routes splits launches "
               "and times by route); launches from the plain baseline path",
+    }, {
+        "name": "conv3d_bias_relu (f32)",
+        "route": "cuda",
+        "source": k1_sources["simt"],
+        "replaces": "flypylib_tpu/ops/pallas_conv.py:155",
+        "launches": res32["launches"]["conv3d_bias_relu:simt"],
+        **simt,
+        "ci1_launches": res32["launches"]["conv3d_bias_relu:ci1"],
+        "train_launches_per_step": {
+            case: c["conv3d_bias_relu:simt"]
+            for case, c in train_steps.items()
+            if c.get("conv3d_bias_relu:simt")},
+        "at": "K1's f32 route ('simt'), baseline layers 1-3 summed, f32, one "
+              "tile batch; unet_convs_1_9 the plain U-Net's convs 1-9 summed "
+              "(one covering tile); launches over infer + 2 detects of the "
+              "plain f32 baseline at 256^3 (layer 0 on ci1: ci1_launches)",
     }]
     for kname, name, line, engine in (
             ("K2", "packed_tail", 221, "pallas"),

@@ -52,12 +52,18 @@
 //     other bf16 call runs conv_wmma_kernel here: 16x16x16 WMMA products
 //     on the tensor cores with f32 accumulators, gathered element by
 //     element.
-//   * f32 runs conv_gemm_kernel on CUDA-core FMAs (TF32 tensor cores would
-//     round the inputs): each thread keeps a 4 x (BN/16) tile of f32
+//   * f32, where Ci is a multiple of 4, x is 16-byte aligned and the
+//     dilation at most 7, runs the FMA/TMA kernel of conv3d_f32.cu (the
+//     halo staged once per 4-channel slice, 8 voxels x 8 channels a
+//     thread; route "simt").  Every other f32 call runs conv_gemm_kernel
+//     here (route "fma") on CUDA-core FMAs (TF32 tensor cores would round
+//     the inputs): each thread keeps a 4 x (BN/16) tile of f32
 //     accumulators in registers.
 //
 // The two implicit-GEMM kernels here are simple first versions: one chunk
-// in flight per block, no software pipeline.
+// in flight per block, no software pipeline.  They take only the calls the
+// redesigned kernels' rules leave (ops/conv.py::k1_route), none of which a
+// model of the zoo makes.
 //
 // Blocks run in parallel and in no order, so the ragged edge is masked
 // (rows past M and channels past Co load zeros and store nothing) instead

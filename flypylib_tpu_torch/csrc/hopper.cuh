@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// directory (conv3d_wgmma.cu, packed_tail_wgmma.cu): mbarriers, TMA loads
-// and tensor maps over NDHWC activations and K-major weight images,
-// shared-memory matrix descriptors, and the wgmma instruction itself.
+// Hopper (sm_90a) building blocks shared by the TMA-fed kernels of this
+// directory (conv3d_wgmma.cu, packed_tail_wgmma.cu, wino_conv_wgmma.cu,
+// conv3d_f32.cu): mbarriers, TMA loads and tensor maps over NDHWC
+// activations and K-major weight images, bulk copies, shared-memory matrix
+// descriptors, and the wgmma instruction itself.
 // Everything lives in an anonymous namespace: each source gets its own copy.
 
 #pragma once
@@ -87,6 +88,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

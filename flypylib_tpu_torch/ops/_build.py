@@ -41,6 +41,7 @@ _ENTRIES = {
     "fpl_conv3d_bias_relu": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "fpl_conv3d_ci1": [_P] * 4 + [_I] * 12 + [_P],
     "fpl_conv3d_wgmma": [_P] * 5 + [_I] * 13 + [_P],
+    "fpl_conv3d_f32": [_P] * 4 + [_I] * 12 + [_P],
     "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
     "fpl_tail_stage_wgmma": [_P] * 8 + [_I] * 12 + [_P],
     "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],

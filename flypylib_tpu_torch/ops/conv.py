@@ -8,15 +8,19 @@ launches a hand-written kernel (built by ``ops/_build.py`` on first use); on
 a CPU tensor it runs the plain version, :func:`conv3d_reference`.  There is
 no fallback between the two: a CUDA tensor the kernel cannot take raises.
 
-Which kernel takes a CUDA call is a rule on shape, dtype and alignment,
-decided before the launch (:func:`k1_route`): bf16 with Ci > 1, Ci and Co
-multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA kernel of
-``csrc/conv3d_wgmma.cu`` ("wgmma"); ``csrc/conv3d_bias_relu.cu`` keeps
-Ci = 1 ("ci1"), the other bf16 calls ("wmma") and f32 ("fma").  Every route
-takes any dilation and any Co, as the reference does: the wgmma kernel runs
-a layer wider than its widest N tile as one launch per block of output
-channels (:func:`wgmma_chunks`), the others loop over N blocks themselves.
-The Ci = 1 kernel is handed its output box by :func:`ci1_plan`.
+Which kernel takes a CUDA call is a rule on shape, dtype, alignment and
+dilation, decided before the launch (:func:`k1_route`): bf16 with Ci > 1,
+Ci and Co multiples of 8 and a 16-byte-aligned ``x`` runs the wgmma/TMA
+kernel of ``csrc/conv3d_wgmma.cu`` ("wgmma"); f32 with Ci > 1, Ci a
+multiple of 4, a 16-byte-aligned ``x`` and a dilation of at most
+``SIMT_MAX_DILATION`` runs the FMA/TMA kernel of ``csrc/conv3d_f32.cu``
+("simt"); ``csrc/conv3d_bias_relu.cu`` keeps Ci = 1 ("ci1"), the other bf16
+calls ("wmma") and the other f32 calls ("fma").  Every route takes any Co,
+and every route but "simt" any dilation, as the reference does: the wgmma
+kernel runs a layer wider than its widest N tile as one launch per block of
+output channels (:func:`wgmma_chunks`), the others loop over channel blocks
+themselves.  The Ci = 1 kernel is handed its output box by :func:`ci1_plan`,
+the f32 kernel its box and channel block by :func:`simt_plan`.
 
 Rounding follows the TPU kernel, not Flax: weights and bias are cast to
 ``x.dtype``, the sum is accumulated in f32, the bias is added in f32, ReLU
@@ -37,17 +41,24 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-K1_ROUTES = ("wgmma", "wmma", "ci1", "fma")
+K1_ROUTES = ("wgmma", "wmma", "ci1", "simt", "fma")
 WGMMA_N_TILES = (24, 32, 48, 64, 96, 128)  # the kernel's N tiles
 WGMMA_KC = 32  # channels per K step of the wgmma kernel (a 64-byte row)
 WGMMA_ROWS = 256  # output voxels per block of the wgmma kernel
 CI1_VOXELS = 1024  # output voxels per block of the Ci = 1 kernel, at most
 CI1_SMEM_FLOATS = 50 * 1024  # f32 values of halo a block of it may stage
+SIMT_SLICE = 4     # input channels per slice of the f32 kernel: 16 bytes a voxel
+SIMT_VOXELS = 256  # output voxels per block of the f32 kernel, at most
+SIMT_WIDEST = 64   # output channels per block of it, at most
+SIMT_STAGES = 2    # slices in its shared-memory ring
+SIMT_SMEM = 226 * 1024  # dynamic shared memory a block of it may take
+SIMT_MAX_DILATION = 7   # the largest dilation whose halo fits its smallest box
 
 
 def _out_shape(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -140,18 +151,24 @@ def conv3d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(dt).contiguous()
 
 
-def k1_route(x: torch.Tensor, w: torch.Tensor) -> str:
+def k1_route(x: torch.Tensor, w: torch.Tensor, dilation: int = 1) -> str:
     """Which of K1's CUDA kernels takes ``x`` (B, D, H, W, Ci) and ``w``
-    (3, 3, 3, Ci, Co): "ci1" for Ci = 1; "fma" for f32; "wgmma" for bf16
+    (3, 3, 3, Ci, Co) at ``dilation``: "ci1" for Ci = 1; for bf16, "wgmma"
     with Ci and Co multiples of 8 and ``x`` on a 16-byte boundary (the TMA
     tensor map's rules; the weights are repacked, so their alignment does
-    not matter); "wmma" for every other bf16 call."""
+    not matter), else "wmma"; for f32, "simt" with Ci a multiple of 4 (16
+    bytes a voxel's slice), ``x`` on a 16-byte boundary and a dilation of at
+    most SIMT_MAX_DILATION (a halo that fits shared memory), else "fma"."""
     ci, co = x.shape[-1], w.shape[-1]
     if ci == 1:
         return "ci1"
+    aligned = x.data_ptr() % 16 == 0
     if x.dtype != torch.bfloat16:
+        if (ci % SIMT_SLICE == 0 and aligned
+                and int(dilation) <= SIMT_MAX_DILATION):
+            return "simt"
         return "fma"
-    if ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0:
+    if ci % 8 == 0 and co % 8 == 0 and aligned:
         return "wgmma"
     return "wmma"
 
@@ -223,6 +240,85 @@ def ci1_plan(out_dhw: tuple[int, int, int],
                 best = (key, (bz, by, bx))
     (_, halo), box = best
     return (*box, halo <= CI1_SMEM_FLOATS)
+
+
+def simt_width(co: int) -> int:
+    """The output channels one block of the f32 kernel owns: the first of
+    :func:`wgmma_chunks`' blocks at a widest block of SIMT_WIDEST, rounded
+    up to a multiple of 8 (a warp's group); the last block may be
+    narrower."""
+    return -(-wgmma_chunks(co, SIMT_WIDEST)[0][1] // 8) * 8
+
+
+def simt_smem_bytes(box: tuple[int, int, int], dilation: int,
+                    width: int) -> int:
+    """Dynamic shared memory of one block of the f32 kernel: SIMT_STAGES
+    stages, each the box's halo of one slice (16 bytes a voxel) and the
+    slice's weights for 27 taps and ``width`` channels, each part starting
+    on 1024 bytes, plus 1024 bytes to align the first (as
+    ``csrc/conv3d_f32.cu`` lays them out)."""
+    def kb(n):  # n rounded up to 1024
+        return -(-n // 1024) * 1024
+
+    d = int(dilation)
+    halo = math.prod(b + 2 * d for b in box) * 4 * SIMT_SLICE
+    weights = 27 * width * SIMT_SLICE * 4
+    return SIMT_STAGES * kb(kb(halo) + weights) + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def simt_plan(out_dhw: tuple[int, int, int], dilation: int,
+              co: int) -> tuple[int, int, int, int, int]:
+    """What the f32 kernel is handed for an output of ``out_dhw`` voxels and
+    ``co`` channels at ``dilation``: ``(bz, by, bx, width, smem bytes)``.
+
+    The box holds at most SIMT_VOXELS voxels, bz and by no more than the
+    output's, and bx a multiple of 8 up to the output's row rounded up to 8
+    (the whole row where it is shorter than 8): a quarter-warp's eight lanes
+    then read eight neighbouring 16-byte records of one halo row, in eight
+    different banks.  Its halo fits TMA's box
+    (at most 256 on each axis) and a block's shared memory
+    (:func:`simt_smem_bytes` <= SIMT_SMEM).  Of those boxes, the one that
+    covers the output in the fewest blocks (the masked ragged edge is the
+    least work), then the one with the smallest halo (bz+2d)(by+2d)(bx+2d).
+    ``width`` is :func:`simt_width`."""
+    d = int(dilation)
+    width = simt_width(co)
+    Do, Ho, Wo = out_dhw
+    widths = [Wo] if Wo < 8 else list(range(8, -(-Wo // 8) * 8 + 1, 8))
+    best = None
+    for bz in range(1, min(Do, SIMT_VOXELS) + 1):
+        for by in range(1, min(Ho, SIMT_VOXELS // bz) + 1):
+            for bx in widths:
+                box = (bz, by, bx)
+                if (bz * by * bx > SIMT_VOXELS
+                        or max(box) + 2 * d > 256
+                        or simt_smem_bytes(box, d, width) > SIMT_SMEM):
+                    break  # the widths run upward
+                tiles = -(-Do // bz) * -(-Ho // by) * -(-Wo // bx)
+                key = (tiles, math.prod(b + 2 * d for b in box))
+                if best is None or key < best[0]:
+                    best = (key, box)
+    if best is None:
+        raise ValueError(f"no box of the f32 kernel fits dilation {d}")
+    box = best[1]
+    return (*box, width, simt_smem_bytes(box, d, width))
+
+
+def simt_weights(w: torch.Tensor, width: int) -> torch.Tensor:
+    """The weight image the f32 kernel copies one slice at a time:
+    ``img[cb, s, tap, g, c, k] = w[tap, 4 s + c, cb * width + 8 g + k]``,
+    tap = 9 tz + 3 ty + tx, zero where that channel is past Co; shape
+    (ceil(Co / width), Ci / 4, 27, width / 8, 4, 8), f32, contiguous.  A
+    slice's 27 taps are one contiguous run, and so are a tap's 4 x 8
+    weights of one consumer warp's group of 8 output channels."""
+    ci, co = w.shape[3], w.shape[4]
+    n_cb = -(-co // width)
+    wp = torch.zeros((27, ci, n_cb * width), dtype=torch.float32,
+                     device=w.device)
+    wp[..., :co] = w.reshape(27, ci, co)
+    return (wp.view(27, ci // SIMT_SLICE, SIMT_SLICE, n_cb, width // 8, 8)
+            .permute(3, 1, 0, 4, 2, 5).contiguous())
 
 
 def wgmma_slices(ci: int) -> tuple[int, int | None]:
@@ -305,7 +401,7 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     from flypylib_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    route = k1_route(x, w)
+    route = k1_route(x, w, dilation)
     bc = b.to(x.dtype).contiguous()
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:  # B == 0: a launch with an empty grid is refused
@@ -326,6 +422,12 @@ def conv3d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     Ci, cn, Co, d, n_tile, bz, by, bx, act, stream)
                 if err != 0:
                     break
+        elif route == "simt":
+            bz, by, bx, width, _ = simt_plan(shape[1:4], d, Co)
+            img = simt_weights(w, width)
+            err = lib.fpl_conv3d_f32(
+                x.data_ptr(), img.data_ptr(), bc.data_ptr(), out.data_ptr(),
+                B, D, H, W, Ci, Co, d, width, bz, by, bx, act, stream)
         elif route == "ci1":
             wc = w.to(x.dtype).contiguous()
             bz, by, bx, staged = ci1_plan(shape[1:4], d)

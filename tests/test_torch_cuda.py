@@ -12,9 +12,14 @@ names and that its count rose by one.  The bf16 calls with Ci and Co
 multiples of 8 and a 16-byte-aligned input take the wgmma/TMA kernel: the
 main path's widths at every dilation, Ci = 96 into Co = 96 and 128, the
 16-channel last slice (Ci % 32 <= 16), ragged extents and batch 2.  The
+f32 calls with Ci a multiple of 4, a 16-byte-aligned input and d <= 7 take
+the f32 kernel ("simt"): d = 1-5, Co = 8 to 264 in one to five channel
+blocks, ``relu=False``, a zeroed tap that must fail, two launches bit for
+bit and sub-windows bit for bit the full output's overlap.  The
 others pin the old kernels: the element gather of the WMMA kernel (widths
 off the multiples of 8, an input 2 bytes off a 16-byte boundary), both its
-tile widths, the f32 FMA kernel and the Ci = 1 kernel (d = 1, 2, 3 and a
+tile widths, the f32 FMA kernel (Ci off the multiples of 4, an input 4
+bytes off a 16-byte boundary) and the Ci = 1 kernel (d = 1, 2, 3 and a
 dilation whose halo it cannot stage; Co = 7, 24, 32, 129, 136, 192; a box
 wider than the rows; a zeroed tap that must fail).  Every route takes any
 dilation and any Co, as the reference does: cases at d = 3 and at Co = 136,
@@ -96,19 +101,20 @@ def _inputs(shape, ci, co, batch, seed=0):
     return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
 
 
-def _route(x, ci, co):
+def _route(x, ci, co, d=1):
     """The route the rule of ``k1_route`` gives, written out."""
     if ci == 1:
         return "ci1"
     if x.dtype == torch.float32:
-        return "fma"
+        on_rule = ci % 4 == 0 and x.data_ptr() % 16 == 0 and d <= 7
+        return "simt" if on_rule else "fma"
     aligned = ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0
     return "wgmma" if aligned else "wmma"
 
 
 def _check(x, w, b, d, relu=True):
-    route = _route(x, x.shape[-1], w.shape[-1])
-    assert k1_route(x, w) == route
+    route = _route(x, x.shape[-1], w.shape[-1], d)
+    assert k1_route(x, w, d) == route
     before = conv3d_bias_relu.launches
     routes = dict(conv3d_bias_relu.routes)
     got = conv3d_bias_relu(x, w, b, d, relu)
@@ -155,6 +161,54 @@ def test_wgmma_route_other_widths_and_extents(cuda, shape, batch, ci, co, d):
     _check(x.to(torch.bfloat16).to(cuda), w.to(cuda), b.to(cuda), d)
 
 
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no-relu"])
+@pytest.mark.parametrize("co", [8, 24, 48, 64, 96, 136])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_simt_route_dilations_and_widths(cuda, d, co, relu):
+    """The f32 kernel at d = 1-4 and Co in one to three channel blocks
+    (136 = 48 + 48 + 40), ragged boxes, batch 2, with and without ReLU."""
+    x, w, b = _inputs((11 + 2 * d, 10 + 2 * d, 13 + 2 * d), 12, co, batch=2,
+                      seed=d * co)
+    _check(x.to(cuda), w.to(cuda), b.to(cuda), d, relu)
+
+
+def test_simt_is_deterministic_and_blind_to_the_window(cuda):
+    """Two launches give the same bits, and the output of a sub-window of
+    the input (another box grid, every voxel at another place in its box)
+    is bit for bit the overlap of the full output."""
+    x, w, b = _inputs((30, 29, 41), 32, 48, batch=2)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    full = conv3d_bias_relu(x, w, b, 2)
+    assert torch.equal(conv3d_bias_relu(x, w, b, 2), full)
+    for z, y, xx in ((3, 5, 7), (1, 0, 9), (6, 2, 0)):
+        sub = x[:, z:, y:, xx:].contiguous()
+        part = conv3d_bias_relu(sub, w, b, 2)
+        assert k1_route(sub, w, 2) == "simt"
+        assert torch.equal(part, full[:, z:, y:, xx:])
+
+
+def test_simt_zeroed_tap_fails_the_check(cuda):
+    x, w, b = _inputs((13, 17, 22), 24, 32, batch=2)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    ref = conv3d_reference(x, w, b, 1)
+    w[1, 1, 1] = 0
+    got = conv3d_bias_relu(x, w, b, 1)
+    assert k1_route(x, w) == "simt"
+    assert not chip_smoke.conv_check(got.cpu(), ref.cpu())[1]
+
+
+def test_f32_off_the_rule_takes_the_fma_kernel(cuda):
+    # a contiguous view 4 bytes past a 16-byte boundary, and Ci = 6
+    x, w, b = _inputs((11, 12, 13), 8, 16, batch=1)
+    flat = torch.zeros(x.numel() + 1, dtype=torch.float32, device=cuda)
+    flat[1:] = x.reshape(-1).to(cuda)
+    xv = flat[1:].view(x.shape)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    _check(xv, w.to(cuda), b.to(cuda), 1)
+    x, w, b = _inputs((11, 12, 13), 6, 16, batch=2)
+    _check(x.to(cuda), w.to(cuda), b.to(cuda), 2)
+
+
 def test_unaligned_input_takes_the_element_gather(cuda):
     # a contiguous view 2 bytes past a 16-byte boundary
     x, w, b = _inputs((11, 12, 13), 8, 16, batch=1)
@@ -189,7 +243,7 @@ def test_empty_batch_and_rejections(cuda):
     (32, 264, 3),                   # three N blocks of 88
     (1, 192, 3), (1, 129, 1),       # the Ci = 1 kernel in two launches
     (12, 136, 3), (5, 200, 1),      # off the multiples of 8: N blocks of the
-])                                  # WMMA (bf16) and FMA (f32) kernels
+])                                  # WMMA (bf16) and f32 (simt, fma) kernels
 def test_any_dilation_and_any_co(cuda, ci, co, d, dtype):
     x, w, b = _inputs((15, 16, 21), ci, co, batch=2)
     _check(x.to(dtype).to(cuda), w.to(cuda), b.to(cuda), d)
@@ -700,8 +754,8 @@ def test_one_train_step_on_the_card_matches_the_cpu(cuda, model, engine):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("ci,co,d", [
     (1, 24, 1), (1, 136, 2),                   # the Ci = 1 kernel
-    (24, 32, 1), (48, 64, 2), (96, 192, 1),    # wgmma (bf16) / fma (f32)
-    (5, 7, 1), (16, 33, 3),                    # wmma (bf16) / fma (f32)
+    (24, 32, 1), (48, 64, 2), (96, 192, 1),    # wgmma (bf16) / simt (f32)
+    (5, 7, 1), (16, 33, 3),                    # wmma (bf16) / fma, simt (f32)
 ])
 def test_kernel_without_relu_matches_plain(cuda, ci, co, d, dtype):
     """``relu=False`` on every route against ``conv3d_reference(relu=
