@@ -5,7 +5,10 @@
     python3 chip_smoke.py --profile    # also trace detects and train steps
                                        # with torch.profiler
 
-Phase 13 alone (after ``_build.build()``): ``chip_smoke.bn_roi_phase(
+Phase 4 alone (after ``_build.build()``): ``chip_smoke.check_tail_kernels(
+chip_smoke.card())``; phase 9's f32 tails alone: ``chip_smoke.
+unet_f32_paths(port, card, chip_smoke.make_volume_u8(256, 16, seed=0))``.
+Phase 13 alone: ``chip_smoke.bn_roi_phase(
 chip_smoke.import_port(), chip_smoke.card())``; phase 14 alone:
 ``chip_smoke.multi_device_phase(port, card, vol, refs)`` with 10(a)'s
 volume and ``staged_phase(...)["refs"]``.
@@ -33,20 +36,27 @@ prints no result line):
    output at baseline layer 2 must be the same bits in a second launch
    and, on a sub-window of the input, the overlap of the full output.
 4. K2 (``packed_tail``) and K3 (``packed_tail2``) against their plain
-   versions.  Small cases first (ragged box edges, odd extents, one and two
-   operands, a 16-channel rest, batch > 1, logits in and out of the
-   epilogue, one case on the WMMA route).  Then at the packed U-Net's 256^3
+   versions.  Small cases first, in bf16 (ragged box edges, odd extents,
+   one and two operands, a 16-channel rest, batch > 1, logits in and out of
+   the epilogue, one case on the WMMA route) and in f32 (K2's and K3's
+   widths, ragged boxes, batch > 1, one to six channel blocks, Co off the
+   multiples of 4, one case on the FMA route).  Then at the packed U-Net's 256^3
    covering tile: on the operands its forward hands them, launch by launch
    (each stage and the logits on the kernel's own input, and the last
    stage with the logits in its epilogue against the logits of the
    kernel's own stage output); and, timed, in the four forms ``tail_impl``
    selects ("pallas", "pallas_fold", "pallas2", "pallas_fold2") on those
    shapes with unit-scale activations, in f32 and bf16.  Every bf16 stage
-   there must take the wgmma/TMA kernel (``tail_route``).  Two broken
-   outputs (a tap of the weights dropped, xb zeroed) must fail the same
-   checks.  The bf16 tails are timed per stage, beside the WMMA kernel of
-   ``packed_tail.cu`` on the same operands and beside the unfused tail as
-   the default engine runs it (cuDNN convs, adds, ReLUs, the plain logits).
+   there must take the wgmma/TMA kernel and every f32 stage the f32 kernel
+   of ``conv3d_f32.cu`` ("simt"; ``tail_route``).  Three broken outputs
+   (a tap of stage 0 dropped, xb zeroed, a tap of the last stage dropped)
+   must fail the same checks, in both dtypes; the f32 kernel's stage 0
+   must give the same bits in a second launch and, on a sub-window of its
+   operands, the overlap of the full output.  The tails are timed per
+   stage, beside the first version of ``packed_tail.cu`` (bf16: the WMMA
+   kernel, f32: the FMA kernel) on the same operands and beside the
+   unfused tail as the default engine runs it (cuDNN convs, adds, ReLUs,
+   the plain logits; f32 with TF32 off).
 5. K5 (``parity_split_kernel``) against its plain version, bit for bit, at
    the packed baseline's and ``vgg_like``'s stage-A -> stage-B boundary
    (one tile batch), in f32 and bf16, timed beside the plain version and
@@ -90,7 +100,9 @@ prints no result line):
    K1 once per conv, tile batch and forward on the plain U-Net (conv 0 on
    the Ci = 1 kernel, convs 1-9 on the wgmma route), no kernel
    of the others.  The lists must equal the host reference; times, peak
-   memory and the infer's phases follow.
+   memory and the infer's phases follow.  The same for the f32 K3 and K2
+   engines (the port's exactness mode): both stages on the f32 kernel
+   ("simt") and none on another route.
 10. The staged whole-volume engine, ``FplNetwork.detect_large``.  (a) On
    the 256^3 volume, the packed and plain baseline and packed ``vgg_like``
    run ``forward="roi"`` and ``"shared"`` for ``method`` "nms",
@@ -877,16 +889,37 @@ TAIL_SMALL_CASES = (
 )
 
 
-def tail_operands(shape, ca, cb, co, n_after, n_logits, seed=0):
-    """Seeded bf16 operands of a K2 (``cb`` = 0) or K3 chain on the card:
-    ``(xa, xb or None, (wa, wb or None, b0), stages, logits or None)``."""
+# the same in f32: every on-rule stage on the f32 kernel ("simt", channel
+# blocks of at most 32)
+TAIL_SMALL_F32_CASES = (
+    ((2, 9, 10, 11), 240, 0, 192, 1, 8, "simt"),  # K2's widths, batch 2,
+                                                  # ragged boxes
+    ((1, 7, 12, 19), 192, 48, 192, 1, 8, "simt"),  # K3's widths, odd extents
+    ((2, 5, 6, 37), 192, 48, 192, 0, 0, "simt"),   # one stage, stored
+    ((1, 9, 9, 9), 4, 0, 8, 0, 0, "simt"),         # one slice alone
+    ((3, 4, 5, 6), 40, 24, 56, 2, 8, "simt"),      # three stages, batch 3
+    ((1, 3, 3, 70), 48, 16, 136, 0, 5, "simt"),    # five channel blocks
+                                                   # (4 x 32 + 8), logits apart
+    ((1, 12, 11, 10), 64, 0, 128, 1, 8, "simt"),   # Cb = 0, four blocks of 32
+    ((2, 6, 7, 8), 20, 12, 44, 1, 3, "simt"),      # off the multiples of 8
+    ((1, 6, 7, 9), 8, 4, 10, 0, 0, "simt"),        # Co off the multiples of
+                                                   # 4: scalar stores
+    ((2, 6, 7, 8), 18, 10, 42, 1, 3, "fma"),       # off the multiples of 4
+)
+
+
+def tail_operands(shape, ca, cb, co, n_after, n_logits, seed=0,
+                  dtype=torch.bfloat16):
+    """Seeded operands of a K2 (``cb`` = 0) or K3 chain on the card, the
+    activations in ``dtype``: ``(xa, xb or None, (wa, wb or None, b0),
+    stages, logits or None)``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*s, scale=1.0):
         return scale * torch.randn(s, generator=gen, device="cuda")
 
-    xa = torch.relu(rnd(*shape, ca)).bfloat16()
-    xb = torch.relu(rnd(*shape, cb)).bfloat16() if cb else None
+    xa = torch.relu(rnd(*shape, ca)).to(dtype)
+    xb = torch.relu(rnd(*shape, cb)).to(dtype) if cb else None
     k = 8 * (ca + cb)
     stage0 = (rnd(2, 2, 2, ca, co, scale=k ** -0.5),
               rnd(2, 2, 2, cb, co, scale=k ** -0.5) if cb else None,
@@ -912,13 +945,16 @@ def run_tail(xa, xb, stage0, stages, lg, plain=False):
 
 
 def check_tail_small(card_str: str) -> None:
-    """K2 and K3 against their plain versions at TAIL_SMALL_CASES (bf16),
-    each on the route the case names, by :func:`tail_check`."""
+    """K2 and K3 against their plain versions at TAIL_SMALL_CASES (bf16)
+    and TAIL_SMALL_F32_CASES, each on the route the case names, by
+    :func:`tail_check`."""
     from flypylib_tpu_torch.ops import tail
     from flypylib_tpu_torch.ops.conv import conv3d_f32
 
-    for shape, ca, cb, co, n_after, n_logits, route in TAIL_SMALL_CASES:
-        ops = tail_operands(shape, ca, cb, co, n_after, n_logits)
+    cases = ([(c, torch.bfloat16) for c in TAIL_SMALL_CASES]
+             + [(c, torch.float32) for c in TAIL_SMALL_F32_CASES])
+    for (shape, ca, cb, co, n_after, n_logits, route), dtype in cases:
+        ops = tail_operands(shape, ca, cb, co, n_after, n_logits, dtype=dtype)
         xa, xb, (wa, wb, _), _, _ = ops
         wrapper = tail.packed_tail if xb is None else tail.packed_tail2
         require(tail.tail_route(xa, xb, wa) == route,
@@ -929,15 +965,17 @@ def check_tail_small(card_str: str) -> None:
         torch.cuda.synchronize()
         ran = {r: n - before[r] for r, n in wrapper.routes.items() if n != before[r]}
         pre = None
-        if n_after == 0 and not n_logits:  # one stage: the two-rounding bound
+        if (dtype == torch.bfloat16 and n_after == 0
+                and not n_logits):  # one bf16 stage: the two-rounding bound
             pre = conv3d_f32(xa, wa.bfloat16())
             if xb is not None:
                 pre = pre + conv3d_f32(xb, wb.bfloat16())
             pre = pre.bfloat16()
-        err, ok = tail_check(got, ref, torch.bfloat16, pre)
+        err, ok = tail_check(got, ref, dtype, pre)
+        dt = str(dtype).replace("torch.", "")
         print(f"{'K2' if xb is None else 'K3'} small x{shape} {ca}+{cb}->{co} "
-              f"x{1 + n_after} logits {n_logits} {ran}: max|err| {err:.6g} "
-              f"{'ok' if ok else 'FAIL'} [{card_str}]", flush=True)
+              f"x{1 + n_after} logits {n_logits} {dt} {ran}: max|err| "
+              f"{err:.6g} {'ok' if ok else 'FAIL'} [{card_str}]", flush=True)
         require(got.shape == ref.shape and got.dtype == ref.dtype and ok,
                 f"tail {shape} {ca}+{cb}->{co}: outside tolerance ({err})")
         require(ran == {route: 1 + n_after},
@@ -962,11 +1000,12 @@ def unfused_tail(xa, xb, stage0, stages, lg) -> torch.Tensor:
 
 
 def check_tail_controls(kname, ops, card_str: str) -> None:
-    """Broken outputs of the bf16 chain ``ops`` (:func:`tail_operands`'
-    layout) must fail :func:`tail_check`: one tap of stage 0's weights
-    dropped and, for K3, xb zeroed, on stage 0 alone (the two-rounding
-    bound); one tap of the last stage dropped, on the whole chain with the
-    logits in the epilogue (the chain tolerance)."""
+    """Broken outputs of the chain ``ops`` (:func:`tail_operands`' layout)
+    must fail :func:`tail_check`: one tap of stage 0's weights dropped and,
+    for K3, xb zeroed, on stage 0 alone (bf16: the two-rounding bound); one
+    tap of the last stage dropped, on the whole chain with the logits
+    (bf16: in the epilogue, the chain tolerance).  In f32 every check is
+    F32_RTOL of max |plain|."""
     from flypylib_tpu_torch.ops.conv import conv3d_f32
 
     xa, xb, (wa, wb, b0), stages, lg = ops
@@ -990,11 +1029,39 @@ def check_tail_controls(kname, ops, card_str: str) -> None:
     broken["whole chain, a tap of the last stage dropped"] = (
         run_tail(xa, xb, (wa, wb, b0), stages[:-1] + [(w_drop, b_last)], lg),
         run_tail(*ops, plain=True), None)
+    name = str(dt).replace("torch.", "")
     for what, (got, ref, p) in broken.items():
         err, ok = tail_check(got, ref, dt, p)
-        print(f"{kname} {what}: max|err| {err:.6g} "
+        print(f"{kname} {name} {what}: max|err| {err:.6g} "
               f"{'ok' if ok else 'FAIL'} (must fail) [{card_str}]", flush=True)
-        require(not ok, f"{kname}: the check passes a broken output ({what})")
+        require(not ok, f"{kname} {name}: the check passes a broken output "
+                        f"({what})")
+
+
+def tail_simt_bitwise(kname, xa, xb, stage0, got, card_str: str) -> None:
+    """The f32 stage kernel is blind to placement and to the run, as
+    :func:`simt_bitwise` holds K1: stage 0 of ``xa`` (and ``xb``) gives
+    ``got``'s bits in a second launch, and on a sub-window of the operands
+    (offset 5, 3, 11: another box grid, every voxel at another place in its
+    box) the overlap of ``got`` bit for bit."""
+    from flypylib_tpu_torch.ops.tail import tail_simt_plan
+
+    def sub(t):
+        return None if t is None else t[:, 5:, 3:, 11:].contiguous()
+
+    again = run_tail(xa, xb, stage0, [], None)
+    part = run_tail(sub(xa), sub(xb), stage0, [], None)
+    torch.cuda.synchronize()
+    same = torch.equal(again, got)
+    window = torch.equal(part, got[:, 5:, 3:, 11:])
+    co = stage0[0].shape[-1]
+    boxes = [tail_simt_plan(tuple(t.shape[1:4]), co)[:3] for t in (xa, sub(xa))]
+    print(f"{kname} stage 0 float32 [simt]: a second launch bit for bit "
+          f"{same}; sub-window {tuple(part.shape)} (box {boxes[1]} against "
+          f"{boxes[0]}) bit for bit the full output's overlap {window} "
+          f"[{card_str}]", flush=True)
+    require(same and window, f"{kname} f32: the simt kernel's bits follow the "
+                             "run or the box")
 
 
 def check_tail_kernels(card_str: str) -> dict:
@@ -1002,11 +1069,13 @@ def check_tail_kernels(card_str: str) -> dict:
     (:func:`check_tail_small`); launch by launch on the real operands
     (:func:`tail_inputs`, :func:`check_tail_stagewise`); then in the four
     forms, both dtypes and timed, on the main path's shapes with unit-scale
-    activations, every stage on the route its dtype implies, with the
-    broken-output controls and, for the bf16 tails, the times per stage, of
-    the WMMA kernel and of the unfused tail on the same operands.  Returns
-    the bf16 readings of the full tails ("pallas" for K2, "pallas2" for
-    K3)."""
+    activations, every stage on the route its dtype implies ("wgmma",
+    "simt"), with the broken-output controls, the f32 kernel's bitwise
+    checks (:func:`tail_simt_bitwise`) and the times per stage, of the
+    first version of ``packed_tail.cu`` ("wmma", "fma") and of the unfused
+    tail on the same operands.  Returns the readings of the full tails
+    ("pallas" for K2, "pallas2" for K3) under "K2" / "K3" (bf16) and
+    "K2 f32" / "K3 f32"."""
     from flypylib_tpu_torch.ops import tail
     from flypylib_tpu_torch.ops.conv import conv3d_f32
     from flypylib_tpu_torch.ops.tail import (packed_tail, packed_tail2,
@@ -1021,7 +1090,8 @@ def check_tail_kernels(card_str: str) -> dict:
         xin, stages, lg = seen["packed_tail"]
         sc, xu, stage0, stages2, lg2 = seen["packed_tail2"]
         wa, wb = stage0[0], stage0[1]
-        route = "wgmma" if dtype == torch.bfloat16 else "fma"
+        route, old_route = (("wgmma", "wmma") if dtype == torch.bfloat16
+                            else ("simt", "fma"))
         forms = {
             # form: (kernel, wrapper, stages, wrapper call, plain call, the
             #        stage's rounded conv sum before the bias, for a single
@@ -1069,7 +1139,15 @@ def check_tail_kernels(card_str: str) -> dict:
                   f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms [{card_str}]", flush=True)
             require(ok, f"{kname} {form} {dt}: outside tolerance (max|err| {err})")
-            if dtype == torch.bfloat16 and form in ("pallas", "pallas2"):
+            if dtype == torch.float32 and form in ("pallas_fold",
+                                                   "pallas_fold2"):
+                if kname == "K2":
+                    tail_simt_bitwise(kname, xin, None, (stages[0][0], None,
+                                                         stages[0][1]),
+                                      got, card_str)
+                else:
+                    tail_simt_bitwise(kname, sc, xu, stage0, got, card_str)
+            if form in ("pallas", "pallas2"):
                 if kname == "K2":
                     ops = (xin, None, (stages[0][0], None, stages[0][1]),
                            list(stages[1:]), lg)
@@ -1085,10 +1163,11 @@ def check_tail_kernels(card_str: str) -> dict:
                 rest_ms = median_ms(lambda: packed_tail(mid, ops[3], ops[4]),
                                     warmup=1, iters=5)
                 del mid
-                # the WMMA kernel of packed_tail.cu (the bf16 route of
-                # other widths) on the same operands, held to the same check
+                # the first version of packed_tail.cu (the route of other
+                # widths: "wmma" in bf16, "fma" in f32) on the same
+                # operands, held to the same check
                 rule = tail.tail_route
-                tail.tail_route = lambda *a: "wmma"
+                tail.tail_route = lambda *a: old_route
                 try:
                     old = kern()
                     old_err, old_ok = tail_check(old, ref, dtype)
@@ -1096,32 +1175,34 @@ def check_tail_kernels(card_str: str) -> dict:
                 finally:
                     tail.tail_route = rule
                 del old
-                require(old_ok, f"{kname} {form} on the WMMA kernel: outside "
-                                f"tolerance (max|err| {old_err})")
+                require(old_ok, f"{kname} {form} {dt} on the {old_route} "
+                                f"kernel: outside tolerance (max|err| {old_err})")
                 loose = unfused_tail(*ops)
                 loose_err = float((loose - ref).abs().max())
                 del loose
                 loose_ms = median_ms(lambda: unfused_tail(*ops), warmup=1,
                                      iters=5)
-                print(f"{kname} tail_impl={form!r} bf16: whole tail {ms:.4f} "
+                print(f"{kname} tail_impl={form!r} {dt}: whole tail {ms:.4f} "
                       f"ms = stage 0 alone {times[form.replace('pallas', 'pallas_fold')]:.4f}"
-                      f" + the rest with the logits {rest_ms:.4f}; the WMMA "
-                      f"kernel {old_ms:.4f} ms (max|err| {old_err:.6g}); the "
-                      f"unfused tail (cuDNN convs, adds, ReLUs, plain logits) "
-                      f"{loose_ms:.4f} ms (max|its logits - plain| "
-                      f"{loose_err:.6g}); bound {bnd:.4f} ms ({by}); no "
-                      f"single PyTorch call computes it [{card_str}]",
-                      flush=True)
+                      f" + the rest with the logits {rest_ms:.4f}; the "
+                      f"{old_route} kernel {old_ms:.4f} ms (max|err| "
+                      f"{old_err:.6g}); the unfused tail (cuDNN convs"
+                      f"{', TF32 off' if dtype == torch.float32 else ''}, "
+                      f"adds, ReLUs, plain logits) {loose_ms:.4f} ms (max|its "
+                      f"logits - plain| {loose_err:.6g}); bound {bnd:.4f} ms "
+                      f"({by}); no single PyTorch call computes it "
+                      f"[{card_str}]", flush=True)
                 check_tail_controls(kname, ops, card_str)
-                main[kname] = {"ms": ms, "plain_ms": plain_ms,
-                               "max_abs_err": err, "bound_ms": bnd,
-                               "bound_by": by, "library_ms": None,
-                               "tail_route": route,
-                               "stage0_ms": times[form.replace("pallas",
-                                                               "pallas_fold")],
-                               "rest_with_logits_ms": rest_ms,
-                               "wmma_kernel_ms": old_ms,
-                               "unfused_tail_ms": loose_ms}
+                key = kname if dtype == torch.bfloat16 else f"{kname} f32"
+                main[key] = {"ms": ms, "plain_ms": plain_ms,
+                             "max_abs_err": err, "bound_ms": bnd,
+                             "bound_by": by, "library_ms": None,
+                             "tail_route": route,
+                             "stage0_ms": times[form.replace("pallas",
+                                                             "pallas_fold")],
+                             "rest_with_logits_ms": rest_ms,
+                             f"{old_route}_kernel_ms": old_ms,
+                             "unfused_tail_ms": loose_ms}
                 del ops
             del got, ref
         del seen, xin, stages, lg, sc, xu, stage0, stages2, lg2
@@ -1486,6 +1567,35 @@ def check_deep_unet(port, card_str: str) -> None:
                 f"{err} (limit {rtol} x {scale})")
         del gpu, cpu
     torch.cuda.empty_cache()
+
+
+def unet_f32_paths(port, card_str: str, vol: np.ndarray) -> dict:
+    """Phase 9's f32 kernel tails (the port's exactness mode): the K3 and
+    K2 engines of the f32 U-Net at 256^3 through infer and both detects,
+    both stages of each call on the f32 kernel ("simt"), the logits apart;
+    lists equal to the host reference, times and the infer's split.
+    Returns each engine's :func:`run_main_path` result."""
+    runs = {}
+    for engine, name in (("pallas2", "packed_tail2"), ("pallas", "packed_tail")):
+        net = unet_net(port, engine, "cuda", torch.float32)
+        require(net.module.dtype == torch.float32, "unet is not f32")
+        r = run_main_path(net, vol)
+        n = r["n_batches"]
+        require_launches(r, {name: n, f"{name}:simt": 2 * n},
+                         f"unet {engine} f32")
+        print(f"unet {engine} f32 ({net.infer_spec.name}, tile in "
+              f"{net.tiled_inference(vol.shape).tile_in}): {n} tile batches, "
+              f"launches {r['launches']} (both stages on simt); threshold "
+              f"{r['threshold']:.9g} ({r['above_threshold']} voxels above); "
+              f"nms {r['n_nms']} detections, components {r['n_cc']}; both "
+              "equal the host reference", flush=True)
+        time_main_path(net, vol, r["threshold"], card_str,
+                       f"unet {engine} f32")
+        infer_phases(net, vol, card_str, f"unet {engine} f32")
+        runs[engine] = r
+        del net
+        torch.cuda.empty_cache()
+    return runs
 
 
 def same_list(got, ref, loc_tol: float, what: str) -> None:
@@ -4427,6 +4537,7 @@ def main(argv=None) -> int:
         unet_runs[engine] = r
         del net
         torch.cuda.empty_cache()
+    unet32_runs = unet_f32_paths(port, card_str, vol)
 
     # 10. the staged whole-volume engine: detect_large
     staged = staged_phase(port, card_str)
@@ -4467,6 +4578,7 @@ def main(argv=None) -> int:
         return {case: c[name] for case, c in train_steps.items() if name in c}
 
     from flypylib_tpu_torch.ops.conv import K1_ROUTES
+    from flypylib_tpu_torch.ops.tail import TAIL_ROUTES
 
     k1_sources = {"wgmma": "flypylib_tpu_torch/csrc/conv3d_wgmma.cu",
                   "simt": "flypylib_tpu_torch/csrc/conv3d_f32.cu"}
@@ -4538,8 +4650,7 @@ def main(argv=None) -> int:
             "replaces": f"flypylib_tpu/ops/pallas_tail.py:{line}",
             "launches": run[name],
             **tails[kname],
-            "stage_launches": {r: run[f"{name}:{r}"]
-                               for r in ("wgmma", "wmma", "fma")},
+            "stage_launches": {r: run[f"{name}:{r}"] for r in TAIL_ROUTES},
             "train_launches_per_step": per_step(name),
             "at": f"tail_impl={engine!r} (2 stages, the logits in the "
                   f"second's epilogue), bf16, one {VOLUME}^3 covering tile; "
@@ -4547,6 +4658,26 @@ def main(argv=None) -> int:
                   "its stage kernels by route; wmma_kernel_ms is "
                   "csrc/packed_tail.cu's kernel and unfused_tail_ms the "
                   "default engine's cuDNN tail, both on the same operands",
+        })
+    for kname, name, line, engine in (
+            ("K2", "packed_tail", 221, "pallas"),
+            ("K3", "packed_tail2", 470, "pallas2")):
+        run = unet32_runs[engine]["launches"]
+        kernels.append({
+            "name": f"{name} (f32)",
+            "route": "cuda",
+            "source": "flypylib_tpu_torch/csrc/conv3d_f32.cu",
+            "replaces": f"flypylib_tpu/ops/pallas_tail.py:{line}",
+            "launches": run[name],
+            **tails[f"{kname} f32"],
+            "stage_launches": {r: run[f"{name}:{r}"] for r in TAIL_ROUTES},
+            "at": f"tail_impl={engine!r} (2 stages on the f32 kernel, 'simt', "
+                  f"then the logits launch), f32, one {VOLUME}^3 covering "
+                  f"tile; launches from the f32 U-Net {engine} path, "
+                  "stage_launches its stage kernels by route; fma_kernel_ms "
+                  "is csrc/packed_tail.cu's first version and "
+                  "unfused_tail_ms the default engine's tail (cuDNN f32, "
+                  "TF32 off), both on the same operands",
         })
     kernels.append({
         "name": "wino_conv3d_bias_relu",

@@ -1,40 +1,59 @@
-// K1's f32 route for Ci > 1 on Hopper: the valid dilated 3x3x3 conv + bias
-// + ReLU on CUDA-core FMAs, the input halo staged once per channel slice by
-// TMA (sm_90a).
+// K1's f32 route for Ci > 1, and the f32 stages of the decoder tail (K2,
+// K3), on Hopper: a valid conv + bias + ReLU on CUDA-core FMAs, the input
+// halo staged once per channel slice by TMA (sm_90a).
 //
-// Replaces the TPU kernel flypylib_tpu/ops/pallas_conv.py:155
-// (conv3d_bias_relu) for f32 x (B,D,H,W,Ci) with Ci % 4 == 0, a 16-byte-
-// aligned x and a dilation whose halo fits shared memory (ops/conv.py::
-// k1_route, route "simt"); csrc/conv3d_bias_relu.cu keeps every other f32
-// call ("fma").  It computes, as that kernel and conv3d_reference do,
+// Replaces, in f32:
+// - the TPU kernel flypylib_tpu/ops/pallas_conv.py:155 (conv3d_bias_relu)
+//   for x (B,D,H,W,Ci) with Ci % 4 == 0, a 16-byte-aligned x and a
+//   dilation whose halo fits shared memory (ops/conv.py::k1_route, route
+//   "simt"): the dilated 3x3x3 conv, C entry fpl_conv3d_f32;
+// - every stage of flypylib_tpu/ops/pallas_tail.py:221 (packed_tail, K2)
+//   and :470 (packed_tail2, K3) with Ca and Cb multiples of 4 and 16-byte-
+//   aligned operands (ops/tail.py::tail_route, route "simt"): the valid 2^3
+//   conv at d = 1 of xa, plus that of xb for K3's first stage, C entry
+//   fpl_tail_stage_f32.  In f32 the TPU kernel's "round to the dtype, add
+//   the dtype bias, round" is the f32 sum plus the f32 bias, so a stage is
+//   this kernel's function.
+// csrc/conv3d_bias_relu.cu and csrc/packed_tail.cu keep every other f32
+// call ("fma").  It computes, as those kernels and their plain versions
+// do, with T taps a side (3 for K1, 2 for a tail stage),
 //
 //   out[n,z,y,x,o] = relu(sum_{tz,ty,tx,c} x[n, z+tz*d, y+ty*d, x+tx*d, c]
 //                                           * w[tz,ty,tx,c,o] + b[o])
 //
-// in f32: the products on FMAs (no TF32, not even 3xTF32: the f32 model is
-// the port's exactness mode), summed in f32, the f32 bias, then ReLU unless
+// (for K3's first stage the same sum over xb and wb added into it) in f32:
+// the products on FMAs (no TF32, not even 3xTF32: the f32 model is the
+// port's exactness mode), summed in f32, the f32 bias, then ReLU unless
 // relu = 0.
 //
-// What bounds it on an H100: operations.  Every input value feeds 27*Co
+// What bounds it on an H100: operations.  Every input value feeds T^3*Co
 // products: the baseline's layers 1-3 are 0.68 TFLOP a tile batch at
 // 256^3, 10.15 ms of the card's 67 TFLOP/s f32 FMA rate, while their bytes
-// are 0.3 ms of device memory.  So the design keeps the loads off the FMA
-// path:
+// are 0.3 ms of device memory; the tail's two stages at 256^3 (one
+// covering tile of 132^3 cells, K = 8 * 240 and 8 * 192 into Co = 192) are
+// 2.95 TFLOP, 44.1 ms, against ~2 ms of bytes.  So the design keeps the
+// loads off the FMA path:
 // - A block owns one output box of at most 256 voxels (bz*by*bx, bx a
 //   multiple of 8 where the output is that wide; ops/conv.py::simt_plan
 //   picks the box that covers the output in the fewest blocks, then the one
 //   with the least halo) of one batch entry, and one block of at most 64
-//   output channels (gridDim.y blocks of equal width, as
-//   ops/conv.py::wgmma_chunks splits a wider Co).
-// - K runs over slices of 4 input channels.  For each, one TMA 5-D load of
-//   the box (4, bx+2d, by+2d, bz+2d, 1) brings the box's whole input halo,
-//   zero-filled past the volume, and one bulk copy brings the slice's
-//   weights for all 27 taps from an image the wrapper lays out
-//   (ops/conv.py::simt_weights: [channel block][slice][tap][group][c][8],
-//   zero past Co).  All 27 taps then read the one staged halo: each input
-//   value comes through L2 once per slice, not once per tap.  A ring of two
-//   stages lands the next slice under this one's FMAs: each stage has a
-//   full mbarrier, and the last warp to finish with a stage (a count in
+//   output channels for K1, 32 for a tail stage (gridDim.y blocks of equal
+//   width, as ops/conv.py::wgmma_chunks splits a wider Co).  At the tail's
+//   Co = 192, three 4-warp blocks an SM ran the main path's stages 7%
+//   faster than one 8-warp block of 64 (PERF.md).
+// - K runs over slices of 4 input channels: xa's, then xb's.  For each, one
+//   TMA 5-D load of the box (4, bx+r, by+r, bz+r, 1), r = (T-1)*d, from
+//   the slice's operand brings the box's whole input halo, zero-filled past
+//   the volume, and one bulk copy brings the slice's weights for all T^3
+//   taps from an image the wrapper lays out (ops/conv.py::simt_weights:
+//   [channel block][slice][tap][group][c][8], zero past Co; for K3 xa's
+//   slices then xb's, ops/tail.py::tail_simt_weights).  All taps then read
+//   the one staged halo: each input value comes through L2 once per slice,
+//   not once per tap, and the concat of K3's operands never exists.  A ring
+//   of stages lands the next slices under this one's FMAs (two for K1;
+//   four for a tail stage, whose 8 taps do 2048 FMAs a thread a slice
+//   against K1's 6912, so each copy is hidden by less work): each stage has
+//   a full mbarrier, and the last warp to finish with a stage (a count in
 //   shared memory) issues its refill, so no warp waits for the others and
 //   no warp is kept for the copies alone (a producer warp would cost its
 //   registers: 48-channel blocks would no longer fit two to an SM).
@@ -50,15 +69,15 @@
 // - Epilogue from registers: the bias, ReLU unless relu = 0, two 16-byte
 //   stores per voxel along Co; voxels past the box or the output, and
 //   channels past Co, are masked.
-// - Every output voxel's sum runs in one order, slice by slice, tap by tap
-//   (tz, ty, tx), channel by channel, whatever box or block position holds
-//   it: no atomics, no split of K.  So a tile and the whole volume give the
-//   same bits.
+// - Every output voxel's sum runs in one order, slice by slice (xa's, then
+//   xb's), tap by tap (tz, ty, tx), channel by channel, whatever box or
+//   block position holds it: no atomics, no split of K.  So a tile and the
+//   whole volume give the same bits.
 //
-// C entry: fpl_conv3d_f32(...) encodes the tensor map, launches on the
-// given stream and returns cudaGetLastError() (or cudaErrorInvalidValue for
-// arguments it does not take); it allocates nothing and does not
-// synchronise.
+// C entries: fpl_conv3d_f32(...) and fpl_tail_stage_f32(...) encode the
+// tensor maps, launch on the given stream and return cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments they do not take); they allocate
+// nothing and do not synchronise.
 
 #include "hopper.cuh"
 
@@ -68,12 +87,13 @@ constexpr int kSlice = 4;                 // input channels per slice
 constexpr int kVox = 8;                   // output voxels per thread
 constexpr int kBoxVoxels = 32 * kVox;     // output voxels per block, at most
 constexpr int kGroup = 8;                 // output channels per consumer warp
-constexpr int kStages = 2;                // depth of the ring
+constexpr int kConvStages = 2;            // depth of K1's ring (27 taps)
+constexpr int kTailStages = 4;            // depth of a tail stage's (8 taps)
 constexpr int kTapBytes = kSlice * kGroup * 4;  // a group's weights of a tap
 constexpr int kSmemLimit = 226 * 1024;    // dynamic bytes; the barriers are static
 
 struct F32Args {
-  int Do, Ho, Wo, Co, d, slices, width;
+  int Do, Ho, Wo, Co, d, slices, slices_a, width;
   int bz, by, bx, hy, hx, tiles_z, tiles_y, tiles_x;
   uint32_t halo_bytes, w_bytes, w_off, stage_bytes;
   int relu, vec;
@@ -89,27 +109,34 @@ constexpr int min_blocks(int ng) {
   return ng >= 7 ? 1 : ng >= 5 ? 2 : ng == 4 ? 3 : 4;
 }
 
-// one thread issues slice s into stage st: the halo by TMA, the weights by
-// a bulk copy, both completing on the stage's full barrier
-__device__ __forceinline__ void load_slice(const CUtensorMap* tm,
+// one thread issues slice s into stage st: the halo by TMA (from xa's map
+// for the first slices_a slices, then from xb's), the weights by a bulk
+// copy, both completing on the stage's full barrier
+__device__ __forceinline__ void load_slice(const CUtensorMap* tm_a,
+                                           const CUtensorMap* tm_b,
                                            const float* w, const F32Args& a,
                                            uint32_t base, uint32_t bar, int s,
                                            int st, int x0, int y0, int z0,
                                            int n) {
   const uint32_t dst = base + st * a.stage_bytes;
   mbar_expect_tx(bar, a.halo_bytes + a.w_bytes);
-  tma_load_5d(dst, tm, bar, s * kSlice, x0, y0, z0, n);
+  if (s < a.slices_a)
+    tma_load_5d(dst, tm_a, bar, s * kSlice, x0, y0, z0, n);
+  else
+    tma_load_5d(dst, tm_b, bar, (s - a.slices_a) * kSlice, x0, y0, z0, n);
   bulk_load(dst + a.w_off, w + (size_t)s * (a.w_bytes / 4), a.w_bytes, bar);
 }
 
-template <int NG>
+// NG consumer warps (8 NG output channels), T taps a side, S stages
+template <int NG, int T, int S>
 __global__ void __launch_bounds__(32 * NG, min_blocks(NG))
-conv_f32_kernel(const __grid_constant__ CUtensorMap tm_x,
+conv_f32_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b,
                 const float* __restrict__ wimg, const float* __restrict__ bias,
                 float* __restrict__ out, F32Args a) {
   extern __shared__ __align__(1024) uint8_t f32_smem[];
-  __shared__ __align__(8) uint64_t full_bar[kStages];
-  __shared__ int released[kStages];  // consumer warps done with a stage, ever
+  __shared__ __align__(8) uint64_t full_bar[S];
+  __shared__ int released[S];  // consumer warps done with a stage, ever
   // TMA writes the halo to a 128-byte boundary: every stage starts on 1024
   const uint32_t raw = smem_u32(f32_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -128,7 +155,7 @@ conv_f32_kernel(const __grid_constant__ CUtensorMap tm_x,
   const float* w = wimg + (size_t)cb * a.slices * (a.w_bytes / 4);
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(smem_u32(&full_bar[s]), 1);
       released[s] = 0;
     }
@@ -136,10 +163,11 @@ conv_f32_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
   __syncthreads();
   if (tid == 0) {  // the ring's first slices
-    prefetch_map(&tm_x);
-    for (int s = 0; s < kStages && s < a.slices; ++s)
-      load_slice(&tm_x, w, a, base, smem_u32(&full_bar[s]), s, s, x0, y0, z0,
-                 n);
+    prefetch_map(&tm_a);
+    if (a.slices_a < a.slices) prefetch_map(&tm_b);
+    for (int s = 0; s < S && s < a.slices; ++s)
+      load_slice(&tm_a, &tm_b, w, a, base, smem_u32(&full_bar[s]), s, s, x0,
+                 y0, z0, n);
   }
 
   const int g = uniform_warp_index();  // the warp's group of 8 channels
@@ -169,18 +197,18 @@ conv_f32_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int k = 0; k < kGroup; ++k) acc[j][k] = 0.f;
 
   for (int s = 0; s < a.slices; ++s) {
-    const int st = s % kStages;
-    mbar_wait(smem_u32(&full_bar[st]), (s / kStages) & 1);
+    const int st = s % S;
+    mbar_wait(smem_u32(&full_bar[st]), (s / S) & 1);
     const uint8_t* xs = sm + st * a.stage_bytes;
     const uint8_t* ws = xs + a.w_off + g * kTapBytes;
 #pragma unroll 1
-    for (int tz = 0; tz < 3; ++tz) {
+    for (int tz = 0; tz < T; ++tz) {
 #pragma unroll 1
-      for (int ty = 0; ty < 3; ++ty) {
+      for (int ty = 0; ty < T; ++ty) {
         const uint8_t* xrow = xs + tz * step_z + ty * step_y;
-        const uint8_t* wrow = ws + (tz * 3 + ty) * 3 * NG * kTapBytes;
+        const uint8_t* wrow = ws + (tz * T + ty) * T * NG * kTapBytes;
 #pragma unroll
-        for (int tx = 0; tx < 3; ++tx) {
+        for (int tx = 0; tx < T; ++tx) {
           const float4* wp =
               reinterpret_cast<const float4*>(wrow + tx * NG * kTapBytes);
           float wv[kSlice][kGroup];
@@ -205,15 +233,15 @@ conv_f32_kernel(const __grid_constant__ CUtensorMap tm_x,
       }
     }
     // every lane has read the stage; the last warp to release it refills
-    // it with the slice kStages on (no warp waits for the others)
-    if (s + kStages < a.slices) {
+    // it with the slice S on (no warp waits for the others)
+    if (s + S < a.slices) {
       __syncwarp();
       if (lane == 0) {
         __threadfence_block();
         if (atomicAdd(&released[st], 1) % NG == NG - 1) {
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          load_slice(&tm_x, w, a, base, smem_u32(&full_bar[st]), s + kStages,
-                     st, x0, y0, z0, n);
+          load_slice(&tm_a, &tm_b, w, a, base, smem_u32(&full_bar[st]),
+                     s + S, st, x0, y0, z0, n);
         }
       }
     }
@@ -269,73 +297,34 @@ bool encode_x_f32(EncodeTiled encode, CUtensorMap* map, const void* x, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NG>
-int launch(const CUtensorMap& m, const float* w, const float* b, float* out,
-           int B, F32Args a, int n_cb, cudaStream_t stream) {
-  a.w_bytes = 27u * NG * kTapBytes;
+template <int NG, int T, int S>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, const float* w,
+           const float* b, float* out, int B, F32Args a, int n_cb,
+           cudaStream_t stream) {
+  a.w_bytes = (uint32_t)(T * T * T) * NG * kTapBytes;
   a.w_off = round_1024(a.halo_bytes);
   a.stage_bytes = round_1024(a.w_off + a.w_bytes);
-  const long long smem = (long long)kStages * a.stage_bytes + 1024;
+  const long long smem = (long long)S * a.stage_bytes + 1024;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  auto kernel = conv_f32_kernel<NG>;
+  auto kernel = conv_f32_kernel<NG, T, S>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)B * a.tiles_z * a.tiles_y * a.tiles_x;
   if (blocks > 0x7fffffffLL || n_cb > 65535) return (int)cudaErrorInvalidValue;
   kernel<<<dim3((unsigned)blocks, n_cb), 32 * NG, (size_t)smem,
-           stream>>>(m, w, b, out, a);
+           stream>>>(ma, mb, w, b, out, a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x (B,D,H,W,Ci) f32, Ci % 4 == 0, 16-byte aligned.  w: the weight image
-// of ops/conv.py::simt_weights, (ceil(Co / width), Ci / 4, 27, width / 8,
-// 4, 8) f32, zero past Co, 16-byte aligned.  b (Co,) f32; out (B, D-2d,
-// H-2d, W-2d, Co) f32.  width: the output channels of one block, a
-// multiple of 8 up to 64 (gridDim.y = ceil(Co / width) blocks); the output
-// box bz*by*bx holds at most 256 voxels and its halo (b + 2d on each axis)
-// at most 256 on each axis.  relu = 0 leaves the clamp out.  All
-// contiguous; shapes are checked by the Python wrapper.
-extern "C" int fpl_conv3d_f32(const void* x, const void* w, const void* b,
-                              void* out, int B, int D, int H, int W, int Ci,
-                              int Co, int d, int width, int bz, int by, int bx,
-                              int relu, void* stream) {
-  cudaGetLastError();  // clear any earlier, unrelated error
-  if (B < 1 || Ci < kSlice || Ci % kSlice || Co < 1 || d < 1 || width < 8 ||
-      width > 8 * 8 || width % 8 || bz < 1 || by < 1 || bx < 1 ||
-      (long long)bz * by * bx > kBoxVoxels || bz + 2LL * d > 256 ||
-      by + 2LL * d > 256 || bx + 2LL * d > 256 || D <= 2 * d || H <= 2 * d ||
-      W <= 2 * d || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16)
-    return (int)cudaErrorInvalidValue;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const int hz = bz + 2 * d, hy = by + 2 * d, hx = bx + 2 * d;
-  CUtensorMap m;
-  if (!encode_x_f32(encode, &m, x, B, D, H, W, Ci, hz, hy, hx))
-    return (int)cudaErrorInvalidValue;
-
-  F32Args a = {};
-  a.Do = D - 2 * d; a.Ho = H - 2 * d; a.Wo = W - 2 * d;
-  a.Co = Co; a.d = d; a.slices = Ci / kSlice; a.width = width;
-  a.bz = bz; a.by = by; a.bx = bx; a.hy = hy; a.hx = hx;
-  a.tiles_z = (a.Do + bz - 1) / bz;
-  a.tiles_y = (a.Ho + by - 1) / by;
-  a.tiles_x = (a.Wo + bx - 1) / bx;
-  a.halo_bytes = (uint32_t)(hz * hy * hx * 16);
-  a.relu = relu;
-  a.vec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int n_cb = (Co + width - 1) / width;
-  const auto* wt = static_cast<const float*>(w);
-  const auto* bt = static_cast<const float*>(b);
-  auto* ot = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <int T, int S>
+int dispatch(int ng, const CUtensorMap& ma, const CUtensorMap& mb,
+             const float* w, const float* b, float* out, int B,
+             const F32Args& a, int n_cb, cudaStream_t s) {
 #define FPL_F32_CASE(NG) \
   case NG:               \
-    return launch<NG>(m, wt, bt, ot, B, a, n_cb, s);
-  switch (width / 8) {
+    return launch<NG, T, S>(ma, mb, w, b, out, B, a, n_cb, s);
+  switch (ng) {
     FPL_F32_CASE(1)
     FPL_F32_CASE(2)
     FPL_F32_CASE(3)
@@ -348,4 +337,92 @@ extern "C" int fpl_conv3d_f32(const void* x, const void* w, const void* b,
       return (int)cudaErrorInvalidValue;
   }
 #undef FPL_F32_CASE
+}
+
+// both C entries: xa (B,D,H,W,Ca) and, where Cb > 0, xb (B,D,H,W,Cb), f32,
+// 16-byte aligned, Ca > 0 and Cb multiples of 4; w the weight image of
+// Ca/4 + Cb/4 slices; taps = T (3 at dilation d, or 2 at d = 1)
+int run(const void* xa, const void* xb, const void* w, const void* b,
+        void* out, int B, int D, int H, int W, int Ca, int Cb, int Co, int d,
+        int width, int bz, int by, int bx, int relu, int taps, void* stream) {
+  const long long r = (long long)(taps - 1) * d;  // the halo past the box
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (B < 1 || Ca < kSlice || Ca % kSlice || Cb < 0 || Cb % kSlice ||
+      Co < 1 || d < 1 || width < 8 || width > 8 * 8 || width % 8 || bz < 1 ||
+      by < 1 || bx < 1 || (long long)bz * by * bx > kBoxVoxels ||
+      bz + r > 256 || by + r > 256 || bx + r > 256 || D <= r || H <= r ||
+      W <= r || !aligned(xa) || !aligned(w) ||
+      (Cb > 0 && (xb == nullptr || !aligned(xb))))
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const int hz = bz + (int)r, hy = by + (int)r, hx = bx + (int)r;
+  CUtensorMap ma, mb;
+  if (!encode_x_f32(encode, &ma, xa, B, D, H, W, Ca, hz, hy, hx))
+    return (int)cudaErrorInvalidValue;
+  mb = ma;  // never read when there is no xb
+  if (Cb > 0 && !encode_x_f32(encode, &mb, xb, B, D, H, W, Cb, hz, hy, hx))
+    return (int)cudaErrorInvalidValue;
+
+  F32Args a = {};
+  a.Do = D - (int)r; a.Ho = H - (int)r; a.Wo = W - (int)r;
+  a.Co = Co; a.d = d; a.slices = (Ca + Cb) / kSlice; a.slices_a = Ca / kSlice;
+  a.width = width;
+  a.bz = bz; a.by = by; a.bx = bx; a.hy = hy; a.hx = hx;
+  a.tiles_z = (a.Do + bz - 1) / bz;
+  a.tiles_y = (a.Ho + by - 1) / by;
+  a.tiles_x = (a.Wo + bx - 1) / bx;
+  a.halo_bytes = (uint32_t)(hz * hy * hx * 16);
+  a.relu = relu;
+  a.vec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int n_cb = (Co + width - 1) / width;
+  const auto* wt = static_cast<const float*>(w);
+  const auto* bt = static_cast<const float*>(b);
+  auto* ot = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (taps == 3)
+    return dispatch<3, kConvStages>(width / 8, ma, mb, wt, bt, ot, B, a, n_cb,
+                                    s);
+  if (taps == 2 && d == 1)
+    return dispatch<2, kTailStages>(width / 8, ma, mb, wt, bt, ot, B, a, n_cb,
+                                    s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// K1.  x (B,D,H,W,Ci) f32, Ci % 4 == 0, 16-byte aligned.  w: the weight
+// image of ops/conv.py::simt_weights, (ceil(Co / width), Ci / 4, 27,
+// width / 8, 4, 8) f32, zero past Co, 16-byte aligned.  b (Co,) f32; out
+// (B, D-2d, H-2d, W-2d, Co) f32.  width: the output channels of one block,
+// a multiple of 8 up to 64 (gridDim.y = ceil(Co / width) blocks); the
+// output box bz*by*bx holds at most 256 voxels and its halo (b + 2d on
+// each axis) at most 256 on each axis.  relu = 0 leaves the clamp out.  All
+// contiguous; shapes are checked by the Python wrapper.
+extern "C" int fpl_conv3d_f32(const void* x, const void* w, const void* b,
+                              void* out, int B, int D, int H, int W, int Ci,
+                              int Co, int d, int width, int bz, int by, int bx,
+                              int relu, void* stream) {
+  cudaGetLastError();  // clear any earlier, unrelated error
+  return run(x, nullptr, w, b, out, B, D, H, W, Ci, 0, Co, d, width, bz, by,
+             bx, relu, 3, stream);
+}
+
+// A tail stage (K2, K3).  xa (B,D,H,W,Ca) and, with Cb > 0, xb
+// (B,D,H,W,Cb) f32, Ca > 0 and Cb multiples of 4, 16-byte aligned.  w: the
+// weight image of ops/tail.py::tail_simt_weights, (ceil(Co / width),
+// (Ca + Cb) / 4, 8, width / 8, 4, 8) f32, xa's slices then xb's, zero past
+// Co, 16-byte aligned.  b (Co,) f32; out (B, D-1, H-1, W-1, Co) f32 =
+// relu(conv2(xa, wa) + conv2(xb, wb) + b).  width and the box as for K1,
+// the halo b + 1 on each axis.
+extern "C" int fpl_tail_stage_f32(const void* xa, const void* xb,
+                                  const void* w, const void* b, void* out,
+                                  int B, int D, int H, int W, int Ca, int Cb,
+                                  int Co, int width, int bz, int by, int bx,
+                                  void* stream) {
+  cudaGetLastError();  // clear any earlier, unrelated error
+  return run(xa, xb, w, b, out, B, D, H, W, Ca, Cb, Co, 1, width, bz, by, bx,
+             1, 2, stream);
 }

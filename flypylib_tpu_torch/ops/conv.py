@@ -242,48 +242,54 @@ def ci1_plan(out_dhw: tuple[int, int, int],
     return (*box, halo <= CI1_SMEM_FLOATS)
 
 
-def simt_width(co: int) -> int:
+def simt_width(co: int, widest: int = SIMT_WIDEST) -> int:
     """The output channels one block of the f32 kernel owns: the first of
-    :func:`wgmma_chunks`' blocks at a widest block of SIMT_WIDEST, rounded
-    up to a multiple of 8 (a warp's group); the last block may be
-    narrower."""
-    return -(-wgmma_chunks(co, SIMT_WIDEST)[0][1] // 8) * 8
+    :func:`wgmma_chunks`' blocks at a widest block of ``widest`` (K1's
+    SIMT_WIDEST by default), rounded up to a multiple of 8 (a warp's
+    group); the last block may be narrower."""
+    return -(-wgmma_chunks(co, widest)[0][1] // 8) * 8
 
 
-def simt_smem_bytes(box: tuple[int, int, int], dilation: int,
-                    width: int) -> int:
-    """Dynamic shared memory of one block of the f32 kernel: SIMT_STAGES
-    stages, each the box's halo of one slice (16 bytes a voxel) and the
-    slice's weights for 27 taps and ``width`` channels, each part starting
-    on 1024 bytes, plus 1024 bytes to align the first (as
-    ``csrc/conv3d_f32.cu`` lays them out)."""
+def simt_smem_bytes(box: tuple[int, int, int], dilation: int, width: int,
+                    taps: int = 3, stages: int = SIMT_STAGES) -> int:
+    """Dynamic shared memory of one block of the f32 kernel: ``stages``
+    stages, each the box's halo of one slice (16 bytes a voxel, ``taps - 1``
+    dilations past the box on each axis) and the slice's weights for
+    ``taps``^3 taps and ``width`` channels, each part starting on 1024
+    bytes, plus 1024 bytes to align the first (as ``csrc/conv3d_f32.cu``
+    lays them out)."""
     def kb(n):  # n rounded up to 1024
         return -(-n // 1024) * 1024
 
-    d = int(dilation)
-    halo = math.prod(b + 2 * d for b in box) * 4 * SIMT_SLICE
-    weights = 27 * width * SIMT_SLICE * 4
-    return SIMT_STAGES * kb(kb(halo) + weights) + 1024
+    r = (taps - 1) * int(dilation)
+    halo = math.prod(b + r for b in box) * 4 * SIMT_SLICE
+    weights = taps ** 3 * width * SIMT_SLICE * 4
+    return stages * kb(kb(halo) + weights) + 1024
 
 
 @functools.lru_cache(maxsize=256)
-def simt_plan(out_dhw: tuple[int, int, int], dilation: int,
-              co: int) -> tuple[int, int, int, int, int]:
+def simt_plan(out_dhw: tuple[int, int, int], dilation: int, co: int,
+              taps: int = 3, stages: int = SIMT_STAGES,
+              widest: int = SIMT_WIDEST) -> tuple[int, int, int, int, int]:
     """What the f32 kernel is handed for an output of ``out_dhw`` voxels and
-    ``co`` channels at ``dilation``: ``(bz, by, bx, width, smem bytes)``.
+    ``co`` channels at ``dilation``: ``(bz, by, bx, width, smem bytes)``;
+    ``taps`` a side, ``stages`` in the ring and the ``widest`` channel block
+    are K1's by default (a tail stage: 2 taps at d = 1 and
+    ``ops/tail.py``'s TAIL_SIMT_STAGES and TAIL_SIMT_WIDEST).
 
     The box holds at most SIMT_VOXELS voxels, bz and by no more than the
     output's, and bx a multiple of 8 up to the output's row rounded up to 8
     (the whole row where it is shorter than 8): a quarter-warp's eight lanes
     then read eight neighbouring 16-byte records of one halo row, in eight
-    different banks.  Its halo fits TMA's box
-    (at most 256 on each axis) and a block's shared memory
+    different banks.  Its halo (``taps - 1`` dilations past the box) fits
+    TMA's box (at most 256 on each axis) and a block's shared memory
     (:func:`simt_smem_bytes` <= SIMT_SMEM).  Of those boxes, the one that
     covers the output in the fewest blocks (the masked ragged edge is the
-    least work), then the one with the smallest halo (bz+2d)(by+2d)(bx+2d).
-    ``width`` is :func:`simt_width`."""
-    d = int(dilation)
-    width = simt_width(co)
+    least work), then the one with the smallest halo.  ``width`` is
+    :func:`simt_width` at ``widest``.  Raises ValueError when no box
+    fits."""
+    r = (taps - 1) * int(dilation)
+    width = simt_width(co, widest)
     Do, Ho, Wo = out_dhw
     widths = [Wo] if Wo < 8 else list(range(8, -(-Wo // 8) * 8 + 1, 8))
     best = None
@@ -292,32 +298,34 @@ def simt_plan(out_dhw: tuple[int, int, int], dilation: int,
             for bx in widths:
                 box = (bz, by, bx)
                 if (bz * by * bx > SIMT_VOXELS
-                        or max(box) + 2 * d > 256
-                        or simt_smem_bytes(box, d, width) > SIMT_SMEM):
+                        or max(box) + r > 256
+                        or simt_smem_bytes(box, dilation, width, taps,
+                                           stages) > SIMT_SMEM):
                     break  # the widths run upward
                 tiles = -(-Do // bz) * -(-Ho // by) * -(-Wo // bx)
-                key = (tiles, math.prod(b + 2 * d for b in box))
+                key = (tiles, math.prod(b + r for b in box))
                 if best is None or key < best[0]:
                     best = (key, box)
     if best is None:
-        raise ValueError(f"no box of the f32 kernel fits dilation {d}")
+        raise ValueError(f"no box of the f32 kernel fits dilation {dilation}")
     box = best[1]
-    return (*box, width, simt_smem_bytes(box, d, width))
+    return (*box, width, simt_smem_bytes(box, dilation, width, taps, stages))
 
 
 def simt_weights(w: torch.Tensor, width: int) -> torch.Tensor:
-    """The weight image the f32 kernel copies one slice at a time:
+    """The weight image the f32 kernel copies one slice at a time, for ``w``
+    (T, T, T, Ci, Co) (T = 3 for K1, 2 for a tail stage):
     ``img[cb, s, tap, g, c, k] = w[tap, 4 s + c, cb * width + 8 g + k]``,
-    tap = 9 tz + 3 ty + tx, zero where that channel is past Co; shape
-    (ceil(Co / width), Ci / 4, 27, width / 8, 4, 8), f32, contiguous.  A
-    slice's 27 taps are one contiguous run, and so are a tap's 4 x 8
-    weights of one consumer warp's group of 8 output channels."""
-    ci, co = w.shape[3], w.shape[4]
+    tap = T^2 tz + T ty + tx, zero where that channel is past Co; shape
+    (ceil(Co / width), Ci / 4, T^3, width / 8, 4, 8), f32, contiguous.  A
+    slice's taps are one contiguous run, and so are a tap's 4 x 8 weights
+    of one consumer warp's group of 8 output channels."""
+    taps, ci, co = w.shape[0] ** 3, w.shape[3], w.shape[4]
     n_cb = -(-co // width)
-    wp = torch.zeros((27, ci, n_cb * width), dtype=torch.float32,
+    wp = torch.zeros((taps, ci, n_cb * width), dtype=torch.float32,
                      device=w.device)
-    wp[..., :co] = w.reshape(27, ci, co)
-    return (wp.view(27, ci // SIMT_SLICE, SIMT_SLICE, n_cb, width // 8, 8)
+    wp[..., :co] = w.reshape(taps, ci, co)
+    return (wp.view(taps, ci // SIMT_SLICE, SIMT_SLICE, n_cb, width // 8, 8)
             .permute(3, 1, 0, 4, 2, 5).contiguous())
 
 

@@ -18,9 +18,13 @@ decided before the launch (:func:`tail_route`): bf16 with every channel
 count a multiple of 8, Co <= 192 and 16-byte-aligned operands runs the
 wgmma/TMA kernel of ``csrc/packed_tail_wgmma.cu`` ("wgmma"), which also
 computes the logits in the last stage's epilogue (for up to 8 of them), so
-that stage's output never reaches device memory; ``csrc/packed_tail.cu``
-keeps the other bf16 stages ("wmma"), f32 ("fma": TF32 would round the
-inputs) and the logits of chains that do not end in a wgmma stage.
+that stage's output never reaches device memory; f32 with Ca and Cb
+multiples of 4 and 16-byte-aligned operands runs the FMA/TMA kernel of
+``csrc/conv3d_f32.cu`` ("simt": K1's f32 kernel at 2 taps a side, no TF32;
+box and channel block from :func:`tail_simt_plan`, weight image from
+:func:`tail_simt_weights`); ``csrc/packed_tail.cu`` keeps the other bf16
+stages ("wmma"), the other f32 stages ("fma": TF32 would round the inputs)
+and the logits of chains that do not end in a wgmma stage.
 ``packed_tail.routes`` / ``packed_tail2.routes`` count stage launches per
 route.
 
@@ -41,15 +45,19 @@ from __future__ import annotations
 
 import torch
 
-from flypylib_tpu_torch.ops.conv import (WGMMA_KC, conv3d_f32, matmul_f32,
+from flypylib_tpu_torch.ops.conv import (SIMT_SLICE, WGMMA_KC, conv3d_f32,
+                                         matmul_f32, simt_plan, simt_weights,
                                          weight_images, wgmma_box,
                                          wgmma_slices)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TAIL_ROUTES = ("wgmma", "wmma", "fma")
+TAIL_ROUTES = ("wgmma", "wmma", "simt", "fma")
 TAIL_N_TILES = (32, 64, 96, 128, 192)  # the wgmma kernel's N tiles
 TAIL_ROWS = 192  # output voxels per block of the wgmma kernel
 TAIL_MAX_LOGITS = 8  # logits the wgmma kernel's epilogue computes
+TAIL_SIMT_STAGES = 4  # slices in the f32 kernel's ring for a 2^3 stage
+TAIL_SIMT_WIDEST = 32  # output channels per block of it: three 4-warp
+                       # blocks an SM (K1 runs one 8-warp block of 64)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -132,23 +140,52 @@ def _check_cuda(tensors, x):
         raise ValueError("x must be contiguous (NDHWC)")
 
 
-# -- the wgmma route's plain-Python parts --------------------------------------
+# -- the routes' plain-Python parts --------------------------------------------
 def tail_route(xa: torch.Tensor, xb: torch.Tensor | None,
                wa: torch.Tensor) -> str:
     """Which CUDA kernel takes the stage ``relu(round(conv2(xa, wa) [+
-    conv2(xb, wb)]) + b)``: "fma" for f32; "wgmma" for bf16 with Ca, Cb and
-    Co multiples of 8, Co at most the widest N tile (192) and ``xa`` and
-    ``xb`` on 16-byte boundaries (the TMA tensor map's rules; the weights
-    are repacked, so their alignment does not matter); "wmma" for every
-    other bf16 stage."""
-    if xa.dtype != torch.bfloat16:
-        return "fma"
+    conv2(xb, wb)]) + b)``: for f32, "simt" with Ca (> 0) and Cb multiples
+    of 4 (16 bytes a voxel's slice) and ``xa`` and ``xb`` on 16-byte
+    boundaries, else "fma" (the halo of a 2^3 stage, one voxel past the
+    box, fits whatever the extents: :func:`tail_simt_plan` always finds a
+    box); for bf16, "wgmma" with Ca, Cb and Co multiples of 8, Co at most
+    the widest N tile (192) and ``xa`` and ``xb`` on 16-byte boundaries (the
+    TMA tensor map's rules; the weights are repacked, so their alignment
+    does not matter), else "wmma"."""
     co = wa.shape[-1]
     operands = [xa] if xb is None else [xa, xb]
-    if (all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in operands)
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    if xa.dtype != torch.bfloat16:
+        if (aligned and xa.shape[-1] > 0
+                and all(t.shape[-1] % SIMT_SLICE == 0 for t in operands)):
+            return "simt"
+        return "fma"
+    if (aligned and all(t.shape[-1] % 8 == 0 for t in operands)
             and co % 8 == 0 and co <= TAIL_N_TILES[-1]):
         return "wgmma"
     return "wmma"
+
+
+def tail_simt_plan(in_dhw: tuple[int, int, int],
+                   co: int) -> tuple[int, int, int, int, int]:
+    """``(bz, by, bx, width, smem bytes)`` of the f32 kernel for a stage
+    whose input has ``in_dhw`` voxels: K1's plan (:func:`simt_plan`) for
+    the output (one voxel less on each axis) at 2 taps a side, d = 1, a
+    ring of TAIL_SIMT_STAGES slices and channel blocks of at most
+    TAIL_SIMT_WIDEST."""
+    out_dhw = tuple(e - 1 for e in in_dhw)
+    return simt_plan(out_dhw, 1, co, 2, TAIL_SIMT_STAGES, TAIL_SIMT_WIDEST)
+
+
+def tail_simt_weights(wa: torch.Tensor, wb: torch.Tensor | None,
+                      width: int) -> torch.Tensor:
+    """The weight image of the f32 kernel for a stage: :func:`simt_weights`
+    of ``wa`` (2, 2, 2, Ca, Co), then of ``wb`` (2, 2, 2, Cb, Co), stacked
+    along the slice axis, so the kernel's slices run xa's then xb's:
+    (ceil(Co / width), (Ca + Cb) / 4, 8, width / 8, 4, 8), f32, zero past
+    Co."""
+    return torch.cat([simt_weights(w.float(), width) for w in (wa, wb)
+                      if w is not None], dim=1)
 
 
 def tail_tile(co: int) -> int:
@@ -241,6 +278,27 @@ def _stage_wgmma(lib, stream, xa, xb, wa, wb, b, logits):
     return out
 
 
+def _stage_simt(lib, stream, xa, xb, wa, wb, b):
+    """One launch of the f32 kernel of ``csrc/conv3d_f32.cu`` at 2 taps a
+    side: relu(conv2(xa, wa) [+ conv2(xb, wb)] + b), NDHWC, f32."""
+    B, D, H, W, ca = xa.shape
+    co = wa.shape[4]
+    cb = 0 if xb is None else xb.shape[4]
+    bz, by, bx, width, _ = tail_simt_plan((D, H, W), co)
+    img = tail_simt_weights(wa, wb if cb else None, width)
+    b = b.float().contiguous()
+    out = torch.empty((B, D - 1, H - 1, W - 1, co), dtype=torch.float32,
+                      device=xa.device)
+    err = lib.fpl_tail_stage_f32(
+        xa.data_ptr(), xb.data_ptr() if cb else None, img.data_ptr(),
+        b.data_ptr(), out.data_ptr(), B, D, H, W, ca, cb, co, width, bz, by,
+        bx, stream)
+    if err != 0:
+        raise RuntimeError("packed tail stage kernel launch failed (simt "
+                           f"route): cudaError {err}")
+    return out
+
+
 def _stage(lib, stream, xa, xb, wa, wb, b):
     """One launch of the stage kernel of ``csrc/packed_tail.cu`` (the "wmma"
     and "fma" routes): relu(round(conv2(xa, wa) [+ conv2(xb, wb)]) + b),
@@ -299,6 +357,8 @@ def _run_chain(x, xb, stage0, ws, bs, logits):
                          and logits[1].shape[0] <= TAIL_MAX_LOGITS)
                 cur = _stage_wgmma(lib, stream, cur, xb, wa, wb, b,
                                    logits if fused else None)
+            elif route == "simt":
+                cur = _stage_simt(lib, stream, cur, xb, wa, wb, b)
             else:
                 cur = _stage(lib, stream, cur, xb, wa, wb, b)
             routes.append(route)

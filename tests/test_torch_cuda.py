@@ -47,9 +47,14 @@ chains.  Cases cover the main path's widths (Ci 240, or 192 + 48, into
 channel counts off the multiples of 8 (the element gather) and Co <= 32.
 Every case asserts the route of its stages (``tail_route``): bf16 with
 channel counts in multiples of 8 takes the wgmma/TMA kernel, whose last
-stage computes the logits in its epilogue; ``chip_smoke``'s small cases
-(ragged boxes, odd extents, a 16-channel rest, batch 3, more logits than
-the epilogue takes) run here too.
+stage computes the logits in its epilogue; f32 with Ca and Cb multiples of
+4 and aligned operands takes the f32 kernel of ``conv3d_f32.cu`` ("simt"),
+and off that rule (channels, a view 4 bytes off a 16-byte boundary) the
+first-version FMA kernel; the f32 kernel gives the same bits in a second
+launch and on sub-windows, and a zeroed tap fails the check.
+``chip_smoke``'s small cases (ragged boxes, odd extents, a 16-channel
+rest, batch 3, more logits than the epilogue takes, f32 in one to six
+channel blocks) run here too.
 
 The staged engine (``FplNetwork.detect_large``) runs on the card in roi and
 shared modes, and its lists must equal ``detect``'s on the scaled volume at
@@ -330,7 +335,7 @@ def _tail_route(dtype, ca, cb, co):
     """The route the rule of ``tail_route`` gives aligned operands, written
     out."""
     if dtype == torch.float32:
-        return "fma"
+        return "simt" if ca % 4 == 0 and cb % 4 == 0 else "fma"
     on_rule = ca % 8 == 0 and cb % 8 == 0 and co % 8 == 0 and co <= 192
     return "wgmma" if on_rule else "wmma"
 
@@ -390,6 +395,73 @@ def test_tail_unaligned_operand_takes_the_wmma_kernel(cuda):
     ref = tail.tail2_reference(xa, xb, s0, stages, lg)
     err, ok = chip_smoke.tail_check(got.cpu(), ref.cpu(), torch.bfloat16)
     assert ok, f"max |err| {err}"
+
+
+def test_tail_f32_off_the_rule_takes_the_fma_kernel(cuda):
+    """f32 stages off the rule run the first-version FMA kernel: channels
+    off the multiples of 4 (both stages), and xa 4 bytes off a 16-byte
+    boundary (stage 0; the stage after it reads an aligned output)."""
+    xa, xb, s0, stages, lg = _tail_args(18, 10, 42, 1, True, torch.float32,
+                                        cuda)
+    assert tail.tail_route(xa, xb, s0[0]) == "fma"
+    routes = dict(tail.packed_tail2.routes)
+    got = tail.packed_tail2(xa, xb, s0, stages, lg)
+    torch.cuda.synchronize()
+    routes["fma"] += 2
+    assert tail.packed_tail2.routes == routes
+    ref = tail.tail2_reference(xa, xb, s0, stages, lg)
+    err, ok = chip_smoke.tail_check(got.cpu(), ref.cpu(), torch.float32)
+    assert ok, f"max |err| {err}"
+    xa, xb, s0, stages, lg = _tail_args(16, 8, 24, 1, True, torch.float32,
+                                        cuda)
+    flat = torch.zeros(xa.numel() + 1, dtype=torch.float32, device=cuda)
+    flat[1:] = xa.reshape(-1)
+    off = flat[1:].view(xa.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    assert tail.tail_route(off, xb, s0[0]) == "fma"
+    routes = dict(tail.packed_tail2.routes)
+    got = tail.packed_tail2(off, xb, s0, stages, lg)
+    torch.cuda.synchronize()
+    routes["fma"] += 1
+    routes["simt"] += 1
+    assert tail.packed_tail2.routes == routes
+    ref = tail.tail2_reference(xa, xb, s0, stages, lg)
+    err, ok = chip_smoke.tail_check(got.cpu(), ref.cpu(), torch.float32)
+    assert ok, f"max |err| {err}"
+
+
+def test_tail_simt_is_deterministic_and_blind_to_the_window(cuda):
+    """The f32 stage kernel: two launches give the same bits, and the
+    output of a sub-window of both operands (another box grid, every voxel
+    at another place in its box) is bit for bit the full output's
+    overlap."""
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    xa = t(np.maximum(rng.normal(0, 1, (2, 20, 21, 30, 48)), 0))
+    xb = t(np.maximum(rng.normal(0, 1, (2, 20, 21, 30, 16)), 0))
+    s0 = (t(rng.normal(0, 512 ** -0.5, (2, 2, 2, 48, 64))),
+          t(rng.normal(0, 512 ** -0.5, (2, 2, 2, 16, 64))),
+          t(rng.normal(0, 0.1, 64)))
+    full = tail.packed_tail2(xa, xb, s0)
+    assert torch.equal(tail.packed_tail2(xa, xb, s0), full)
+    for z, y, x in ((3, 5, 7), (1, 0, 9), (6, 2, 0)):
+        sa = xa[:, z:, y:, x:].contiguous()
+        sb = xb[:, z:, y:, x:].contiguous()
+        assert tail.tail_route(sa, sb, s0[0]) == "simt"
+        assert torch.equal(tail.packed_tail2(sa, sb, s0), full[:, z:, y:, x:])
+
+
+def test_tail_simt_zeroed_tap_fails_the_check(cuda):
+    xa, _, s0, _, _ = _tail_args(24, 0, 40, 0, False, torch.float32, cuda)
+    ref = tail.tail_reference(xa, [(s0[0], s0[2])])
+    w = s0[0].clone()
+    w[1, 0, 1] = 0
+    assert tail.tail_route(xa, None, w) == "simt"
+    got = tail.packed_tail(xa, [(w, s0[2])])
+    assert not chip_smoke.tail_check(got.cpu(), ref.cpu(), torch.float32)[1]
 
 
 def test_tail_kernels_empty_batch_and_rejections(cuda):

@@ -9,6 +9,13 @@ against the JAX package, on the same inputs.
   JAX's ``tail_reference``.  Tolerance rtol = atol = 2e-2 in bf16 (the JAX
   test's: the f32 sums round to bf16 at stage boundaries in different
   orders) and 1e-5 in f32 (f32 summation order only).
+- The f32 stage kernel ("simt", ``csrc/conv3d_f32.cu``) sums in its own
+  order (slice of 4 channels, xa's then xb's, tap, channel, on FMAs);
+  ``_simt_stage_model`` spells that order out in numpy from the weight
+  image the wrapper lays out and is held against the plain versions and
+  the JAX kernels in interpret mode within ``chip_smoke``'s f32 limit
+  (1e-4 of max |ref|), which must still refuse a tap dropped in that
+  order.
 """
 
 import jax
@@ -17,12 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from flypylib_tpu.ops import packed_conv as j_pc
 from flypylib_tpu.ops import packed_unet as j_pu
 from flypylib_tpu.ops import pallas_tail as j_tail
 from flypylib_tpu_torch.ops import packed_conv as t_pc
 from flypylib_tpu_torch.ops import packed_unet as t_pu
 from flypylib_tpu_torch.ops import tail as t_tail
+from flypylib_tpu_torch.ops.conv import SIMT_SLICE
 
 torch.set_num_threads(1)
 
@@ -253,3 +262,104 @@ def test_packed_tail2_rejections():
     with pytest.raises(ValueError, match="channels"):
         t_tail.packed_tail2(xa, xb, s0, [(z((2, 2, 2, 5, 6)), z(6))])
     assert t_tail.packed_tail2(xa, xb, s0).shape == (1, 4, 4, 4, 6)
+
+
+# -- the f32 stage kernel's order of sums ----------------------------------------
+def _simt_stage_model(xa, xb, wa, wb, b, drop_tap=None):
+    """One f32 stage on ``xa`` (B, D, H, W, Ca) [and ``xb``] in the f32
+    kernel's order of sums, in numpy: every output channel's f32
+    accumulator takes acc = fma(x, w, acc) slice by slice (4 channels, xa's
+    then xb's), tap by tap (tz, ty, tx), channel by channel, with the
+    weights read from ``tail_simt_weights``' image (an FMA modelled as the
+    exact f64 product plus acc, rounded once to f32); then the f32 bias and
+    ReLU.  ``drop_tap`` leaves that tap's weights out."""
+    B, D, H, W, _ = xa.shape
+    co = wa.shape[-1]
+    width = t_tail.tail_simt_plan((D, H, W), co)[3]
+    img = t_tail.tail_simt_weights(
+        torch.from_numpy(wa), None if xb is None else torch.from_numpy(wb),
+        width).numpy().astype(np.float64)
+    x = xa if xb is None else np.concatenate([xa, xb], axis=-1)
+    acc = np.zeros((B, D - 1, H - 1, W - 1, img.shape[0] * width), np.float32)
+    for s in range(img.shape[1]):
+        for tap in range(8):
+            if tap == drop_tap:
+                continue
+            tz, ty, tx = tap // 4, tap // 2 % 2, tap % 2
+            win = x[:, tz:tz + D - 1, ty:ty + H - 1,
+                    tx:tx + W - 1].astype(np.float64)
+            for c in range(SIMT_SLICE):
+                wv = img[:, s, tap, :, c, :].reshape(-1)  # cb * width + 8 g + k
+                acc = (win[..., SIMT_SLICE * s + c, None] * wv
+                       + acc).astype(np.float32)
+    return np.maximum(acc[..., :co] + b, np.float32(0))
+
+
+SIMT_CHAINS = {
+    # label: (shape, Ca, Cb, channels of the stages after the first, logits)
+    "K2-12-16-8-logits": ((7, 8, 9), 12, 0, (16, 8), True),
+    "K2-8-20": ((6, 7, 8), 8, 0, (20,), False),
+    "K3-16+8-24-24-logits": ((9, 10, 11), 16, 8, (24, 24), True),
+    "K3-8+4-10": ((6, 7, 9), 8, 4, (10,), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SIMT_CHAINS))
+def test_simt_sum_order_matches_jax(rng, case):
+    """K2 / K3 chains in f32, every stage in the f32 kernel's order of sums
+    (the logits as the port's plain version sums them), against the port's
+    plain version and the JAX kernel in interpret mode, within chip_smoke's
+    f32 limit; stage 0 with its centre tap dropped must fail it."""
+    shape, ca, cb, chans, with_logits = SIMT_CHAINS[case]
+    xa = np.maximum(rng.normal(0, 1, (1, *shape, ca)), 0).astype(np.float32)
+    xb = (np.maximum(rng.normal(0, 1, (1, *shape, cb)), 0).astype(np.float32)
+          if cb else None)
+    k = 8 * (ca + cb)
+    wa = rng.normal(0, k ** -0.5, (2, 2, 2, ca, chans[0])).astype(np.float32)
+    wb = (rng.normal(0, k ** -0.5, (2, 2, 2, cb, chans[0])).astype(np.float32)
+          if cb else None)
+    b0 = rng.normal(0, 0.1, chans[0]).astype(np.float32)
+    stages = [(rng.normal(0, (8 * ci) ** -0.5, (2, 2, 2, ci, co))
+               .astype(np.float32), rng.normal(0, 0.1, co).astype(np.float32))
+              for ci, co in zip(chans[:-1], chans[1:])]
+    lg = None
+    if with_logits:
+        lg = (rng.normal(0, chans[-1] ** -0.5, (chans[-1], 16))
+              .astype(np.float32), rng.normal(0, 1, 8).astype(np.float32))
+    assert t_tail.tail_route(torch.from_numpy(xa),
+                             None if xb is None else torch.from_numpy(xb),
+                             torch.from_numpy(wa)) == "simt"
+
+    def model(drop_tap=None):
+        cur = _simt_stage_model(xa, xb, wa, wb, b0, drop_tap)
+        for w, b in stages:
+            cur = _simt_stage_model(cur, None, w, None, b)
+        if lg is None:
+            return torch.from_numpy(cur)
+        return t_tail.logits_reference(torch.from_numpy(cur),
+                                       *map(torch.from_numpy, lg))
+
+    t = torch.from_numpy
+    st = [(t(w), t(b)) for w, b in stages]
+    lt = None if lg is None else (t(lg[0]), t(lg[1]))
+    sj = [(jnp.asarray(w), jnp.asarray(b)) for w, b in stages]
+    lj = None if lg is None else (jnp.asarray(lg[0]), jnp.asarray(lg[1]))
+    if xb is None:
+        plain = t_tail.tail_reference(t(xa), [(t(wa), t(b0))] + st, lt)
+        jax_out = j_tail.packed_tail(jnp.asarray(xa[0]),
+                                     [(jnp.asarray(wa), jnp.asarray(b0))] + sj,
+                                     lj, block=BLOCK, interpret=True)
+    else:
+        plain = t_tail.tail2_reference(t(xa), t(xb), (t(wa), t(wb), t(b0)),
+                                       st, lt)
+        jax_out = j_tail.packed_tail2(
+            jnp.asarray(xa[0]), jnp.asarray(xb[0]),
+            (jnp.asarray(wa), jnp.asarray(wb), jnp.asarray(b0)), sj, lj,
+            block=BLOCK, interpret=True)
+    got = model()
+    for ref in (plain, torch.from_numpy(np.array(jax_out, np.float32))[None]):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        err, ok = chip_smoke.tail_check(got, ref, torch.float32)
+        assert ok, f"max |err| {err}"
+    _, bad = chip_smoke.tail_check(model(drop_tap=7), plain, torch.float32)
+    assert not bad

@@ -1,13 +1,16 @@
-"""The decoder tail's route rule and the wgmma stage kernel's host-side
-layout, on the CPU.
+"""The decoder tail's route rule and the stage kernels' host-side layouts,
+on the CPU.
 
-``packed_tail`` / ``packed_tail2`` on a CUDA tensor pick one of three stage
+``packed_tail`` / ``packed_tail2`` on a CUDA tensor pick one of four stage
 kernels by a rule on dtype, channel counts and alignment (``tail_route``).
 The wgmma kernel walks K in (tap, channel slice) steps (``tail_slices``),
 reads the weights from images the wrapper lays out (``tail_weights``) and
-owns one output box per tile (``tail_box``); these are plain PyTorch and
-Python, so they are held here.  The kernels themselves run in
-``tests/test_torch_cuda.py`` on the card.
+owns one output box per tile (``tail_box``); the f32 kernel ("simt") is
+handed its box and channel block by ``tail_simt_plan`` and its weights by
+``tail_simt_weights`` (xa's slices, then xb's).  These are plain PyTorch
+and Python, so they are held here; the f32 kernel's order of sums is held
+against the JAX package in ``tests/test_torch_tail.py``.  The kernels
+themselves run in ``tests/test_torch_cuda.py`` on the card.
 """
 
 import math
@@ -17,10 +20,14 @@ import pytest
 import torch
 
 from flypylib_tpu_torch.ops import tail
+from flypylib_tpu_torch.ops.conv import (SIMT_SLICE, SIMT_SMEM, SIMT_VOXELS,
+                                         simt_smem_bytes, simt_width)
 from flypylib_tpu_torch.ops.tail import (TAIL_N_TILES, TAIL_ROUTES, TAIL_ROWS,
-                                         packed_tail, packed_tail2, tail_box,
-                                         tail_route, tail_slices, tail_tile,
-                                         tail_weights)
+                                         TAIL_SIMT_STAGES, TAIL_SIMT_WIDEST,
+                                         packed_tail,
+                                         packed_tail2, tail_box, tail_route,
+                                         tail_simt_plan, tail_simt_weights,
+                                         tail_slices, tail_tile, tail_weights)
 
 
 def _x(c, dtype=torch.bfloat16, shape=(2, 5, 6, 7)):
@@ -52,10 +59,34 @@ def test_other_bf16_stages_take_wmma(ca, cb, co):
     assert tail_route(_x(ca), xb, _w(ca, co)) == "wmma"
 
 
-def test_f32_takes_fma_whatever_the_widths():
-    for ca, cb, co in ((240, 0, 192), (192, 48, 192), (5, 3, 7)):
-        xb = _x(cb, torch.float32) if cb else None
-        assert tail_route(_x(ca, torch.float32), xb, _w(ca, co)) == "fma"
+def _f32_view(c, off, shape=(2, 5, 6, 7)):
+    """An f32 (*shape, c) tensor ``off`` elements past a 16-byte boundary."""
+    n = math.prod(shape) * c
+    flat = torch.zeros(n + 4, dtype=torch.float32)
+    view = flat[off:off + n].view(*shape, c)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * off
+    return view
+
+
+@pytest.mark.parametrize("ca,cb,co,a_off,b_off,want", [
+    (240, 0, 192, 0, 0, "simt"),   # K2's stage 0 on the main path
+    (192, 48, 192, 0, 0, "simt"),  # K3's stage 0
+    (192, 0, 192, 0, 0, "simt"),   # the stage after it
+    (4, 0, 7, 0, 0, "simt"),       # one slice; any Co
+    (20, 12, 44, 0, 0, "simt"),    # off the multiples of 8, on those of 4
+    (5, 3, 7, 0, 0, "fma"),        # Ca and Cb off the multiples of 4
+    (18, 0, 24, 0, 0, "fma"),      # Ca off
+    (16, 6, 24, 0, 0, "fma"),      # Cb alone off
+    (16, 8, 24, 1, 0, "fma"),      # xa 4 bytes off a 16-byte boundary
+    (16, 8, 24, 0, 3, "fma"),      # xb 12 bytes off
+])
+def test_f32_route_rule(ca, cb, co, a_off, b_off, want):
+    """f32 takes the f32 kernel ("simt") with Ca and Cb multiples of 4 and
+    both operands on 16-byte boundaries (the TMA map's rules), else the
+    first-version FMA kernel."""
+    xa = _f32_view(ca, a_off)
+    xb = _f32_view(cb, b_off) if cb else None
+    assert tail_route(xa, xb, _w(ca, co)) == want
 
 
 def test_an_operand_off_a_16_byte_boundary_takes_wmma():
@@ -177,3 +208,73 @@ def test_box_fits_the_tile_and_wastes_little(extents):
 def test_rows_per_block_is_one_the_kernel_builds():
     assert TAIL_ROWS == 192  # three m64 row blocks
     assert tail.TAIL_MAX_LOGITS == 8
+
+
+def _cover_count(out_dhw, box):
+    """How often the f32 kernel's lanes write each output voxel: lane j*32
+    + l of the block at (z0, y0, x0) holds box voxel i = j*32 + l, x
+    fastest, masked past the box and the output."""
+    bz, by, bx = box
+    seen = np.zeros(out_dhw, np.int64)
+    v = np.arange(SIMT_VOXELS)
+    xx, yy, zz = v % bx, v // bx % by, v // bx // by
+    for z0 in range(0, out_dhw[0], bz):
+        for y0 in range(0, out_dhw[1], by):
+            for x0 in range(0, out_dhw[2], bx):
+                live = ((zz < bz) & (z0 + zz < out_dhw[0])
+                        & (y0 + yy < out_dhw[1]) & (x0 + xx < out_dhw[2]))
+                np.add.at(seen, (z0 + zz[live], y0 + yy[live], x0 + xx[live]),
+                          1)
+    return seen
+
+
+@pytest.mark.parametrize("in_dhw,co", [
+    ((9, 10, 11), 192), ((7, 12, 19), 192), ((5, 6, 37), 56), ((9, 9, 9), 8),
+    ((4, 5, 6), 136), ((3, 3, 70), 10), ((2, 2, 2), 24), ((30, 3, 300), 64)])
+def test_simt_plan_covers_every_output_voxel_once(in_dhw, co):
+    """The f32 kernel's boxes for a stage: at most 256 voxels, bx a
+    multiple of 8 (or the whole row below 8), the halo (one voxel past the
+    box on each axis) within TMA's box and the ring within shared memory;
+    every output voxel written by exactly one lane of one block."""
+    out_dhw = tuple(e - 1 for e in in_dhw)
+    bz, by, bx, width, smem = tail_simt_plan(in_dhw, co)
+    assert bz * by * bx <= SIMT_VOXELS
+    assert bz <= out_dhw[0] and by <= out_dhw[1]
+    assert bx % 8 == 0 or bx == out_dhw[2] < 8
+    assert max(bz, by, bx) + 1 <= 256
+    assert smem == simt_smem_bytes((bz, by, bx), 1, width, 2,
+                                   TAIL_SIMT_STAGES) <= SIMT_SMEM
+    assert width == simt_width(co, TAIL_SIMT_WIDEST) <= TAIL_SIMT_WIDEST
+    assert (_cover_count(out_dhw, (bz, by, bx)) == 1).all()
+
+
+def test_simt_plan_at_the_main_path():
+    """The 256^3 covering tile: stage 0 (132^3 cells in) and stage 1 (131^3)
+    run 4 x 8 x 8 boxes, six blocks of 32 channels, a ring of four stages
+    of 6.3 KB of halo and 4 KB of weights in 45 KB (three blocks an SM);
+    the masked lanes are under 12% of a launch's."""
+    for s in (132, 131):
+        bz, by, bx, width, smem = tail_simt_plan((s,) * 3, 192)
+        assert (bz, by, bx, width, smem) == (4, 8, 8, 32, 45 * 1024)
+        tiles = math.prod(-(-(s - 1) // b) for b in (bz, by, bx))
+        assert (s - 1) ** 3 / (tiles * SIMT_VOXELS) > 0.88
+
+
+@pytest.mark.parametrize("ca,cb,co", [(240, 0, 192), (192, 48, 192),
+                                      (4, 0, 8), (20, 12, 44), (48, 16, 136),
+                                      (8, 4, 10)])
+def test_simt_weight_image_holds_wa_then_wb_and_zeros_past_co(ca, cb, co):
+    rng = np.random.default_rng(ca + cb + co)
+    wa = torch.from_numpy(rng.normal(0, 1, (2, 2, 2, ca, co)).astype(np.float32))
+    wb = torch.from_numpy(rng.normal(0, 1, (2, 2, 2, cb, co)).astype(np.float32))
+    width = simt_width(co, TAIL_SIMT_WIDEST)
+    img = tail_simt_weights(wa, wb if cb else None, width)
+    n_cb = -(-co // width)
+    k = (ca + cb) // SIMT_SLICE
+    assert img.shape == (n_cb, k, 8, width // 8, SIMT_SLICE, 8)
+    assert img.dtype == torch.float32 and img.is_contiguous()
+    # img[cb, s, tap, g, c, k] = [wa; wb][tap, 4 s + c, cb * width + 8 g + k]
+    back = img.permute(2, 1, 4, 0, 3, 5).reshape(8, ca + cb, n_cb * width)
+    assert torch.equal(back[:, :ca, :co], wa.reshape(8, ca, co))
+    assert torch.equal(back[:, ca:, :co], wb.reshape(8, cb, co))
+    assert not back[..., co:].any()
