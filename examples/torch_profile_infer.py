@@ -2,10 +2,11 @@
 ``torch.profiler`` Chrome trace.
 
 The port's counterpart of ``examples/profile_infer.py``: ``StageTimer``
-Mvox/s counters around the detect pipeline (the host clock; each stage
-ends in a synchronise) and, with ``--trace``, a trace of one call
-(``trace.json`` in the directory, for ``chrome://tracing`` or Perfetto)
-and the ops that took the most device time.
+Mvox/s counters around the detect pipeline (the host clock; on a card each
+stage synchronises at its ends) and, with ``--trace``, a trace of one call
+(``trace.json`` in the directory, for ``chrome://tracing`` or Perfetto,
+with the port's spans as ``fpl.*`` ranges) and the ops that took the most
+device time.
 
 Run: python3 examples/torch_profile_infer.py [--device cuda] [--size 128]
      [--trace DIR]
@@ -35,11 +36,6 @@ def main():
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     cuda = torch.device(args.device).type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
     net = FplNetwork("baseline", device=args.device)  # the packed engine
     rng = np.random.default_rng(0)
     vol = rng.integers(0, 256, (args.size,) * 3).astype(np.uint8)
@@ -49,15 +45,14 @@ def main():
     timer = StageTimer()
     with timer.stage("build+first_run", voxels=vol.size):
         pipe(vol)
-        sync()
     for _ in range(3):
         with timer.stage("detect_pipeline", voxels=vol.size):
             nms_det, cc_det = pipe(vol)
-            sync()
     if args.trace:
         with profile_trace(args.trace) as prof:
             pipe(vol)
-            sync()
+            if cuda:
+                torch.cuda.synchronize()
         key = "self_cuda_time_total" if cuda else "self_cpu_time_total"
         print(prof.key_averages().table(sort_by=key, row_limit=10))
         print(f"trace written to {args.trace}/trace.json")

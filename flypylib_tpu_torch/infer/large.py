@@ -44,6 +44,15 @@ box's six faces, merged across seams on the host by
 host copy.  The lists equal the host reference's on the whole-volume map,
 in every mode and transport.
 
+Each call is the tracer's root span ``detect`` (``utils/metrics.py``; its
+``mode`` shared, roi or streaming) over ``detect.stage`` (upload and pad,
+counter ``h2d_bytes``), ``detect.forward`` (a sweep, a band or a ROI; its
+tile batches' ``forward.gather`` / ``forward.module`` / ``forward.scatter``
+in ``DetectPipeline.forward_slabs``), ``detect.boxes`` (a shared sweep's
+boxes: ``box.filter`` on the card, ``box.copy`` to the host, counter
+``d2h_bytes``, ``box.merge``) and ``detect.finalize``; the prefetch thread's
+``fetch.read`` / ``fetch.pad`` sit under the same root.
+
 Left out, as the reference's TPU and XLA workarounds: the compile caches,
 ``copy_to_host_async``, the donated buffers, and the slot caps with their
 grow-and-retry: ``max_detections_per_roi`` and ``max_components_per_roi``
@@ -59,7 +68,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from collections import Counter, deque
 
 import numpy as np
@@ -82,6 +90,8 @@ from flypylib_tpu_torch.ops.host_reference import sort_detections
 from flypylib_tpu_torch.ops.nms import mask_valid_region, max_filter
 from flypylib_tpu_torch.parallel.mesh import as_device, per_device
 from flypylib_tpu_torch.utils import round_up, to3d
+from flypylib_tpu_torch.utils.metrics import (attach, count, current_span,
+                                              span, timed)
 
 # the dataset h5_reader opens when none is named and the file has it (the
 # reference's io/hdf5.py default)
@@ -309,33 +319,36 @@ class _StreamPlan:
         thr = self.threshold
         sparse = self.want_cc and self.cc_impl == "sparse"
         fused_nbr = nbr is not None and self.want_nms and sparse
-        core3 = prob[at[0]:at[0] + dims[0], at[1]:at[1] + dims[1],
-                     at[2]:at[2] + dims[2]]
-        core = core3.reshape(-1)
-        if self.want_nms and not fused_nbr:
-            lo = [w // 2 for w in self.window]
-            hi = [w - 1 - w // 2 for w in self.window]
-            sub = prob[at[0] - lo[0]:at[0] + dims[0] + hi[0],
-                       at[1] - lo[1]:at[1] + dims[1] + hi[1],
-                       at[2] - lo[2]:at[2] + dims[2] + hi[2]]
-            cand = (sub == max_filter(sub, self.window)) & (sub >= thr)
-            cand = cand[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
-                        lo[2]:lo[2] + dims[2]].reshape(-1)
-        parts = []
-        if sparse:
-            idx = compact_true_indices(core >= thr)
-            parts = [idx, core[idx]]
-            if fused_nbr:
-                parts.append(self._nbr_is_max(*nbr, at, dims, idx, core[idx]))
+        with span("box.filter", device=prob.device):
+            core3 = prob[at[0]:at[0] + dims[0], at[1]:at[1] + dims[1],
+                         at[2]:at[2] + dims[2]]
+            core = core3.reshape(-1)
+            if self.want_nms and not fused_nbr:
+                lo = [w // 2 for w in self.window]
+                hi = [w - 1 - w // 2 for w in self.window]
+                sub = prob[at[0] - lo[0]:at[0] + dims[0] + hi[0],
+                           at[1] - lo[1]:at[1] + dims[1] + hi[1],
+                           at[2] - lo[2]:at[2] + dims[2] + hi[2]]
+                cand = (sub == max_filter(sub, self.window)) & (sub >= thr)
+                cand = cand[lo[0]:lo[0] + dims[0], lo[1]:lo[1] + dims[1],
+                            lo[2]:lo[2] + dims[2]].reshape(-1)
+            parts = []
+            if sparse:
+                idx = compact_true_indices(core >= thr)
+                parts = [idx, core[idx]]
+                if fused_nbr:
+                    parts.append(self._nbr_is_max(*nbr, at, dims, idx,
+                                                  core[idx]))
+                elif self.want_nms:
+                    parts.append(cand[idx])
             elif self.want_nms:
-                parts.append(cand[idx])
-        elif self.want_nms:
-            idx = compact_true_indices(cand)
-            parts = [idx, core[idx]]
-        n_own = len(parts)
-        if self.want_cc and not sparse:
-            parts += self._cc_core_export(core3, thr)
-        host = to_host(*parts)
+                idx = compact_true_indices(cand)
+                parts = [idx, core[idx]]
+            n_own = len(parts)
+            if self.want_cc and not sparse:
+                parts += self._cc_core_export(core3, thr)
+        with span("box.copy"):
+            host = to_host(*parts)
         out = {}
         if n_own:
             out = {"idx": host[0].astype(np.int64), "conf": host[1]}
@@ -429,38 +442,40 @@ class _StreamPlan:
 
     def _collect(self, rec: dict, progress=None) -> None:
         """Merge one box's candidates, made global (int64 flat indices),
-        or its device-CC fragments; then ``progress(corner, n_nms)``."""
-        corner, (cz, cy, cx) = rec["corner"], rec["dims"]
-        n_own = 0
-        if "idx" in rec:
-            idx = rec["idx"]
-            gz = idx // (cy * cx) + corner[0]
-            rem = idx % (cy * cx)
-            gy = rem // cx + corner[1]
-            gx = rem % cx + corner[2]
-            conf = rec["conf"].astype(np.float32)
-            if self.want_nms:
-                own = rec.get("is_max", np.ones(idx.shape, bool))
-                self._all_locs.append(
-                    np.stack([gz, gy, gx], axis=1).astype(np.float64)[own])
-                self._all_conf.append(conf[own])
-                n_own = int(own.sum())
-            if self.want_cc and self.cc_impl == "sparse":
-                vz, vy, vx = self.shape
+        or its device-CC fragments (span ``box.merge``); then
+        ``progress(corner, n_nms)``."""
+        with span("box.merge"):
+            corner, (cz, cy, cx) = rec["corner"], rec["dims"]
+            n_own = 0
+            if "idx" in rec:
+                idx = rec["idx"]
+                gz = idx // (cy * cx) + corner[0]
+                rem = idx % (cy * cx)
+                gy = rem // cx + corner[1]
+                gx = rem % cx + corner[2]
+                conf = rec["conf"].astype(np.float32)
+                if self.want_nms:
+                    own = rec.get("is_max", np.ones(idx.shape, bool))
+                    self._all_locs.append(
+                        np.stack([gz, gy, gx], axis=1).astype(np.float64)[own])
+                    self._all_conf.append(conf[own])
+                    n_own = int(own.sum())
+                if self.want_cc and self.cc_impl == "sparse":
+                    vz, vy, vx = self.shape
+                    self._cc_rois[rec["key"]] = {
+                        "gflat": (gz * vy + gy) * vx + gx, "prob": conf}
+            if "cc" in rec:
+                uniq, sums, count, conf, *faces = rec["cc"]
+                count = count.astype(np.int64)
                 self._cc_rois[rec["key"]] = {
-                    "gflat": (gz * vy + gy) * vx + gx, "prob": conf}
-        if "cc" in rec:
-            uniq, sums, count, conf, *faces = rec["cc"]
-            count = count.astype(np.int64)
-            self._cc_rois[rec["key"]] = {
-                "uniq": uniq.astype(np.int64),
-                # globalised by the corner, in integers (exact centroids)
-                "sums": (sums.astype(np.int64)
-                         + np.asarray(corner, np.int64) * count[:, None]),
-                "count": count, "conf": conf,
-                "valid": np.ones(count.shape, bool),
-                "faces": self._dense_faces(zip(faces[::2], faces[1::2])),
-            }
+                    "uniq": uniq.astype(np.int64),
+                    # globalised by the corner, in integers (exact centroids)
+                    "sums": (sums.astype(np.int64)
+                             + np.asarray(corner, np.int64) * count[:, None]),
+                    "count": count, "conf": conf,
+                    "valid": np.ones(count.shape, bool),
+                    "faces": self._dense_faces(zip(faces[::2], faces[1::2])),
+                }
         if progress:
             progress(corner, n_own)
 
@@ -469,30 +484,31 @@ class _StreamPlan:
         self._cc_rois = {}
 
     def _finalize(self):
-        results = []
-        empty = Tbars(locs=np.zeros((0, 3)), conf=np.zeros((0,)))
-        if self.want_nms:
-            results.append(sort_detections(np.concatenate(self._all_locs),
-                                           np.concatenate(self._all_conf))
-                           if self._all_locs else empty)
-        if self.want_cc and self.cc_impl == "device":
-            cz, cy, cx = self.core_dims
-            results.append(merge_component_fragments(self._cc_rois,
-                                                     cz * cy * cx))
-        elif self.want_cc:
-            if self._cc_rois:
-                gflat = np.concatenate(
-                    [r["gflat"] for r in self._cc_rois.values()])
-                probs = np.concatenate(
-                    [r["prob"] for r in self._cc_rois.values()])
-                order = np.argsort(gflat)
-                results.append(components_from_candidates(
-                    gflat[order], probs[order], self.shape))
-            else:
-                results.append(empty)
-        if self.method == "both":
-            return tuple(results)
-        return results[0]
+        with span("detect.finalize"):
+            results = []
+            empty = Tbars(locs=np.zeros((0, 3)), conf=np.zeros((0,)))
+            if self.want_nms:
+                results.append(sort_detections(np.concatenate(self._all_locs),
+                                               np.concatenate(self._all_conf))
+                               if self._all_locs else empty)
+            if self.want_cc and self.cc_impl == "device":
+                cz, cy, cx = self.core_dims
+                results.append(merge_component_fragments(self._cc_rois,
+                                                         cz * cy * cx))
+            elif self.want_cc:
+                if self._cc_rois:
+                    gflat = np.concatenate(
+                        [r["gflat"] for r in self._cc_rois.values()])
+                    probs = np.concatenate(
+                        [r["prob"] for r in self._cc_rois.values()])
+                    order = np.argsort(gflat)
+                    results.append(components_from_candidates(
+                        gflat[order], probs[order], self.shape))
+                else:
+                    results.append(empty)
+            if self.method == "both":
+                return tuple(results)
+            return results[0]
 
     def consume(self, outs, progress=None, ahead: int = 1):
         """Postprocess and merge an iterator of ``(key, corner, out, vlo,
@@ -570,13 +586,16 @@ class _StreamPlan:
         if off < 0:
             raise ValueError(f"staged halo {off + ctx} < context {ctx}")
         z_top = max(zs for zs, _ in fp._slabs) + tin
-        fetch = _staged_windows(staged, [self.device],
-                                (off + z_top, off + py, off + px))[self.device]
-        shell = torch.full(self._shell_shape(), -torch.inf,
-                           dtype=torch.float32, device=self.device)
-        fp.forward_slabs(lambda zs: fetch((off + zs, off, off), (tin, py, px)),
-                         out=shell, offset=(h, h, h))
-        return self._mask_shell(shell, -h)
+        with span("detect.stage", device=self.device):  # the grid's zeros
+            fetch = _staged_windows(staged, [self.device], (
+                off + z_top, off + py, off + px))[self.device]
+        with span("detect.forward", device=self.device):
+            shell = torch.full(self._shell_shape(), -torch.inf,
+                               dtype=torch.float32, device=self.device)
+            fp.forward_slabs(lambda zs: fetch((off + zs, off, off),
+                                              (tin, py, px)),
+                             out=shell, offset=(h, h, h))
+            return self._mask_shell(shell, -h)
 
     def _mask_shell(self, shell: torch.Tensor, z0: int) -> torch.Tensor:
         """Restore -inf outside the volume in a shell whose index 0 sits at
@@ -627,9 +646,10 @@ class _StreamPlan:
     def consume_shared(self, shell: torch.Tensor, progress=None):
         """Postprocess sweep over the shared shell, box by box."""
         self._start()
-        for key, corner, dims in self._shared_boxes():
-            self._collect(self._dispatch_shared(key, corner, shell, dims),
-                          progress)
+        with span("detect.boxes"):
+            for key, corner, dims in self._shared_boxes():
+                self._collect(self._dispatch_shared(key, corner, shell, dims),
+                              progress)
         return self._finalize()
 
     # -- z-bands: the out-of-core shared forward ----------------------------
@@ -689,11 +709,12 @@ class _StreamPlan:
         as in ``forward_slabs``."""
         h, tin = self.h, fp._tin
         _, py, px = fp.padded_shape
-        shell = torch.full(self._band_shell_shape(fp), -torch.inf,
-                           dtype=torch.float32, device=W.device)
-        fp.forward_slabs(lambda zs: W[zs:zs + tin, :py, :px],
-                         out=shell, offset=(0, h, h), module=module)
-        return self._mask_shell(shell, b0 - h)
+        with span("detect.forward", device=W.device):
+            shell = torch.full(self._band_shell_shape(fp), -torch.inf,
+                               dtype=torch.float32, device=W.device)
+            fp.forward_slabs(lambda zs: W[zs:zs + tin, :py, :px],
+                             out=shell, offset=(0, h, h), module=module)
+            return self._mask_shell(shell, b0 - h)
 
     def _post_bytes(self) -> int:
         """Bytes of the largest postprocess box's temporaries (~6 f32
@@ -771,10 +792,11 @@ class _StreamPlan:
                 if k not in shells:
                     shells[k] = shell_for(k, b0s[k])
             shell = shells.pop(band)
-            for key, corner, dims in self._shared_boxes(entries):
-                local = (corner[0] - b0, corner[1], corner[2])
-                self._collect(self._dispatch_shared(key, corner, shell, dims,
-                                                    local), progress)
+            with span("detect.boxes"):
+                for key, corner, dims in self._shared_boxes(entries):
+                    local = (corner[0] - b0, corner[1], corner[2])
+                    self._collect(self._dispatch_shared(
+                        key, corner, shell, dims, local), progress)
         return self._finalize()
 
     def shared_auto(self, staged_bytes: int = 0, n_devices: int = 1,
@@ -993,9 +1015,18 @@ def stage_volume(volume, plan=None, halo: int | None = None, device=None):
     h = plan.fetch_halo if halo is None else halo
     vol = as_wire(volume)
     dev = _staging_device(plan, device)
-    if min(vol.shape) > h:
-        return reflect_pad(torch.from_numpy(vol).to(dev), h), h
-    return torch.from_numpy(np.pad(vol, h, mode="reflect")).to(dev), h
+    with span("detect.stage", device=dev):
+        if min(vol.shape) > h:
+            big = reflect_pad(_upload(vol, dev), h)
+        else:
+            big = _upload(np.pad(vol, h, mode="reflect"), dev)
+    return big, h
+
+
+def _upload(block: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device`` (counter ``h2d_bytes``)."""
+    count("h2d_bytes", block.nbytes)
+    return torch.from_numpy(block).to(device)
 
 
 def stage_volume_chunked(volume, plan=None, halo: int | None = None,
@@ -1016,8 +1047,9 @@ def stage_volume_chunked(volume, plan=None, halo: int | None = None,
     dev = _staging_device(plan, device)
     vz = vol.shape[0]
     bounds = list(range(0, vz, max(1, chunk))) + [vz]
-    chunks = [torch.from_numpy(vol[b0:b1]).to(dev)
-              for b0, b1 in zip(bounds, bounds[1:])]
+    with span("detect.stage", device=dev):
+        chunks = [_upload(vol[b0:b1], dev)
+                  for b0, b1 in zip(bounds, bounds[1:])]
     return _StagedChunks(chunks, h, bounds)
 
 
@@ -1063,19 +1095,22 @@ def detect_staged(spec: ModelSpec, variables, volume, core: int | None = None,
     else:
         plan = _check_plan(plan, shape, window, method, threshold, cc_impl,
                            core, tile_out, tile_batch)
-    if staged is None:
-        staged = stage_volume(volume, plan=plan)
-    if _staged_halo(staged) < plan.fetch_halo:
-        raise ValueError(f"staged halo {_staged_halo(staged)} < required "
-                         f"{plan.fetch_halo} (stage with the same window "
-                         "and method)")
-    devs = _fanout_devices(plan, devices)
-    n_bytes = sum(c.nbytes for c in (staged.chunks if isinstance(
-        staged, _StagedChunks) else staged[:1]))
-    if forward == "shared" or (forward == "auto" and plan.shared_auto(
-            n_bytes, len(devs), devs)):
-        return _detect_staged_shared(plan, staged, devs, progress)
-    return _detect_staged_roi(plan, staged, devs, progress)
+    with span("detect", voxels=int(np.prod(shape))) as root:
+        if staged is None:
+            staged = stage_volume(volume, plan=plan)
+        if _staged_halo(staged) < plan.fetch_halo:
+            raise ValueError(f"staged halo {_staged_halo(staged)} < required "
+                             f"{plan.fetch_halo} (stage with the same window "
+                             "and method)")
+        devs = _fanout_devices(plan, devices)
+        n_bytes = sum(c.nbytes for c in (staged.chunks if isinstance(
+            staged, _StagedChunks) else staged[:1]))
+        if forward == "shared" or (forward == "auto" and plan.shared_auto(
+                n_bytes, len(devs), devs)):
+            root.set(mode="shared")
+            return _detect_staged_shared(plan, staged, devs, progress)
+        root.set(mode="roi")
+        return _detect_staged_roi(plan, staged, devs, progress)
 
 
 def _fanout_devices(plan, devices) -> list:
@@ -1097,17 +1132,19 @@ def _detect_staged_roi(plan, staged, devs, progress=None):
     P = plan.pipe.padded_shape
     # zero-extended so the highest ROI's window fits: the extension feeds
     # only voxels outside the volume, masked by [vlo, vhi) before use
-    windows = _staged_windows(staged, devs, [
-        max(c[d] for _, c in plan.grid) + off + P[d] for d in range(3)])
+    with span("detect.stage", device=devs[0]):
+        windows = _staged_windows(staged, devs, [
+            max(c[d] for _, c in plan.grid) + off + P[d] for d in range(3)])
     modules = per_device(plan.pipe.spec.module, devs)
 
     def outs():
         for i, (key, corner) in enumerate(plan.grid):
             d = devs[i % len(devs)]
             _, vlo, vhi = plan.region(corner)
-            win = windows[d](tuple(c + off for c in corner), P)
-            yield key, corner, plan.pipe.forward_from(
-                win, module=modules[d]), vlo, vhi
+            with span("detect.forward", device=d):
+                win = windows[d](tuple(c + off for c in corner), P)
+                out = plan.pipe.forward_from(win, module=modules[d])
+            yield key, corner, out, vlo, vhi
 
     return plan.consume(outs(), progress, ahead=len(devs))
 
@@ -1128,8 +1165,9 @@ def _detect_staged_shared(plan, staged, devs, progress=None):
     z_top = max(zs for zs, _ in fp._slabs) + fp._tin
     _, py, px = fp.padded_shape
     devs = devs[:nb]
-    windows = _staged_windows(staged, devs, (
-        off + b0s[-1] - plan.h + z_top, off + py, off + px))
+    with span("detect.stage", device=devs[0]):
+        windows = _staged_windows(staged, devs, (
+            off + b0s[-1] - plan.h + z_top, off + py, off + px))
     modules = per_device(plan.pipe.spec.module, devs)
     shells = [plan.shared_prob_band_local(
         windows[d]((off + b0 - plan.h, off, off), (z_top, py, px)), b0, fp,
@@ -1147,16 +1185,18 @@ def _prefetched(items, fetch, depth: int, name):
     items = list(items)
     fetched: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
+    parent = current_span()  # the thread's fetch spans sit under it
 
     def producer():
-        for item in items:
-            if stop.is_set():
-                return
-            try:
-                fetched.put((item, fetch(item), None))
-            except Exception as e:  # surfaced on the consumer side
-                fetched.put((item, None, e))
-                return
+        with attach(parent):
+            for item in items:
+                if stop.is_set():
+                    return
+                try:
+                    fetched.put((item, fetch(item), None))
+                except Exception as e:  # surfaced on the consumer side
+                    fetched.put((item, None, e))
+                    return
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
@@ -1177,11 +1217,11 @@ def _prefetched(items, fetch, depth: int, name):
 
 
 def _timed(stats: dict, key: str, fn, *args, **kwargs):
-    """``fn(*args, **kwargs)``, its host-clock seconds added to
-    ``stats[key]``."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    stats[key] += time.perf_counter() - t0
+    """``fn(*args, **kwargs)`` in span ``fetch.<key>``, whose host seconds
+    are added to ``stats[key]`` (with the tracer off too)."""
+    with timed("fetch." + key) as s:
+        out = fn(*args, **kwargs)
+    stats[key] += s.seconds
     return out
 
 
@@ -1242,62 +1282,67 @@ def detect_streaming(spec: ModelSpec, variables, shape, read_fn,
     else:
         plan = _check_plan(plan, shape, window, method, threshold, cc_impl,
                            core, tile_out, tile_batch)
-    shape = plan.shape
-    devs = _fanout_devices(plan, devices)
-    rpb = None
-    if forward != "roi" and min(shape) > plan.fetch_halo:
-        # a band window's single reflect needs every pad under the read
-        # extent; smaller volumes stay on the roi path
-        probe = np.asarray(read_fn((0, 0, 0), (1, 1, 1)))
-        rpb = plan.band_rpb(itemsize=1 if probe.dtype == np.uint8 else 4,
-                            cost_gate=forward == "auto",
-                            shells=max(2, *Counter(devs).values()))
-    if forward == "shared" and rpb is None:
-        raise ValueError(
-            "the shared streaming forward does not fit this device or "
-            "geometry (no band passes the memory budget, or the volume is "
-            "not larger than the fetch halo); use forward='roi'")
-    if rpb is not None:
-        # split further so every device gets a band, never past one
-        # device's budget
-        rpb = min(rpb, plan._band_partition(len(devs))[0])
-        return _detect_streaming_shared(plan, read_fn, rpb, progress, devs)
+    with span("detect", mode="streaming", voxels=int(np.prod(plan.shape))):
+        shape = plan.shape
+        devs = _fanout_devices(plan, devices)
+        rpb = None
+        if forward != "roi" and min(shape) > plan.fetch_halo:
+            # a band window's single reflect needs every pad under the read
+            # extent; smaller volumes stay on the roi path
+            probe = np.asarray(read_fn((0, 0, 0), (1, 1, 1)))
+            rpb = plan.band_rpb(itemsize=1 if probe.dtype == np.uint8 else 4,
+                                cost_gate=forward == "auto",
+                                shells=max(2, *Counter(devs).values()))
+        if forward == "shared" and rpb is None:
+            raise ValueError(
+                "the shared streaming forward does not fit this device or "
+                "geometry (no band passes the memory budget, or the volume is "
+                "not larger than the fetch halo); use forward='roi'")
+        if rpb is not None:
+            # split further so every device gets a band, never past one
+            # device's budget
+            rpb = min(rpb, plan._band_partition(len(devs))[0])
+            return _detect_streaming_shared(plan, read_fn, rpb, progress, devs)
 
-    fh, core_dims = plan.fetch_halo, plan.core_dims
-    stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
+        fh, core_dims = plan.fetch_halo, plan.core_dims
+        stats = plan.fetch_seconds = {"read": 0.0, "pad": 0.0}
 
-    def prep(entry):
-        """Read one ROI's window clipped to the volume (in the prefetch
-        thread), with the reflect pads that continue it past the true
-        faces; a pad past the block's extent (several reflections) is
-        applied here, on the host."""
-        _, corner = entry
-        lo_want, vlo, vhi = plan.region(corner)
-        hi_want = [c + cd + fh for c, cd in zip(corner, core_dims)]
-        lo = [max(0, v) for v in lo_want]
-        hi = [min(s, v) for s, v in zip(shape, hi_want)]
-        block = _timed(stats, "read", _read_block, read_fn, lo, hi)
-        pads = [(a - aw, bw - b)
-                for a, aw, bw, b in zip(lo, lo_want, hi_want, hi)]
-        if any(max(p) >= n for p, n in zip(pads, block.shape)):
-            block = _timed(stats, "pad", np.pad, block, pads, mode="reflect")
-            pads = [(0, 0)] * 3
-        return block, pads, vlo, vhi
+        def prep(entry):
+            """Read one ROI's window clipped to the volume (in the prefetch
+            thread), with the reflect pads that continue it past the true
+            faces; a pad past the block's extent (several reflections) is
+            applied here, on the host."""
+            _, corner = entry
+            lo_want, vlo, vhi = plan.region(corner)
+            hi_want = [c + cd + fh for c, cd in zip(corner, core_dims)]
+            lo = [max(0, v) for v in lo_want]
+            hi = [min(s, v) for s, v in zip(shape, hi_want)]
+            block = _timed(stats, "read", _read_block, read_fn, lo, hi)
+            pads = [(a - aw, bw - b)
+                    for a, aw, bw, b in zip(lo, lo_want, hi_want, hi)]
+            if any(max(p) >= n for p, n in zip(pads, block.shape)):
+                block = _timed(stats, "pad", np.pad, block, pads,
+                               mode="reflect")
+                pads = [(0, 0)] * 3
+            return block, pads, vlo, vhi
 
-    modules = per_device(plan.pipe.spec.module, devs)
+        modules = per_device(plan.pipe.spec.module, devs)
 
-    def outs():
-        for i, ((key, corner), (block, pads, vlo, vhi)) in enumerate(
-                _prefetched(plan.grid, prep, len(devs) + 1,
-                            lambda e: f"ROI {e[1]}")):
-            d = devs[i % len(devs)]
-            # ONE reflect pad on the device: the whole-volume run's faces
-            big = zero_extend(reflect_pad(torch.from_numpy(block).to(d), pads),
-                              plan.pipe.padded_shape)
-            yield key, corner, plan.pipe.forward_from(
-                big, module=modules[d]), vlo, vhi
+        def outs():
+            for i, ((key, corner), (block, pads, vlo, vhi)) in enumerate(
+                    _prefetched(plan.grid, prep, len(devs) + 1,
+                                lambda e: f"ROI {e[1]}")):
+                d = devs[i % len(devs)]
+                with span("detect.stage", device=d):
+                    # ONE reflect pad on the device: the whole-volume
+                    # run's faces
+                    big = zero_extend(reflect_pad(_upload(block, d), pads),
+                                      plan.pipe.padded_shape)
+                with span("detect.forward", device=d):
+                    out = plan.pipe.forward_from(big, module=modules[d])
+                yield key, corner, out, vlo, vhi
 
-    return plan.consume(outs(), progress, ahead=len(devs))
+        return plan.consume(outs(), progress, ahead=len(devs))
 
 
 def _read_block(read_fn, lo, hi) -> np.ndarray:
@@ -1366,7 +1411,8 @@ def _detect_streaming_shared(plan, read_fn, rpb: int, progress=None,
         if got != b0:
             raise RuntimeError(f"band z0={b0} read out of order ({got})")
         d = devs[band % len(devs)]
-        W = _band_window(fp, torch.from_numpy(block).to(d), pads)
+        with span("detect.stage", device=d):
+            W = _band_window(fp, _upload(block, d), pads)
         return plan.shared_prob_band_local(W, b0, fp, modules[d])
 
     try:

@@ -46,6 +46,7 @@ from flypylib_tpu_torch.ops.components import (compact_true_indices,
 from flypylib_tpu_torch.ops.host_reference import sort_detections
 from flypylib_tpu_torch.ops.nms import candidate_mask, mask_valid_region
 from flypylib_tpu_torch.utils import ceil_div, to3d
+from flypylib_tpu_torch.utils.metrics import count, span
 
 # the f32 reciprocal a uint8 volume is multiplied by (a python float that
 # holds the f32 value exactly, so torch's f32 multiply uses it unchanged)
@@ -96,11 +97,13 @@ def as_wire(volume) -> np.ndarray:
 def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Several device tensors in ONE device -> host copy: each is flattened
     to f64 (exact for int64 values below 2^53 and for f32), the pieces
-    concatenated, copied, and split back into f64 arrays of their shapes."""
+    concatenated, copied (counter ``d2h_bytes``), and split back into f64
+    arrays of their shapes."""
     if not tensors:
         return []
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
     host = flat.cpu().numpy()
+    count("d2h_bytes", host.nbytes)
     out, at = [], 0
     for t in tensors:
         n = t.numel()
@@ -239,18 +242,24 @@ class DetectPipeline:
                               device=next(module.parameters()).device)
         oz, oy, ox = to3d(offset)
         tin, tout = self._tin, self._tiled.tile_out
+        dev = out.device
         for zs, batches in self._slabs:
-            slab = slab_for(zs)
+            with span("forward.gather", device=dev):
+                slab = slab_for(zs)
             for batch in batches:
-                tiles = torch.stack([slab[z:z + tin, y:y + tin, x:x + tin]
-                                     for z, y, x in batch])
-                x = tiles.to(torch.float32)
-                if tiles.dtype == torch.uint8:
-                    x = x * U8_SCALE
-                probs = torch.sigmoid(module(x[..., None])[..., 0])
-                for (z, y, x_), p in zip(batch, probs):
-                    z, y, x_ = oz + zs + z, oy + y, ox + x_
-                    out[z:z + tout, y:y + tout, x_:x_ + tout] = p
+                with span("forward.gather", device=dev):
+                    tiles = torch.stack([slab[z:z + tin, y:y + tin,
+                                              x:x + tin] for z, y, x in batch])
+                    x = tiles.to(torch.float32)
+                    if tiles.dtype == torch.uint8:
+                        x = x * U8_SCALE
+                with span("forward.module", device=dev):
+                    logits = module(x[..., None])
+                with span("forward.scatter", device=dev):
+                    probs = torch.sigmoid(logits[..., 0])
+                    for (z, y, x_), p in zip(batch, probs):
+                        z, y, x_ = oz + zs + z, oy + y, ox + x_
+                        out[z:z + tout, y:y + tout, x_:x_ + tout] = p
         return out
 
     def forward_from(self, big: torch.Tensor, origin=(0, 0, 0),

@@ -53,6 +53,7 @@ from flypylib_tpu_torch.ops.augment import AUGMENT_GROUP_SIZE, augment_batch
 from flypylib_tpu_torch.ops.conv import no_tf32
 from flypylib_tpu_torch.ops.packed_conv import PackedConvStack, packed_spec
 from flypylib_tpu_torch.ops.packed_unet import PackedUNet, packed_unet_spec
+from flypylib_tpu_torch.utils.metrics import span
 
 _PACKED = (PackedConvStack, PackedUNet)
 
@@ -314,7 +315,9 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
     ``pred_mean``, as 0-d tensors); the module runs in train mode (a
     BatchNorm model's running statistics update once a call); ``count`` is
     :func:`masked_bce_loss`'s.  A batch made elsewhere (a test's, from
-    numpy) goes through ``loss_fn`` alone."""
+    numpy) goes through ``loss_fn`` alone.  ``loss_fn`` opens the tracer's
+    spans ``train.forward`` (augment and forward) and ``train.loss`` (the
+    loss and the metrics)."""
     engine = resolve_engine(spec, cfg)
     spec = resolve_train_spec(spec, cfg)
     forward = _train_forward(spec, engine)
@@ -342,16 +345,19 @@ def make_loss_fn(spec: ModelSpec, cfg: TrainConfig):
         return x, y, m, codes
 
     def loss_fn(x, y, m, codes, count=None):
-        if codes is not None:
-            x, y, m = (augment_batch(v, codes) for v in (x, y, m))
-        with train_mode(plain):
-            logits = forward(x[..., None])[..., 0]
-        loss = masked_bce_loss(logits, y, m, count)
-        metrics = {
-            "loss": loss.detach(),
-            "pos_frac": y.float().mean(),
-            "pred_mean": torch.sigmoid(logits.detach()).mean(),
-        }
+        dev = x.device
+        with span("train.forward", device=dev):
+            if codes is not None:
+                x, y, m = (augment_batch(v, codes) for v in (x, y, m))
+            with train_mode(plain):
+                logits = forward(x[..., None])[..., 0]
+        with span("train.loss", device=dev):
+            loss = masked_bce_loss(logits, y, m, count)
+            metrics = {
+                "loss": loss.detach(),
+                "pos_frac": y.float().mean(),
+                "pred_mean": torch.sigmoid(logits.detach()).mean(),
+            }
         return loss, metrics
 
     return loss_fn, sample_fn, patch
@@ -380,15 +386,26 @@ def make_train_step(spec: ModelSpec, cfg: TrainConfig):
     forward, masked BCE, backward, Adam; TF32 off throughout) and returns
     its metrics as 0-d tensors; ``train_steps(state, gen, data, n)`` runs
     ``n`` and returns each metric's mean over them (the reference's
-    ``lax.scan`` + mean), still on the device."""
+    ``lax.scan`` + mean), still on the device.
+
+    A step is the tracer's root span ``train.step``, over ``train.sample``,
+    ``loss_fn``'s ``train.forward`` and ``train.loss``, ``train.backward``
+    (``zero_grad``, which launches nothing, and the backward) and
+    ``train.adam`` (the optimizer's step), each with stream-time events."""
     loss_fn, sample_fn, patch = make_loss_fn(spec, cfg)
 
     def train_step(state: TrainState, gen: torch.Generator, data: TrainData):
-        with no_tf32(data.images.device):
-            loss, metrics = loss_fn(*sample_fn(gen, data))
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            state.optimizer.step()
+        dev = data.images.device
+        with span("train.step", device=dev), no_tf32(dev):
+            with span("train.sample", device=dev):
+                batch = sample_fn(gen, data)
+            loss, metrics = loss_fn(*batch)
+            del batch  # the sampled patches are not held through the backward
+            with span("train.backward", device=dev):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("train.adam", device=dev):
+                state.optimizer.step()
         state.step += 1
         return metrics
 
