@@ -97,9 +97,10 @@ def no_tf32(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
-def conv3d_f32(x: torch.Tensor, w: torch.Tensor,
-               dilation: int = 1) -> torch.Tensor:
-    """Valid conv of NDHWC ``x`` with DHWIO ``w``, both cast to f32 (exact
+def conv3d_f32(x: torch.Tensor, w: torch.Tensor, dilation: int = 1,
+               padding=0) -> torch.Tensor:
+    """Valid conv of NDHWC ``x`` with DHWIO ``w`` (``x`` zero-padded by
+    ``padding`` on each side, as ``F.conv3d``'s), both cast to f32 (exact
     from bf16), summed in f32: an NDHWC f32 tensor.
 
     On the CPU the conv runs with oneDNN off: oneDNN picks its summation
@@ -114,10 +115,10 @@ def conv3d_f32(x: torch.Tensor, w: torch.Tensor,
         # None leaves oneDNN's other settings as they are
         with torch.backends.mkldnn.flags(enabled=False, deterministic=None,
                                          allow_tf32=None, fp32_precision=None):
-            y = F.conv3d(xf, wf, dilation=int(dilation))
+            y = F.conv3d(xf, wf, padding=padding, dilation=int(dilation))
     else:
         with no_tf32(x.device):
-            y = F.conv3d(xf, wf, dilation=int(dilation))
+            y = F.conv3d(xf, wf, padding=padding, dilation=int(dilation))
     return y.permute(0, 2, 3, 4, 1)
 
 

@@ -18,16 +18,17 @@ exports the packed model's stricter size constraints as a drop-in
 The reference spells pack and unpack twice (one 8-D transpose, and the
 per-axis ``_iv`` forms chosen for TPU layouts); both give the same values,
 so the port has one of each.  Training (:meth:`PackedConvStack.
-forward_train`) differentiates the same forward: every op but K5 is a
-PyTorch op with its own gradient, and :func:`parity_batch` goes through
-:class:`ParityBatch` (K5 forward, the inverse relayout backward), the
-counterpart of the reference's custom VJP.  Left out of the reference: the
-custom VJPs of ``parity_split`` / ``parity_merge`` (plain reshapes here,
-differentiable as they stand), the optimization barriers, the
-split-weight bf16 logits (the port keeps the plain ConvStack's f32
-logits, which the reference's docstring puts ~1e-6 relative from them, and
-which its ``forward_train`` uses) and ``stage_b="group"`` (measured and
-rejected there).
+forward_train`) differentiates the same forward: :func:`parity_batch` goes
+through :class:`ParityBatch` (K5 forward, the inverse relayout backward),
+the counterpart of the reference's custom VJP; stage B's convs go through
+:class:`PackedConv` (their input gradient a forward conv, not the
+library's input gradient); every other op is a PyTorch op with its own
+gradient.  Left out of the reference: the custom VJPs of ``parity_split``
+/ ``parity_merge`` (plain reshapes here, differentiable as they stand),
+the optimization barriers, the split-weight bf16 logits (the port keeps
+the plain ConvStack's f32 logits, which the reference's docstring puts
+~1e-6 relative from them, and which its ``forward_train`` uses) and
+``stage_b="group"`` (measured and rejected there).
 
 A BatchNorm ``ConvStack`` runs packed at inference as in the reference:
 each BN is folded into the conv's epilogue from the running statistics
@@ -46,8 +47,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flypylib_tpu_torch.ops.conv import conv3d_f32
+from flypylib_tpu_torch.ops.conv import conv3d_f32, no_tf32
 from flypylib_tpu_torch.ops.split import parity_split_kernel
+from flypylib_tpu_torch.utils.metrics import count
 
 _PARITY = list(product(range(2), repeat=3))  # (pz, py, px), px fastest
 
@@ -183,15 +185,86 @@ def parity_batch(x: torch.Tensor) -> torch.Tensor:
     return parity_split_kernel(x)
 
 
+def _fprop(x: torch.Tensor, w: torch.Tensor, padding=0) -> torch.Tensor:
+    """Conv of NDHWC ``x`` with DHWIO ``w`` of its dtype (``x`` zero-padded
+    by ``padding`` on each side), summed in f32 and rounded to ``x.dtype``
+    once: a bf16 cuDNN conv on the card (f32 accumulators), else
+    :func:`~flypylib_tpu_torch.ops.conv.conv3d_f32` (TF32 off, oneDNN off)."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                     padding=padding)
+        return y.permute(0, 2, 3, 4, 1)
+    return conv3d_f32(x, w, padding=padding).to(x.dtype)
+
+
+class PackedConv(torch.autograd.Function):
+    """:func:`_conv` with a gradient (``apply(x, w)``, ``w`` of ``x``'s
+    dtype).  Forward: :func:`_fprop`, the call the engine makes without
+    grad.  Backward, as every conv gradient here summed in f32 and rounded
+    to the model dtype once:
+
+    - ``dx`` is itself a forward valid conv: the output gradient zero-padded
+      by ``k - 1`` a side (the conv's ``padding``), against the kernel
+      flipped on all three axes with Ci and Co swapped, through
+      :func:`_fprop`.  These are the products of the library's input
+      gradient, in another order.  On the card cuDNN's own input gradient
+      of the packed baseline's stage-B layer 2 (32 into 48 channels on the
+      (256, 15^3) parity lattices of a batch of 32) runs a grouped direct
+      kernel for ~34 ms, its forward conv ~0.7 ms; at the other 3^3 convs
+      measured the forward conv runs from 0.6 ms faster to 0.3 ms slower
+      (PERF.md §5-6).
+    - ``dw`` is ``torch.nn.grad.conv3d_weight`` of the model-dtype values
+      (at least f32 on the CPU), TF32 off, as :class:`~flypylib_tpu_torch.ops.conv.
+      Conv3dBiasReLU`'s.
+
+    A conv whose ``x`` needs a gradient adds 1 to the tracer's counter
+    ``packed_dgrad_fprop`` when its forward runs (the backward runs on
+    autograd's thread, outside the step's spans)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        if ctx.needs_input_grad[0]:
+            count("packed_dgrad_fprop", 1)
+        ctx.save_for_backward(x, w)
+        return _fprop(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dt = x.dtype
+        g = g.contiguous()
+        dx = dw = None
+        with no_tf32(x.device):
+            if ctx.needs_input_grad[0]:
+                pad = tuple(k - 1 for k in w.shape[:3])
+                dx = _fprop(g, w.flip((0, 1, 2)).transpose(3, 4), pad)
+            if ctx.needs_input_grad[1]:
+                ct = dt if x.device.type == "cuda" else torch.promote_types(
+                    dt, torch.float32)
+                wshape = w.permute(4, 3, 0, 1, 2).shape           # OIDHW
+                dw = torch.nn.grad.conv3d_weight(
+                    x.to(ct).permute(0, 4, 1, 2, 3), wshape,
+                    g.to(ct).permute(0, 4, 1, 2, 3))
+                dw = dw.to(dt).permute(2, 3, 4, 1, 0)             # DHWIO
+        return dx, dw
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Valid conv of NDHWC ``x`` with DHWIO ``w``, summed in f32 and rounded
     to ``x.dtype`` once (the reference's ``_conv``, an XLA conv in the
-    compute dtype): a bf16 cuDNN conv on the card (f32 accumulators), else
-    :func:`~flypylib_tpu_torch.ops.conv.conv3d_f32` (TF32 off, oneDNN off)."""
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2))
-        return y.permute(0, 2, 3, 4, 1)
-    return conv3d_f32(x, w.to(x.dtype)).to(x.dtype)
+    compute dtype): :func:`_fprop` on ``w`` cast to ``x.dtype``.
+
+    Under grad, a conv whose ``x`` needs a gradient and whose kernel spans
+    3 or more taps a side (stage B's convs) goes through
+    :class:`PackedConv`; the 2^3 convs on the packed lattice keep
+    autograd's library gradients, whose input gradient was as fast as the
+    forward conv's or faster at all but one of the 14 packed 2^3 shapes
+    measured on the card, and which cost less host time a step (PERF.md
+    §6)."""
+    w = w.to(x.dtype)
+    if torch.is_grad_enabled() and x.requires_grad and w.shape[0] >= 3:
+        return PackedConv.apply(x, w)
+    return _fprop(x, w)
 
 
 def _epilogue(y: torch.Tensor, conv, norm=None, tile: int = 1) -> torch.Tensor:

@@ -68,6 +68,11 @@ plain and packed) on the card matches the CPU's to 1e-4, and
 ``TiledInference.infer(host_stream=True)`` gives the device sweep's map bit
 for bit (tile batch 1, many batches; f32 and uint8).
 
+The packed engine's convs under grad (``PackedConv``): at the b32 step's
+three convs with an input gradient, that gradient (a forward conv) is
+within one bf16 rounding of an f32 ``conv3d_input``, and a profiled default
+step launches no cuDNN grouped direct kernel.
+
 The multi-device layer on repeated cuda:0 slots: ``sharded_infer`` over
 1-, 2- and 3-D meshes gives ``TiledInference``'s map bit for bit where the
 tile grids coincide, with the host reference's lists from the sharded
@@ -734,6 +739,71 @@ def test_streaming_on_the_card_equals_the_cpu(cuda, packed):
 
 
 # -- training: the autograd Functions of K1 and K5, one step card vs CPU ----
+@pytest.mark.parametrize("xs,ws", [
+    ((32, 16, 16, 16, 192), (2, 2, 2, 192, 256)),  # stage A, layer 1
+    ((256, 15, 15, 15, 32), (3, 3, 3, 32, 48)),    # stage B, layer 2 (*)
+    ((256, 13, 13, 13, 48), (3, 3, 3, 48, 64)),    # stage B, layer 3
+], ids=["a1", "b2", "b3"])
+def test_packed_conv_input_gradient_by_fprop(cuda, xs, ws):
+    """``PackedConv`` at the packed baseline's convs of a b32 step (patch
+    34), bf16: the forward bit for bit the engine's call without grad, the
+    input gradient (a forward conv of the padded output gradient) against
+    ``torch.nn.grad.conv3d_input`` in f32 of the same values (TF32 off),
+    within ``chip_smoke.conv_check``'s bf16 limit (one rounding).  (*)
+    is the conv whose library input gradient is cuDNN's grouped direct
+    kernel; the engine routes the 2^3 conv (a1) to autograd's gradients,
+    and the Function holds there too."""
+    from flypylib_tpu_torch.ops.packed_conv import PackedConv, _fprop
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(xs, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(ws, generator=gen, device=cuda)
+         / float(np.sqrt(np.prod(ws[:4])))).bfloat16()
+    ys = (xs[0], *(xs[i] - ws[i - 1] + 1 for i in (1, 2, 3)), ws[4])
+    dy = torch.randn(ys, generator=gen, device=cuda).bfloat16()
+    xg = x.clone().requires_grad_(True)
+    y = PackedConv.apply(xg, w)
+    y.backward(dy)
+    assert torch.equal(y.detach(), _fprop(x, w))
+    ref = torch.nn.grad.conv3d_input(
+        (xs[0], xs[4], *xs[1:4]), w.float().permute(4, 3, 0, 1, 2),
+        dy.float().permute(0, 4, 1, 2, 3))
+    err, ok = chip_smoke.conv_check(xg.grad, ref.permute(0, 2, 3, 4, 1))
+    assert xg.grad.dtype == torch.bfloat16 and ok, err
+
+
+def test_packed_b32_step_launches_no_grouped_direct_kernel(cuda):
+    """The default training step (``TrainConfig()``: batch 32, the packed
+    engine), profiled: the card runs cuDNN's convs, and none of them is the
+    grouped direct input-gradient kernel the library picks for stage B's
+    layer 2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flypylib_tpu_torch import FplNetwork
+    from flypylib_tpu_torch.train.trainer import (TrainConfig, TrainData,
+                                                  make_train_step,
+                                                  resolve_engine)
+
+    net = FplNetwork("baseline", device=cuda, seed=0,
+                     train_config=TrainConfig())
+    assert resolve_engine(net.spec, net.trainer.cfg) == "packed"
+    step, _, patch = make_train_step(net.spec, net.trainer.cfg)
+    rng = np.random.default_rng(0)
+    image = rng.integers(0, 256, (64, 64, 64), dtype=np.uint8)
+    labels = (rng.random((64, 64, 64)) > 0.99).astype(np.float32)
+    data = TrainData.build(image, labels, np.ones_like(labels), patch,
+                           device=cuda)
+    state = net.trainer.init_state()
+    for _ in range(2):
+        step(state, net.trainer.generator, data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, net.trainer.generator, data)
+        torch.cuda.synchronize()
+    names = {k.name for e in prof.events() for k in e.kernels}
+    assert any("fprop" in n for n in names), sorted(names)
+    assert not [n for n in names if "grouped_direct" in n]
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])

@@ -9,7 +9,13 @@ Tolerances:
   1e-4, atol 1e-5 (f32 summation order; the JAX engine's split-weight
   logits are exact in f32, its ``lo`` half being 0);
 - ``PackedConvStack`` vs the port's plain ``ConvStack`` in f32: 2e-4, the
-  reference's own packed-vs-plain tolerance (``tests/test_packed_conv.py``).
+  reference's own packed-vs-plain tolerance (``tests/test_packed_conv.py``);
+- ``PackedConv`` (stage B's convs under grad, input gradient by a forward
+  conv): its forward, and every forward without grad, bitwise the call the
+  engine made before it; its gradients those of autograd through that call,
+  to f32 summation order (rtol 1e-5 of the largest) in f32, to one rounding
+  (one bf16 ulp of the largest) in bf16, and exact algebra by an f64
+  ``gradcheck`` with the f32 conv swapped for an f64 one.
 The JAX Pallas split runs in interpret mode, as the JAX package's own test
 runs it.
 """
@@ -19,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 import flypylib_tpu_torch as tpt
@@ -203,3 +210,130 @@ def test_chip_smoke_packed_rehearsal_on_cpu():
     tiles = chip_smoke.first_tile_batch(net.infer_spec, vol, "cpu")
     assert tiles.shape == (ti.tile_batch, *(ti.tile_in,) * 3, 1)
     assert tiles.dtype == torch.uint8
+
+
+# -- PackedConv: the packed convs under grad --------------------------------
+KS = pytest.mark.parametrize("k", [2, 3, 1], ids=["k2", "k3", "k1"])
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+
+
+def _old_conv(x, w):
+    """``_conv`` as it was before ``PackedConv``: the library's gradients."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3),
+                     w.to(x.dtype).permute(4, 3, 0, 1, 2))
+        return y.permute(0, 2, 3, 4, 1)
+    return tpc.conv3d_f32(x, w.to(x.dtype)).to(x.dtype)
+
+
+def _operands(k, dtype, ci=6, co=10, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 7, 6, 5, ci), generator=g).to(dtype)
+    w = (torch.randn((k, k, k, ci, co), generator=g) / (k ** 1.5)).to(dtype)
+    dy = torch.randn((2, 8 - k, 7 - k, 6 - k, co), generator=g).to(dtype)
+    return x, w, dy
+
+
+def _grads(conv, x, w, dy, wants=(True, True)):
+    xs, ws = (t.clone().requires_grad_(n) for t, n in zip((x, w), wants))
+    y = conv(xs, ws)
+    y.backward(dy)
+    return y.detach(), xs.grad, ws.grad
+
+
+@KS
+@DTYPES
+def test_packed_conv_gradients_equal_autograd_of_the_call(k, dtype):
+    """``PackedConv``'s input and weight gradients (the input's a forward
+    conv of the padded output gradient against the flipped kernel) against
+    autograd through the conv it replaces, on the same operands; with only
+    one operand needing a gradient, only that one is computed."""
+    x, w, dy = _operands(k, dtype)
+    _, gx, gw = _grads(tpc.PackedConv.apply, x, w, dy)
+    _, rx, rw = _grads(_old_conv, x, w, dy)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for got, want in ((gx, rx), (gw, rw)):
+        assert got.dtype == want.dtype == dtype
+        assert got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= rtol * float(want.float().abs().max()), err
+    _, gx1, gw1 = _grads(tpc.PackedConv.apply, x, w, dy, (True, False))
+    assert gw1 is None and torch.equal(gx1, gx)
+    _, gx2, gw2 = _grads(tpc.PackedConv.apply, x, w, dy, (False, True))
+    assert gx2 is None and torch.equal(gw2, gw)
+
+
+@KS
+@DTYPES
+def test_packed_conv_f64_gradcheck(monkeypatch, k, dtype):
+    """The gradients' algebra exact (flip, Ci/Co swap, padding by k - 1 on
+    each side of each axis), by ``gradcheck`` in f64 on small extents with
+    the engine's f32 conv swapped for the same conv in f64; the dtype case
+    holds the same operands' values rounded to it first."""
+
+    def conv64(x, w, dilation=1, padding=0):
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                     padding=padding, dilation=dilation)
+        return y.permute(0, 2, 3, 4, 1)
+
+    monkeypatch.setattr(tpc, "conv3d_f32", conv64)
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn((1, k + 2, k + 1, k + 3, 3), generator=g).to(dtype)
+    w = torch.randn((k, k, k, 3, 2), generator=g).to(dtype)
+    x, w = (t.double().requires_grad_(True) for t in (x, w))
+    assert torch.autograd.gradcheck(tpc.PackedConv.apply, (x, w))
+
+
+@KS
+@DTYPES
+def test_packed_conv_forward_is_the_call_it_replaces(k, dtype):
+    """Under grad and without, ``_conv`` gives bitwise the output of the
+    call the engine made before, for weights in the model dtype and in f32
+    (the U-Net's folds pass f32 weights); under grad it goes through
+    ``PackedConv`` exactly when ``x`` needs a gradient and the kernel is
+    3^3 (stage B), else through autograd's own conv gradients."""
+    x, w, _ = _operands(k, dtype, seed=1)
+    want = _old_conv(x, w)
+    for wk in (w, w.float()):
+        with torch.no_grad():
+            assert torch.equal(tpc._conv(x, wk), want)
+        for xg in (False, True):
+            y = tpc._conv(x.clone().requires_grad_(xg),
+                          wk.clone().requires_grad_(True))
+            packed = "PackedConv" in type(y.grad_fn).__name__
+            assert packed == (xg and k == 3)
+            assert y.dtype == dtype and torch.equal(y.detach(), want)
+
+
+@DTYPES
+@pytest.mark.parametrize("name", ["baseline", "vgg_d124", "unet"])
+def test_packed_forward_without_grad_is_bitwise_unchanged(monkeypatch, name,
+                                                          dtype):
+    """``PackedConvStack.forward`` (and the packed U-Net's) under
+    ``torch.no_grad()`` is bitwise the forward with ``_conv`` as it was, and
+    so is ``forward_train``'s output under grad (through ``PackedConv``)."""
+    from flypylib_tpu_torch.ops import packed_unet as tpu
+
+    if name == "unet":
+        spec = tpu.packed_unet_spec(tzoo.unet(base_features=4, dtype=dtype))
+    else:
+        zoo_name, kw = MODELS[name]
+        kw = {**kw, "features": (4, 6, 6, 8), "head_features": 8} \
+            if name == "baseline" else kw
+        spec = tpc.packed_spec(tzoo.MODEL_ZOO[zoo_name](dtype=dtype, **kw))
+    module = spec.module
+    s = spec.valid_size(spec.min_size + 3)
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (2, s, s, s, 1), dtype=np.float32))
+    with torch.no_grad():
+        got = module(x)
+    train = module.forward_train(x)
+    with monkeypatch.context() as m:
+        m.setattr(tpc, "_conv", _old_conv)
+        m.setattr(tpu, "_conv", _old_conv)
+        with torch.no_grad():
+            want = module(x)
+        want_train = module.forward_train(x)
+    assert torch.equal(got, want)
+    assert torch.equal(train.detach(), want_train.detach())

@@ -8,6 +8,8 @@ streamed detection paths and the training step, on the CPU.
   ``fetch.read`` runs on the prefetch thread under the call's root and still
   fills ``fetch_seconds``; a train step's spans in order under
   ``train.step``.
+- A packed train step counts ``packed_dgrad_fprop`` once a stage-B conv
+  whose input needs a gradient; a packed inference call counts none.
 - Tracing changes no result (lists and parameters bitwise) and waits for
   nothing (no ``torch.cuda.synchronize``).
 - Under ``torch.profiler`` the spans record by themselves and sit in the
@@ -190,6 +192,38 @@ def test_train_step_spans_in_order_under_the_step():
             assert a["end_ns"] <= b["start_ns"]
         assert step["start_ns"] <= kids[0]["start_ns"]
         assert kids[-1]["end_ns"] <= step["end_ns"]
+
+
+def test_packed_step_counts_its_input_gradients_by_fprop(vol):
+    """The packed baseline (dilations 1, 1, 2, 2): layers 2 and 3 (stage
+    B's 3^3 convs) take ``PackedConv``'s input gradient, stage A's 2^3 convs
+    autograd's (layer 0's input needs none), so a step counts 2 under its
+    root; a packed infer counts none."""
+    spec = zoo.baseline_model(features=(4, 4, 6, 6), head_features=8,
+                              dtype=torch.float32)
+    cfg = ttr.TrainConfig(patch_size=20, batch_size=2, augment=False)
+    assert ttr.resolve_engine(spec, cfg) == "packed"
+    tr = ttr.Trainer(spec, cfg, seed=0, device="cpu")
+    step, _, patch = ttr.make_train_step(spec, cfg)
+    rng = np.random.default_rng(3)
+    image = rng.random((28, 28, 28), dtype=np.float32)
+    labels = (rng.random((28, 28, 28)) > 0.97).astype(np.float32)
+    data = ttr.TrainData.build(image, labels, np.ones_like(labels), patch,
+                               device="cpu")
+    state = tr.init_state()
+    tm.enable()
+    for _ in range(2):
+        step(state, tr.generator, data)
+    rec = tm.take()
+    steps = [s["id"] for s in rec["spans"] if s["name"] == "train.step"]
+    assert len(steps) == 2
+    assert {r: c.get("packed_dgrad_fprop") for r, c in
+            rec["counters"].items()} == {r: 2 for r in steps}
+    packed = FplNetwork(spec, device="cpu")
+    assert packed.infer_spec.metadata.get("packed")
+    packed.infer(vol[:20, :20, :20], tile_out=8, tile_batch=2)
+    assert not any("packed_dgrad_fprop" in c
+                   for c in tm.take()["counters"].values())
 
 
 @pytest.mark.parametrize("mode", ["shared", "roi", "streaming"])
