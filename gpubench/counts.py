@@ -2,13 +2,15 @@
 widths alone (never from the program's modules), and the card's peaks.
 
 A forward is counted as one monolithic valid forward over the volume: each
-layer at the extent that forward gives it, two operations a multiply-add,
-biases and activations not counted.  So work the program does twice (tile
-halos computed again) counts as waste against these bounds.
+layer's multiply-adds at the extent that forward gives it, as its
+architecture counts them (``archs/<arch>.py::layer_macs``), two operations a
+multiply-add, biases and activations not counted.  So work the program does
+twice (tile halos computed again) counts as waste against these bounds.
 """
 
 from __future__ import annotations
 
+from gpubench import archs
 from gpubench.reference import context, param_shapes
 
 # NVIDIA H100 SXM data sheet, dense, at its 700 W limit
@@ -16,29 +18,16 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def layer_extents(cfg: dict, out: int) -> list[tuple[str, tuple, int]]:
-    """``(name, kernel shape, output extent)`` of every layer of a valid
-    forward whose output extent is ``out``."""
-    shapes = param_shapes(cfg)
-    n = len(cfg["features"])
-    ext, res = out, []
-    for (name, shape, _), d in zip(reversed(shapes[:n]),
-                                   reversed(cfg["dilations"])):
-        res.append((name, shape, ext))
-        ext += 2 * d
-    res.reverse()
-    return res + [(name, shape, out) for name, shape, _ in shapes[n:]]
-
-
-def _layer_flops(shape: tuple, ext: int) -> float:
-    kz, ky, kx, ci, co = shape
-    return 2.0 * kz * ky * kx * ci * co * float(ext) ** 3
+def layer_flops(cfg: dict, out: int) -> list[float]:
+    """Operations of every layer of a valid forward whose output extent is
+    ``out``, the layer that reads the input first."""
+    return [2.0 * m for _, m in archs.of(cfg).layer_macs(cfg, out)]
 
 
 def forward_flops(cfg: dict, out: int) -> float:
     """Operations of a monolithic valid forward with output extent ``out``
     (per volume)."""
-    return sum(_layer_flops(s, e) for _, s, e in layer_extents(cfg, out))
+    return sum(layer_flops(cfg, out))
 
 
 def train_flops(cfg: dict, patch: int) -> float:
@@ -46,10 +35,8 @@ def train_flops(cfg: dict, patch: int) -> float:
     layer's forward, its weight gradient and its input gradient (each as
     many operations as the forward), less the first layer's input
     gradient, which nothing needs."""
-    ext = patch - 2 * context(cfg)
-    layers = layer_extents(cfg, ext)
-    total = sum(_layer_flops(s, e) for _, s, e in layers)
-    return 3.0 * total - _layer_flops(layers[0][1], layers[0][2])
+    layers = layer_flops(cfg, patch - 2 * context(cfg))
+    return 3.0 * sum(layers) - layers[0]
 
 
 def forward_bytes(cfg: dict, out: int, in_itemsize: int = 1) -> float:

@@ -3,7 +3,9 @@
 Everything that belongs to one configuration, cell or per-layer metric is a
 file of its own, found by the name ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json``: the configuration as it is run;
+- ``configs/<config>.json``: the configuration as it is run; its ``arch``
+  names the module ``archs/<arch>.py`` that holds the architecture's
+  reference forward, weight layout and operation counts;
 - ``workloads/<cell>.json``: the cell's traffic (its ``kind`` names the
   general driver in ``kinds/<kind>.py`` that reads it) and the limits its
   check holds the numbers to;

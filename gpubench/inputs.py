@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from gpubench import archs
 from gpubench.reference import param_shapes
 
 # stddev correction of a normal truncated to +-2 sigma (Flax's lecun_normal)
@@ -48,7 +49,8 @@ def make_params(cfg: dict, seed: int, device) -> dict:
     return params
 
 
-def calibrate(params: dict, logits: torch.Tensor) -> tuple[float, float]:
+def calibrate(cfg: dict, params: dict,
+              logits: torch.Tensor) -> tuple[float, float]:
     """Rescale the logits layer in place so that ``logits`` (the
     reference's logits of a probe volume under ``params``) would have mean
     0 and standard deviation 1: ``z' = a z + c``.  Random weights on raw
@@ -58,8 +60,7 @@ def calibrate(params: dict, logits: torch.Tensor) -> tuple[float, float]:
     z = logits.double()
     std = float(z.std())
     a, c = 1.0 / std, -float(z.mean()) / std
-    last = max((k for k in params if k.startswith("Conv_")),
-               key=lambda k: int(k.split("_")[1]))
+    last = archs.of(cfg).logits_layer(cfg)
     p = params[last]
     params[last] = {"kernel": p["kernel"] * a, "bias": p["bias"] * a + c}
     return a, c
@@ -168,14 +169,13 @@ def train_volume(size: int, n_blobs: int, radius: int, regions: dict,
     return image, labels, torch.ones_like(labels)
 
 
-def prior_bias(params: dict, prior: float) -> None:
+def prior_bias(cfg: dict, params: dict, prior: float) -> None:
     """Set the logits layer's bias in place to ``logit(prior)``, the
     prior initialisation of a detector of rare positives: every voxel
     starts at probability ``prior``, so the gradient comes from the
     positives and the content of each patch, not from a push down that
     every patch shares."""
-    last = max((k for k in params if k.startswith("Conv_")),
-               key=lambda k: int(k.split("_")[1]))
+    last = archs.of(cfg).logits_layer(cfg)
     b = params[last]["bias"]
     params[last] = {**params[last],
                     "bias": torch.full_like(b, math.log(prior / (1 - prior)))}

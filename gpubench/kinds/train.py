@@ -6,15 +6,19 @@ defaults users get, and the batch size); the labelled volume (its
 ``logit(prior)``, are made from the seed on the device.  Set-up builds the
 step once, runs its first ``check_steps`` steps (what the check compares)
 and further warm-up steps, and hands the same state to the window.  The
-window's rate, named by the workload's ``rate_metric``, counts the patch
-voxels the configuration asks for (``patch_size``), whatever patch the
-engine rounds it to.
+window's rates count the patch voxels the configuration asks for
+(``patch_size``), whatever patch the engine rounds it to: the workload's
+``rate_metric`` over the window's time by the host's clock, and its
+``device_rate_metric`` over the card's busy time, which the window then
+takes from ``torch.profiler`` (CUDA activity alone) in stretches of
+``stretch_seconds`` that cover every step.
 
-Traced runs profile the first ``trace_calls`` steps as they are; the rest
-of the window marks each step's parts (sampling, forward, loss and
-backward, Adam) with a synchronise at each mark: the trainer's forward and
-loss functions are wrapped before the step is built, and the optimizer's
-step hooks mark Adam.
+Traced runs first run ``rate_seconds`` of steps as they are, for the rate
+by the host's clock (``Obs.work["rate_mvox_s"]``), then profile the next
+``trace_calls`` steps as they are; the rest of the window marks each step's
+parts (sampling, forward, loss and backward, Adam) with a synchronise at
+each mark: the trainer's forward and loss functions are wrapped before the
+step is built, and the optimizer's step hooks mark Adam.
 """
 
 from __future__ import annotations
@@ -24,19 +28,7 @@ import time
 
 import torch
 
-from gpubench import compare, counts, inputs, observe, reference
-
-
-def flax_name(name: str, n_convs: int) -> str:
-    """The JAX package's name of a conv stack's parameter
-    (``convs.i.weight`` -> ``Conv_i/kernel``, the head and the logits after
-    the convs)."""
-    parts = name.split(".")
-    leaf = {"weight": "kernel", "bias": "bias"}[parts[-1]]
-    if parts[0] == "convs":
-        return f"Conv_{parts[1]}/{leaf}"
-    k = {"head": n_convs, "logits": n_convs + 1}[parts[0]]
-    return f"Conv_{k}/{leaf}"
+from gpubench import archs, compare, counts, inputs, observe, reference
 
 
 class Cell:
@@ -78,7 +70,7 @@ class Cell:
         cfg, wl, dev = self.cfg, self.wl, self.device
         tc = wl["train"]
         self.params = inputs.make_params(cfg, self.seed, dev)
-        inputs.prior_bias(self.params, wl["prior"])
+        inputs.prior_bias(cfg, self.params, wl["prior"])
         # the trainer's sampling generator: seeded as the reference's
         self.sample_seed = int(inputs.generator(self.seed, "sample", "cpu")
                                .initial_seed())
@@ -104,8 +96,8 @@ class Cell:
         state = net.trainer.init_state()
         gen = net.trainer.generator
         names = [n for n, _ in state.module.named_parameters()]
-        n_convs = len(cfg["features"])
-        self.names = {n: flax_name(n, n_convs) for n in names}
+        arch = archs.of(cfg)
+        self.names = {n: arch.flax_name(cfg, n) for n in names}
         params = dict(state.module.named_parameters())
         self.p0 = {n: p.detach().clone() for n, p in params.items()}
         self.losses = []
@@ -121,6 +113,11 @@ class Cell:
                            .clone() / (1 - beta1) for n, p in params.items()}
             if k + 1 == wl["check_steps"]:
                 self.p3 = {n: p.detach().clone() for n, p in params.items()}
+        if self._device_rate() and not trace:
+            busy = observe.DeviceBusy()  # the profiler's first start is slow
+            busy.start()
+            step(state, gen, data)
+            busy.stop()
         self.step, self.state, self.gen, self.data = step, state, gen, data
         self.net = net
         if trace:
@@ -131,29 +128,69 @@ class Cell:
         if trace:
             return self._traced(seconds)
         step, state, gen, data = self.step, self.state, self.gen, self.data
+        wl = self.wl
+        busy = observe.DeviceBusy() if self._device_rate() else None
         n = 0
         start = time.perf_counter()
         while True:
-            m = step(state, gen, data)
-            n += 1
-            if time.perf_counter() - start >= seconds:
+            if busy:
+                busy.start()
+                opened = time.perf_counter()
+            while True:
+                m = step(state, gen, data)
+                n += 1
+                now = time.perf_counter()
+                if now - start >= seconds or \
+                        (busy and now - opened >= wl["stretch_seconds"]):
+                    break
+            if busy:
+                busy.stop()
+            if now - start >= seconds:
                 break
         float(m["loss"])  # waits for the last step
         elapsed = time.perf_counter() - start
+        mvox = n * self._voxels() / 1e6
+        metrics = {}
+        if "rate_metric" in wl:
+            metrics[wl["rate_metric"]] = mvox / elapsed
+        if "device_rate_metric" in wl:
+            # on the CPU (the tests' runs) the host is the device
+            metrics[wl["device_rate_metric"]] = mvox / (
+                busy.busy_s if busy else elapsed)
+        if busy:
+            print(f"gpubench: {n} steps, {busy.activities} device activities "
+                  f"in {busy.stretches} profiled stretches, busy "
+                  f"{busy.busy_s:.6f} s of {elapsed:.6f} s",
+                  file=sys.stderr, flush=True)
+        return {"metrics": metrics, "attempted": n}
+
+    def _device_rate(self) -> bool:
+        return self.cuda and "device_rate_metric" in self.wl
+
+    def _voxels(self) -> int:
+        """Patch voxels of one step, as the configuration asks for them."""
         tc = self.wl["train"]
-        mvox = n * tc["batch_size"] * tc["patch_size"] ** 3 / elapsed / 1e6
-        return {"metrics": {self.wl["rate_metric"]: mvox}, "attempted": n}
+        return tc["batch_size"] * tc["patch_size"] ** 3
 
     def _traced(self, seconds: float) -> dict:
         step, state, gen, data = self.step, self.state, self.gen, self.data
         wl, spans = self.wl, observe.Spans()
         prof = observe.Profile()
         start = time.perf_counter()
+        n, rate = 0, None
+        if wl.get("rate_seconds"):
+            while True:
+                m = step(state, gen, data)
+                n += 1
+                if time.perf_counter() - start >= wl["rate_seconds"]:
+                    break
+            float(m["loss"])  # waits for the last step
+            rate = n * self._voxels() / (time.perf_counter() - start) / 1e6
         prof.start()
         for _ in range(wl["trace_calls"]):
             step(state, gen, data)
         prof.stop()
-        n = wl["trace_calls"]
+        n += wl["trace_calls"]
         self.marking = True
         parts = ("sample", "forward", "backward", "adam")
         while time.perf_counter() - start < seconds:
@@ -171,7 +208,8 @@ class Cell:
         tc = self.wl["train"]
         work = {"calls": wl["trace_calls"],
                 "flops": tc["batch_size"] * counts.train_flops(
-                    self.cfg, tc["patch_size"])}
+                    self.cfg, tc["patch_size"]),
+                "rate_mvox_s": rate}
         return {"obs": observe.Obs(spans, profile, work), "attempted": n}
 
     def release(self) -> None:

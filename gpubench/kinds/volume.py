@@ -39,7 +39,7 @@ class Cell:
         probe = inputs.blob_volume(wl["probe"], 0, inputs.generator(
             self.seed, "probe", dev), dev)
         z = reference.volume_logits(cfg, self.params, probe, reference.U8_SCALE)
-        a, c = inputs.calibrate(self.params, z)
+        a, c = inputs.calibrate(cfg, self.params, z)
         self.threshold = float(np.float32(np.quantile(
             torch.sigmoid(z * a + c).cpu().numpy(), wl["quantile"])))
         del probe, z

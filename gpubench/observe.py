@@ -10,6 +10,8 @@
   time, the device time of kernels launched inside each named range, the
   device operations that took most time, and the device's idle gaps by
   what the host was doing.
+- :class:`DeviceBusy`: the card's busy seconds over stretches of an
+  untraced window, for a rate over the card's busy time.
 """
 
 from __future__ import annotations
@@ -123,6 +125,59 @@ class Profile:
 
     def summary(self) -> dict:
         return summarize(self.prof.events())
+
+
+class DeviceBusy:
+    """The card's busy time over stretches of work: ``torch.profiler`` with
+    CUDA activity alone from :meth:`start` to :meth:`stop`, each of which
+    waits for the device.  :meth:`stop` adds the union of the stretch's
+    kernels, copies and sets (not the profiler's annotations) to ``busy_s``
+    and their number to ``activities``.  Keep a stretch to a few seconds, so
+    that the profiler's buffers hold all of its activity."""
+
+    def __init__(self):
+        self.busy_s = 0.0
+        self.activities = 0
+        self.stretches = 0
+        self._prof = None
+
+    def start(self) -> None:
+        torch.cuda.synchronize()
+        self._prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def stop(self) -> None:
+        torch.cuda.synchronize()
+        self._prof.stop()
+        starts, ends = [], []
+        # the profiler's own records, without building its Python events
+        for e in self._prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                    or e.name().startswith("gpubench."):
+                continue
+            s = e.start_ns()
+            if e.end_ns() > s:
+                starts.append(s)
+                ends.append(e.end_ns())
+        self._prof = None
+        self.busy_s += union_ns(starts, ends) / 1e9
+        self.activities += len(starts)
+        self.stretches += 1
+
+
+def union_ns(starts, ends) -> int:
+    """Length of the union of the intervals ``[starts[i], ends[i]]``."""
+    if not len(starts):
+        return 0
+    order = np.argsort(np.asarray(starts, np.int64), kind="stable")
+    s = np.asarray(starts, np.int64)[order]
+    run = np.maximum.accumulate(np.asarray(ends, np.int64)[order])
+    first = np.ones(len(s), bool)
+    first[1:] = s[1:] > run[:-1]
+    idx = np.flatnonzero(first)
+    last = np.append(idx[1:] - 1, len(s) - 1)
+    return int((run[last] - s[idx]).sum())
 
 
 def _merge(intervals):

@@ -7,8 +7,9 @@ reads the configuration file's widths, the weights in the JAX package's
 variable layout (``Conv_i`` / ``ConvTranspose_j`` with DHWIO kernels, as the
 benchmark draws them) and the raw inputs, and works out the rest itself.
 
-- Models: the ``conv_stack`` architecture (valid 3^3 convs with a dilation
-  schedule, bias and ReLU, a 1x1x1 head with ReLU, 1x1x1 logits).
+- Models: one module per architecture, ``archs/<arch>.py``, found by the
+  configuration's ``"arch"`` (:func:`gpubench.archs.of`); the functions
+  here that depend on the architecture ask it.
 - Detection: NMS is a voxel that equals the max of its window (outside the
   volume counts as -inf) and is >= the threshold; connected components are
   6-connected sets of voxels >= the threshold, each reported at its mean
@@ -33,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
+
+from gpubench import archs
 
 # the f32 reciprocal a uint8 volume is multiplied by on the staged path
 U8_SCALE = float(np.float32(1.0 / 255.0))
@@ -85,98 +88,40 @@ def operand(precision: str):
 def param_shapes(cfg: dict) -> list[tuple[str, tuple, int]]:
     """``(name, kernel shape, fan-in)`` of every layer, in the JAX package's
     creation order and names."""
-    out = []
-    if cfg["arch"] == "conv_stack":
-        feats = cfg["features"]
-        ins = [1, *feats[:-1]]
-        for i, (ci, co) in enumerate(zip(ins, feats)):
-            out.append((f"Conv_{i}", (3, 3, 3, ci, co), 27 * ci))
-        n, h = len(feats), cfg["head_features"]
-        out.append((f"Conv_{n}", (1, 1, 1, feats[-1], h), feats[-1]))
-        out.append((f"Conv_{n + 1}", (1, 1, 1, h, 1), h))
-        return out
-    raise ValueError(f"unknown arch {cfg['arch']!r}")
-
-
-def _convs(params: dict) -> list:
-    return sorted((k for k in params if k.startswith("Conv_")),
-                  key=lambda k: int(k.split("_")[1]))
+    return archs.of(cfg).param_shapes(cfg)
 
 
 # -- forward -----------------------------------------------------------------
 
-def _conv(x, p, dilation, q):
+def conv3d(x, p, dilation, q):
+    """A valid conv of ``x`` (NCDHW) with the DHWIO kernel and the bias of
+    ``p``, its operands rounded by ``q``."""
     w = p["kernel"].permute(4, 3, 0, 1, 2)
     return F.conv3d(q(x), q(w), dilation=dilation) + p["bias"].view(1, -1, 1, 1, 1)
 
 
-def _pointwise(x, p, q):
+def pointwise(x, p, q):
+    """A 1x1x1 conv of ``x`` with ``p``, as a matmul over the channels."""
     k = p["kernel"]
     w = k.reshape(k.shape[-2], k.shape[-1]).t().reshape(k.shape[-1], k.shape[-2],
                                                        1, 1, 1)
     return F.conv3d(q(x), q(w)) + p["bias"].view(1, -1, 1, 1, 1)
 
 
-def conv_stack_forward(cfg, params, x, q, logits=True):
-    names = _convs(params)
-    n = len(cfg["features"])
-    for name, d in zip(names[:n], cfg["dilations"]):
-        x = F.relu(_conv(x, params[name], d, q))
-    x = F.relu(_pointwise(x, params[names[n]], q))
-    return _pointwise(x, params[names[n + 1]], q) if logits else x
-
-
 def forward(cfg, params, x, precision="f32", logits=True):
     """Logits ``(N, 1, d, h, w)`` of an f32 input ``(N, 1, D, H, W)``; with
     ``logits=False`` the features the logits layer reads, ``(N, C, ...)``."""
-    if cfg["arch"] != "conv_stack":
-        raise ValueError(f"unknown arch {cfg['arch']!r}")
-    return conv_stack_forward(cfg, params, x, operand(precision), logits)
+    return archs.of(cfg).forward(cfg, params, x, operand(precision), logits)
 
 
 def context(cfg) -> int:
     """Voxels a valid forward loses on each face."""
-    return sum(cfg["dilations"])
-
-
-def packed_extent(cfg, s: int) -> int | None:
-    """Output extent of the packed engine's forward for input extent
-    ``s``, or None where it cannot run: the input is packed 2^3 voxels to
-    one (a parity split, so its extent must be even), and packed 2^3 again
-    before any layer whose dilation is wider than the packing (again an
-    even extent); a layer of dilation ``d`` loses ``2 d`` voxels, ``2 d /
-    f`` packed ones at packing ``f``."""
-    f, c = 2, s
-    if c % 2:
-        return None
-    c //= 2
-    for d in cfg["dilations"]:
-        while f < d:
-            if c % 2:
-                return None
-            c, f = c // 2, 2 * f
-        c -= 2 * d // f
-        if c <= 0:
-            return None
-    return c * f
+    return archs.of(cfg).context(cfg)
 
 
 def train_patch(cfg, patch_size: int, engine: str) -> int:
-    """The patch the training ``engine`` samples for ``patch_size``: the
-    plain engine's valid forward takes any extent wider than twice the
-    context; the packed one the smallest extent from ``patch_size`` up
-    whose packed forward loses just the context on each face."""
-    ctx = context(cfg)
-    if engine == "plain":
-        if patch_size <= 2 * ctx:
-            raise ValueError(f"patch {patch_size} within the context {ctx}")
-        return patch_size
-    if engine != "packed":
-        raise ValueError(f"unknown engine {engine!r}")
-    s = patch_size
-    while packed_extent(cfg, s) != s - 2 * ctx:
-        s += 1
-    return s
+    """The patch the training ``engine`` samples for ``patch_size``."""
+    return archs.of(cfg).train_patch(cfg, patch_size, engine)
 
 
 def reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
@@ -191,10 +136,17 @@ def reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
 def volume_logits(cfg, params, vol: torch.Tensor, scale: float | None,
                   precision: str = "f32", slab: int = 16) -> torch.Tensor:
     """f32 logits of a whole (z, y, x) volume as one valid forward over the
-    volume reflect-padded by the context, computed in z-slabs of ``slab``
-    planes (a conv stack's voxel reads only its receptive field, so slabs
-    are exact).  ``scale`` multiplies the raw values (None: raw)."""
+    volume reflect-padded by the context, computed in z-slabs of about
+    ``slab`` planes.  Each slab starts on the architecture's grid, so it
+    reads what the whole forward reads there and slabs are exact; the
+    grid has to give output extents that are multiples of it, and so does
+    the volume.  ``scale`` multiplies the raw values (None: raw)."""
     ctx = context(cfg)
+    mult, off = archs.of(cfg).grid(cfg)
+    if (off - 2 * ctx) % mult or any(n % mult for n in vol.shape):
+        raise ValueError(f"volume {tuple(vol.shape)} is off the grid: each "
+                         f"extent a multiple of {mult}")
+    step = max(mult, slab - slab % mult)
     dev = vol.device
     Z, Y, X = vol.shape
     iy = reflect_index(Y, ctx, ctx, dev)
@@ -202,8 +154,8 @@ def volume_logits(cfg, params, vol: torch.Tensor, scale: float | None,
     iz = reflect_index(Z, ctx, ctx, dev)
     out = torch.empty((Z, Y, X), dtype=torch.float32, device=dev)
     with exact_f32(), torch.no_grad():
-        for z0 in range(0, Z, slab):
-            z1 = min(Z, z0 + slab)
+        for z0 in range(0, Z, step):
+            z1 = min(Z, z0 + step)
             x = vol.index_select(0, iz[z0:z1 + 2 * ctx])
             x = x.index_select(1, iy).index_select(2, ix).float()
             if scale is not None:
