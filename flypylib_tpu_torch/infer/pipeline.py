@@ -235,7 +235,10 @@ class DetectPipeline:
         ``zs``.  Tiles land in ``out`` (default: a fresh f32 map of
         ``_out_shape`` on the module's device) at ``offset`` plus their grid
         position.  ``module`` (default the spec's) is a copy of it on
-        another device, for the multi-device fan-out."""
+        another device, for the multi-device fan-out.  Each tile batch adds
+        to the tracer's counters ``tile_in_voxels`` (its input voxels, a
+        repeated corner included) and ``tile_out_voxels`` (its distinct
+        tiles' output voxels)."""
         module = self.spec.module if module is None else module
         if out is None:
             out = torch.zeros(self._out_shape, dtype=torch.float32,
@@ -254,6 +257,8 @@ class DetectPipeline:
                     if tiles.dtype == torch.uint8:
                         x = x * U8_SCALE
                 with span("forward.module", device=dev):
+                    count("tile_in_voxels", len(batch) * tin ** 3)
+                    count("tile_out_voxels", len(set(batch)) * tout ** 3)
                     logits = module(x[..., None])
                 with span("forward.scatter", device=dev):
                     probs = torch.sigmoid(logits[..., 0])

@@ -24,6 +24,9 @@ All rewrites re-associate the same multiply-adds, so outputs match
 the packed model's stricter size constraints as a drop-in ``ModelSpec``.
 :meth:`PackedUNet.forward_train` is the differentiable forward (unfused
 tail, f32 logits, the pool's gradient that of the plain ``UNetValid``).
+Each forward opens the tracer's spans (``utils/metrics.py::span``)
+``unet.encoder``, ``unet.bottleneck``, ``unet.decoder`` (a kernel tail's
+logits inside it) and ``unet.logits``, with stream time on a card.
 
 Left out of the reference: optimization barriers, the Pallas block shape,
 the ``fold_form`` A/B forms (the port runs the reference's default,
@@ -50,6 +53,7 @@ from flypylib_tpu_torch.ops.packed_conv import (
     unpack_volume,
 )
 from flypylib_tpu_torch.ops.tail import logits_reference, packed_tail, packed_tail2
+from flypylib_tpu_torch.utils.metrics import span
 
 __all__ = [
     "TAIL_IMPLS",
@@ -213,64 +217,72 @@ class PackedUNet(nn.Module):
     def _forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         inner = self.inner
         dt = self.dtype
+        dev = x.device
         cps = inner.convs_per_stage
         conv_i = 0
-        x = pack_volume(x.to(dt))
-        skips = []
-        for _ in range(inner.levels):
-            for _ in range(cps):
+        with span("unet.encoder", device=dev):
+            x = pack_volume(x.to(dt))
+            skips = []
+            for _ in range(inner.levels):
+                for _ in range(cps):
+                    x = packed_conv_relu(x, inner.convs[conv_i])
+                    conv_i += 1
+                skips.append(x)
+                x = pool_pack(x, grad_exact=train)
+        with span("unet.bottleneck", device=dev):
+            for _ in range(cps):  # one lattice deeper than the skip
                 x = packed_conv_relu(x, inner.convs[conv_i])
                 conv_i += 1
-            skips.append(x)
-            x = pool_pack(x, grad_exact=train)
-        for _ in range(cps):  # bottleneck, one lattice deeper than the skip
-            x = packed_conv_relu(x, inner.convs[conv_i])
-            conv_i += 1
-        x = unpack_volume(x)  # dense at the deepest resolution
+            x = unpack_volume(x)  # dense at the deepest resolution
 
-        for lev in reversed(range(inner.levels)):
-            # x is dense at this level's coarse resolution: exactly the
-            # packed-fine lattice the folded conv runs on
-            skip = skips[lev]
-            w_skip, w_up_eff, b_fold = self._fold(lev, conv_i, skip.shape[-1])
-            sizes = [2 * x.shape[i] for i in (1, 2, 3)]
-            starts = [skip.shape[i] - x.shape[i] for i in (1, 2, 3)]
-            sc = crop_packed(skip, starts, sizes)
-            impl = self.tail_impl if lev == 0 and not train else "xla"
-            if impl in ("pallas2", "pallas_fold2"):
-                stage0 = (w_skip.to(dt), w_up_eff.to(dt), b_fold.to(dt))
-                if impl == "pallas2":
-                    y = packed_tail2(sc, x, stage0, self._tail_stages(conv_i + 1),
-                                     self._logits_operands())
-                    return unpack_volume(y)
-                x = packed_tail2(sc, x, stage0)
-            elif impl in ("pallas", "pallas_fold"):
-                xin = torch.cat([sc, x], dim=-1)
-                fold = (torch.cat([w_skip, w_up_eff], dim=3).to(dt), b_fold.to(dt))
-                if impl == "pallas":
-                    y = packed_tail(xin, [fold] + self._tail_stages(conv_i + 1),
-                                    self._logits_operands())
-                    return unpack_volume(y)
-                x = packed_tail(xin, [fold])
-            else:
-                # the reference's "split" fold: two convs rounded apart and
-                # summed in the model dtype; the concat never exists
-                y = (_conv(sc, w_skip) + _conv(x, w_up_eff)) + b_fold.to(dt)
-                x = torch.relu(y)
-            conv_i += 1
-            for _ in range(cps - 1):
-                x = packed_conv_relu(x, inner.convs[conv_i])
+        with span("unet.decoder", device=dev):  # a kernel tail ends here
+            for lev in reversed(range(inner.levels)):
+                # x is dense at this level's coarse resolution: exactly the
+                # packed-fine lattice the folded conv runs on
+                skip = skips[lev]
+                w_skip, w_up_eff, b_fold = self._fold(lev, conv_i,
+                                                      skip.shape[-1])
+                sizes = [2 * x.shape[i] for i in (1, 2, 3)]
+                starts = [skip.shape[i] - x.shape[i] for i in (1, 2, 3)]
+                sc = crop_packed(skip, starts, sizes)
+                impl = self.tail_impl if lev == 0 and not train else "xla"
+                if impl in ("pallas2", "pallas_fold2"):
+                    stage0 = (w_skip.to(dt), w_up_eff.to(dt), b_fold.to(dt))
+                    if impl == "pallas2":
+                        y = packed_tail2(sc, x, stage0,
+                                         self._tail_stages(conv_i + 1),
+                                         self._logits_operands())
+                        return unpack_volume(y)
+                    x = packed_tail2(sc, x, stage0)
+                elif impl in ("pallas", "pallas_fold"):
+                    xin = torch.cat([sc, x], dim=-1)
+                    fold = (torch.cat([w_skip, w_up_eff], dim=3).to(dt),
+                            b_fold.to(dt))
+                    if impl == "pallas":
+                        y = packed_tail(xin, [fold] + self._tail_stages(conv_i + 1),
+                                        self._logits_operands())
+                        return unpack_volume(y)
+                    x = packed_tail(xin, [fold])
+                else:
+                    # the reference's "split" fold: two convs rounded apart
+                    # and summed in the model dtype; the concat never exists
+                    y = (_conv(sc, w_skip) + _conv(x, w_up_eff)) + b_fold.to(dt)
+                    x = torch.relu(y)
                 conv_i += 1
-            if lev > 0:
-                x = unpack_volume(x)  # dense input of the next fold
-        if train:
-            # f32 logits per parity group: (B, D, H, W, 8, C) @ (C, 1)
-            lg = inner.logits
-            b, d, h, w, c8 = x.shape
-            xg = x.reshape(b, d, h, w, 8, c8 // 8)
-            y = matmul_f32(xg, lg.weight)[..., 0] + lg.bias.float()
-            return unpack_volume(y)
-        return unpack_volume(logits_reference(x, *self._logits_operands()))
+                for _ in range(cps - 1):
+                    x = packed_conv_relu(x, inner.convs[conv_i])
+                    conv_i += 1
+                if lev > 0:
+                    x = unpack_volume(x)  # dense input of the next fold
+        with span("unet.logits", device=dev):
+            if train:
+                # f32 logits per parity group: (B, D, H, W, 8, C) @ (C, 1)
+                lg = inner.logits
+                b, d, h, w, c8 = x.shape
+                xg = x.reshape(b, d, h, w, 8, c8 // 8)
+                y = matmul_f32(xg, lg.weight)[..., 0] + lg.bias.float()
+                return unpack_volume(y)
+            return unpack_volume(logits_reference(x, *self._logits_operands()))
 
 
 def _packed_out_size(s: int, levels: int, convs_per_stage: int) -> int | None:

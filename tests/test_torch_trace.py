@@ -8,6 +8,9 @@ streamed detection paths and the training step, on the CPU.
   ``fetch.read`` runs on the prefetch thread under the call's root and still
   fills ``fetch_seconds``; a train step's spans in order under
   ``train.step``.
+- A packed U-Net forward opens ``unet.encoder`` / ``.bottleneck`` /
+  ``.decoder`` / ``.logits`` once a tile batch; the tile batches count
+  ``tile_in_voxels`` and ``tile_out_voxels``.
 - A packed train step counts ``packed_dgrad_fprop`` once a stage-B conv
   whose input needs a gradient; a packed inference call counts none.
 - Tracing changes no result (lists and parameters bitwise) and waits for
@@ -135,6 +138,45 @@ def test_one_detect_root_a_call_with_its_layers_inside(net, vol, mode):
                 assert by_id[s["parent"]]["name"] in (
                     ("detect.boxes",) if mode == "shared" else ("detect",))
     assert set(rec["counters"]) == {r["id"] for r in roots}
+
+
+UNET_PARTS = ("unet.encoder", "unet.bottleneck", "unet.decoder",
+              "unet.logits")
+
+
+def test_unet_parts_once_a_tile_batch_and_the_halo_counters(net, vol):
+    """A small packed U-Net's ``detect_large``: each of the four ``unet.*``
+    spans once a tile batch, inside the batch's ``forward.module`` under
+    ``detect.forward``; ``tile_in_voxels`` >= ``tile_out_voxels`` > 0 (the
+    tiles' inputs and their distinct outputs).  A conv stack's call
+    records no ``unet.*`` span."""
+    unet = FplNetwork(zoo.unet(base_features=4, dtype=torch.float32),
+                      device="cpu")
+    assert unet.infer_spec.metadata.get("packed")
+    tm.enable()
+    unet.detect_large(vol, staged=True, forward="shared", core=CORE,
+                      method="both", threshold=0.5)
+    rec = tm.take()
+    spans = rec["spans"]
+    by_id = {s["id"]: s for s in spans}
+    (root,) = [s for s in spans if s["name"] == "detect"]
+    batches = [s for s in spans if s["name"] == "forward.module"]
+    assert batches
+    for part in UNET_PARTS:
+        mine = [s for s in spans if s["name"] == part]
+        assert sorted(s["parent"] for s in mine) == sorted(
+            b["id"] for b in batches), part
+        for s in mine:
+            assert s["root"] == root["id"]
+            assert by_id[by_id[s["parent"]]["parent"]]["name"] == \
+                "detect.forward"
+    counters = rec["counters"][root["id"]]
+    assert counters["tile_in_voxels"] >= counters["tile_out_voxels"] > 0
+    _detect(net, vol, "shared")
+    rec = tm.take()
+    assert not any(s["name"].startswith("unet.") for s in rec["spans"])
+    (counters,) = rec["counters"].values()
+    assert counters["tile_in_voxels"] > counters["tile_out_voxels"] > 0
 
 
 def test_d2h_bytes_count_what_to_host_copied(net, vol, monkeypatch):
