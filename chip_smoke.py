@@ -57,6 +57,14 @@ prints no result line):
    kernel, f32: the FMA kernel) on the same operands and beside the
    unfused tail as the default engine runs it (cuDNN convs, adds, ReLUs,
    the plain logits; f32 with TF32 off).
+4b. K2's stage kernel as the packed engines' conv + bias + ReLU
+   (``packed_conv_relu`` without grad, ``stage_bias_relu``, Co past 192 in
+   output-channel slices) at the volume cells' shapes (the baseline's
+   stage-A layers at batch 16, the U-Net's eight such convs on a 388^3
+   tile): each call on the route, within ``tail_check``'s one-stage limit
+   of the library path it replaces (cuDNN's conv rounded to bf16, then the
+   bias add and the ReLU), timed beside it, the plain version and the
+   bound; a zeroed tap must fail the check.
 5. K5 (``parity_split_kernel``) against its plain version, bit for bit, at
    the packed baseline's and ``vgg_like``'s stage-A -> stage-B boundary
    (one tile batch), in f32 and bf16, timed beside the plain version and
@@ -88,8 +96,10 @@ prints no result line):
    engine takes it, so the plain stack runs) must return the CPU's map too.
 8. The packed ConvStack paths, the default engine: the 48^3 map check for
    ``FplNetwork("baseline")``, then ``baseline`` and ``vgg_like`` at bf16 on
-   the 256^3 volume as in 7, K5 launched once per tile batch and forward
-   and no other kernel.
+   the 256^3 volume as in 7, K5 launched once per tile batch and forward,
+   K2's stage kernel (``stage_bias_relu``) once per dilation-1 lead conv
+   (baseline 2, ``vgg_like`` 3) per tile batch and forward, and no other
+   kernel.
 9. The U-Net paths: the logits behind the card's map match the CPU's on a
    64^3 volume in 24-wide tiles, for the plain U-Net (K1) and the packed
    engine with the K2 and the K3 tail, in f32 and bf16.  Then, at bf16 on
@@ -98,8 +108,10 @@ prints no result line):
    reset before and read after: K3 or K2 once per tile batch and forward,
    both of its stages on the wgmma route and none on another,
    K1 once per conv, tile batch and forward on the plain U-Net (conv 0 on
-   the Ci = 1 kernel, convs 1-9 on the wgmma route), no kernel
-   of the others.  The lists must equal the host reference; times, peak
+   the Ci = 1 kernel, convs 1-9 on the wgmma route), K2's stage kernel
+   once per conv outside the folds, tile batch and forward on the packed
+   engines (8; 7 beside a kernel tail, which runs level 0's itself), no
+   other kernel.  The lists must equal the host reference; times, peak
    memory and the infer's phases follow.  The same for the f32 K3 and K2
    engines (the port's exactness mode): both stages on the f32 kernel
    ("simt") and none on another route.
@@ -109,10 +121,12 @@ prints no result line):
    "components" and "both" at ``default_tiling``'s tile and batch; every
    list must equal ``detect``'s on the scaled f32 volume ``vol * f32(1/255)``
    (the values the staged engine feeds the model), and each call must launch
-   K5 once per tile batch (packed) or K1 four times (plain) and nothing
-   else.  (b) The U-Net's default engine in shared mode: its lists must equal
-   the host reference's on the volume's part of the shell ``shared_prob``
-   wrote.  Then the high-water of one tile batch's forward per input voxel
+   K5 once per tile batch and K2's stage kernel once per lead conv and tile
+   batch (packed) or K1 four times (plain) and nothing else.  (b) The
+   U-Net's default engine in shared mode: its lists must equal the host
+   reference's on the volume's part of the shell ``shared_prob`` wrote, and
+   it must launch K2's stage kernel 8 times per tile batch and nothing
+   else.  Then the high-water of one tile batch's forward per input voxel
    (the figures behind ``_StreamPlan.act_bytes_per_voxel``).  (c) The north
    star: a 1024^3 uint8 volume (``make_volume_u8(1024, 128)``), the packed
    baseline at core 512, ``method="both"``, ``forward="auto"``, the
@@ -129,8 +143,9 @@ prints no result line):
    (z-band) mode; the packed baseline also with ``cc_impl="device"`` (both
    modes) and ``fused_impl="nbr"`` (roi), and through bands of one and of
    two ROI rows (core 64).  Every list must equal 10(a)'s ``detect`` lists
-   and each call must launch K5 once per tile batch (packed) or K1 four
-   times (plain), per ROI or per band, and nothing else.  (b) 10(c)'s
+   and each call must launch K5 once per tile batch and K2's stage kernel
+   once per lead conv and tile batch (packed) or K1 four times (plain), per
+   ROI or per band, and nothing else.  (b) 10(c)'s
    volume, written once to a ``.npy`` file and read back through
    ``np.load(mmap_mode="r")`` one window at a time: ``forward="auto"`` and
    ``"shared"`` at the streaming default tiling, three calls each, and one
@@ -160,7 +175,8 @@ prints no result line):
    33, batch 32, "auto" -> packed, 100 steps an epoch) trains 3 epochs on a
    128^3 uint8 blob volume with T-bars at the blob centres, validating on a
    second volume; the loss must fall, every validation metric be finite,
-   and K5 launch once a step and once a validation tile batch.  Then
+   K5 launch once a step and once a validation tile batch, and K2's stage
+   kernel twice a validation tile batch and never in a step.  Then
    ``detect`` -> ``evaluate``, and at one tiling ``voxel_pr_device`` and
    ``evaluate_voxels`` on both routes (device, streaming) must equal the
    host ``voxel_pr`` of the same map exactly, at the default thresholds and
@@ -1210,6 +1226,127 @@ def check_tail_kernels(card_str: str) -> dict:
     return main
 
 
+# the packed engines' conv + bias + ReLU at the volume cells' shapes, on the
+# packed lattice: (label, batch, input extent, Ci, Co).  The baseline's stage
+# A at tile in 76, batch 16; the U-Net's eight such convs on one 388^3 tile
+FUSED_SHAPES = (
+    ("baseline L0", 16, 38, 8, 192), ("baseline L1", 16, 37, 192, 256),
+    ("unet enc 0", 1, 194, 8, 192), ("unet enc 1", 1, 193, 192, 192),
+    ("unet enc 2", 1, 96, 192, 384), ("unet enc 3", 1, 95, 384, 384),
+    ("unet bottleneck 0", 1, 47, 384, 768),
+    ("unet bottleneck 1", 1, 46, 768, 768),
+    ("unet dec 1", 1, 89, 384, 384), ("unet dec 0", 1, 175, 192, 192),
+)
+
+
+def fused_operands(batch: int, s: int, ci: int, co: int, seed: int = 0):
+    """A packed-lattice bf16 input (B, s, s, s, Ci) of ReLU'd unit normals
+    and a ``Conv3BiasReLU`` of Ci / 8 into Co / 8 channels (He-scaled
+    weights, biases N(0, 0.1^2)), on the card."""
+    from flypylib_tpu_torch.models.zoo import Conv3BiasReLU
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.relu(torch.randn((batch, s, s, s, ci), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+    conv = Conv3BiasReLU(ci // 8, co // 8, 1).to("cuda")
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device="cuda") * (16 / (27 * ci)) ** 0.5)
+        conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=gen,
+                                          device="cuda"))
+    return x, conv
+
+
+def check_fused_conv(card_str: str) -> dict:
+    """The packed engines' conv + bias + ReLU on K2's wgmma stage kernel
+    (``packed_conv_relu`` without grad, :data:`FUSED_SHAPES`): each call
+    must take the route (one launch of ``stage_bias_relu``) and lie within
+    :func:`tail_check`'s one-stage limit of the library path it replaces
+    (cuDNN's conv rounded to bf16, then ``_epilogue``), which a zeroed tap
+    must fail.  Timed beside that path (``library_ms``: the conv and the
+    two elementwise passes), the plain version (f32 conv, TF32 off) and the
+    bound (the 3^3 conv's own operations, 27 of the packed lattice's 64
+    Ci x Co products a voxel, as ``gpubench``'s ``layer_macs`` counts them;
+    bytes of the input, the weight image and the output).  Returns the
+    readings per shape and the sums per model."""
+    from flypylib_tpu_torch.ops import tail
+    from flypylib_tpu_torch.ops.packed_conv import (_epilogue, _fprop,
+                                                    _stage_operands,
+                                                    pack_weight_d1,
+                                                    packed_conv_relu)
+
+    rows, sums = {}, {}
+    for label, batch, s, ci, co in FUSED_SHAPES:
+        x, conv = fused_operands(batch, s, ci, co)
+        wp = pack_weight_d1(conv.weight.to(torch.bfloat16))
+
+        def library():
+            return _epilogue(_fprop(x, wp), conv, tile=8)
+
+        with torch.no_grad():
+            before = tail.stage_bias_relu.launches
+            got = packed_conv_relu(x, conv)
+            torch.cuda.synchronize()
+            require(tail.stage_bias_relu.launches == before + 1,
+                    f"fused conv {label}: the route was not taken")
+            pre = _fprop(x, wp)
+            ref = _epilogue(pre, conv, tile=8)
+            err, ok = tail_check(got, ref, torch.bfloat16, pre)
+            require(ok, f"fused conv {label}: max |err| {err} against the "
+                        "library path")
+            del got, ref
+            ms = median_ms(lambda: packed_conv_relu(x, conv))
+            lib = median_ms(library)
+            plain = median_ms(lambda: tail.tail_reference(
+                x, [(wp, conv.bias.to(torch.bfloat16).repeat(8))]),
+                warmup=1, iters=3)
+            sw = _stage_operands(conv, x.device)
+            out = (batch, *(s - 1,) * 3, co)
+            # a packed voxel holds 8 outputs of 27 taps x (Ci/8) x (Co/8)
+            flops = 2.0 * 27 * (ci // 8) * (co // 8) * 8 * math.prod(out[:4])
+            flops_packed = 2.0 * 8 * ci * co * math.prod(out[:4])
+            moved = (nbytes(x, sw.b) + 2 * math.prod(out)
+                     + sum(nbytes(t) for t in (sw.w32, sw.w16)
+                           if t is not None))
+            bnd, by = bound(flops, moved)
+            if label == "unet enc 3":  # the control: a tap dropped
+                held = sw.w32[:, 5].clone()
+                sw.w32[:, 5] = 0
+                bad = packed_conv_relu(x, conv)
+                sw.w32[:, 5] = held
+                require(not tail_check(bad, library(), torch.bfloat16,
+                                       pre)[1],
+                        f"fused conv {label}: a zeroed tap passed the check")
+                del bad
+        n, width, n_tile = tail.stage_slices(co)
+        print(f"fused conv {label}: ({batch}, {s}^3, {ci}) -> {out}, {n} x "
+              f"{width} channels on N tile {n_tile}: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s of the conv's own, "
+              f"{flops_packed / ms / 1e9:.1f} on the packed lattice), "
+              f"max|err| {err:.6g}; "
+              f"library (cuDNN + bias + ReLU) {lib:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) [{card_str}]",
+              flush=True)
+        rows[label] = {"ms": ms, "library_ms": lib, "plain_ms": plain,
+                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+                       "tflop": flops / 1e12,
+                       "tflop_packed": flops_packed / 1e12, "slices": n,
+                       "n_tile": n_tile}
+        model = label.split()[0]
+        acc = sums.setdefault(model, dict.fromkeys(
+            ("ms", "library_ms", "plain_ms", "bound_ms"), 0.0))
+        for k in acc:
+            acc[k] += rows[label][k]
+        del x, conv, wp, pre, sw
+        torch.cuda.empty_cache()
+    for model, acc in sums.items():
+        print(f"fused conv, {model}'s convs summed: {acc['ms']:.4f} ms, "
+              f"library {acc['library_ms']:.4f} ms, plain "
+              f"{acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
+              f"[{card_str}]", flush=True)
+    return {"shapes": rows, "sums": sums}
+
+
 SPLIT_CASES = (  # K5's input at the stage-A -> stage-B boundary, one batch
     ("baseline", (8, 36, 36, 36, 256)),  # tile in 76: 37^3 cells -> 36^3
     ("vgg_like", (8, 44, 44, 44, 384)),  # tile in 94: 47^3 cells -> 44^3
@@ -1615,13 +1752,36 @@ def kernel_wrappers() -> dict:
     """The port's kernel wrappers, each with its ``launches`` count."""
     from flypylib_tpu_torch.ops.conv import conv3d_bias_relu
     from flypylib_tpu_torch.ops.split import parity_split_kernel
-    from flypylib_tpu_torch.ops.tail import packed_tail, packed_tail2
+    from flypylib_tpu_torch.ops.tail import (packed_tail, packed_tail2,
+                                             stage_bias_relu)
     from flypylib_tpu_torch.ops.wino_conv import wino_conv3d_bias_relu
 
     return {"conv3d_bias_relu": conv3d_bias_relu, "packed_tail": packed_tail,
             "packed_tail2": packed_tail2,
             "parity_split_kernel": parity_split_kernel,
+            "stage_bias_relu": stage_bias_relu,
             "wino_conv3d_bias_relu": wino_conv3d_bias_relu}
+
+
+def fused_convs(net) -> int:
+    """Launches of ``stage_bias_relu`` in one tile-batch forward of ``net``
+    at inference: one a conv of ``packed_conv_relu`` on a bf16 packed
+    engine without BatchNorm, i.e. a ConvStack's dilation-1 lead convs
+    (baseline 2, vgg_like 3) and a U-Net's convs outside its ConvTranspose
+    folds (8 at two levels), less the level-0 conv a ``pallas`` or
+    ``pallas2`` tail runs itself; 0 on the plain engine and in f32."""
+    from flypylib_tpu_torch.ops.packed_conv import PackedConvStack
+    from flypylib_tpu_torch.ops.packed_unet import PackedUNet
+
+    m = net.infer_spec.module
+    if not isinstance(m, (PackedConvStack, PackedUNet)) \
+            or m.dtype != torch.bfloat16:
+        return 0
+    if isinstance(m, PackedConvStack):
+        return 0 if m.inner.use_batchnorm else m.n_lead
+    levels, cps = m.inner.levels, m.inner.convs_per_stage
+    return (levels * cps + cps + levels * (cps - 1)
+            - (m.tail_impl in ("pallas", "pallas2")))
 
 
 def routed_wrappers() -> dict:
@@ -1815,13 +1975,15 @@ def staged_batches(plan, forward: str) -> int:
     return len(plan.grid) * plan.pipe.n_batches
 
 
-def staged_launch_want(packed: bool, n: int) -> dict:
-    """Launches of a staged detect over ``n`` tile batches: K5 once per
-    batch on the packed engines, K1 four times (layers 1-3 on the wgmma
+def staged_launch_want(net, n: int) -> dict:
+    """Launches of a staged detect of ``net`` over ``n`` tile batches: on
+    the packed ConvStacks K5 once per batch and K2's stage kernel
+    :func:`fused_convs` times, K1 four times (layers 1-3 on the wgmma
     route, layer 0 on the Ci = 1 kernel) on the plain baseline."""
     want = dict.fromkeys(launch_counts(), 0)
-    if packed:
+    if net.infer_spec.module is not net.module:  # a packed engine
         want["parity_split_kernel"] = n
+        want["stage_bias_relu"] = fused_convs(net) * n
     else:
         want.update({"conv3d_bias_relu": 4 * n,
                      "conv3d_bias_relu:wgmma": 3 * n,
@@ -1869,9 +2031,9 @@ def check_staged_256(port, card_str: str, vol: np.ndarray) -> dict:
                 got_counts = launch_counts()
                 n = staged_batches(plan, forward)
                 what = f"{label} detect_large({forward}, {method})"
-                require(got_counts == staged_launch_want(packed, n),
+                require(got_counts == staged_launch_want(net, n),
                         f"{what}: launches {got_counts}, expected "
-                        f"{staged_launch_want(packed, n)}")
+                        f"{staged_launch_want(net, n)}")
                 same_lists(by_method(got, method), want,
                            f"{what} vs detect on the scaled volume:")
                 counts[(label, forward, method)] = got_counts
@@ -1916,7 +2078,11 @@ def check_staged_unet(port, card_str: str, vol: np.ndarray) -> None:
                 "components": components_host(host, threshold=thr)},
                "unet detect_large(shared, both) vs the host reference on "
                "its shell:")
-    require(not any(counts.values()), f"unet (unfused tail): launches {counts}")
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts["stage_bias_relu"] = (fused_convs(net)
+                                      * staged_batches(plan, "shared"))
+    require(counts == want_counts, f"unet (unfused tail): launches {counts}, "
+                                   f"expected {want_counts}")
     fp = plan.full_pipe()
     print(f"unet detect_large(shared, both): {VOLUME}^3, shared grid tile "
           f"{fp._tiled.tile_out} (in {fp._tin}) batch {fp._tiled.tile_batch}, "
@@ -2001,9 +2167,9 @@ def north_star(port, card_str: str, vol: np.ndarray) -> dict:
     nms_det, cc_det = net.detect_large(vol, **kw)
     counts = launch_counts()
     n = staged_batches(plan, mode)
-    require(counts == staged_launch_want(True, n),
+    require(counts == staged_launch_want(net, n),
             f"1024^3 detect_large: launches {counts}, expected "
-            f"{staged_launch_want(True, n)}")
+            f"{staged_launch_want(net, n)}")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2153,9 +2319,9 @@ def check_streaming_256(port, card_str: str, vol: np.ndarray,
             what = (f"{label} detect_large(staged=False, {forward}"
                     + (f", {tag}" if tag else "")
                     + (f", bands of {forced} rows" if forced else "") + ")")
-            require(got_counts == staged_launch_want(packed, n),
+            require(got_counts == staged_launch_want(net, n),
                     f"{what}: launches {got_counts}, expected "
-                    f"{staged_launch_want(packed, n)}")
+                    f"{staged_launch_want(net, n)}")
             same_lists(by_method(got, "both"), want,
                        f"{what} vs detect on the scaled volume:")
             counts[(label, forward, tag, forced)] = got_counts
@@ -2280,9 +2446,9 @@ def streaming_north_star(port, card_str: str, vol: np.ndarray,
                 peaks.append(torch.cuda.max_memory_allocated() / 2**30)
                 fetch.append(p.fetch_seconds["read"] + p.fetch_seconds["pad"])
                 counts = launch_counts()
-                require(counts == staged_launch_want(True, n),
+                require(counts == staged_launch_want(net, n),
                         f"1024^3 streaming {label}: launches {counts}, "
-                        f"expected {staged_launch_want(True, n)}")
+                        f"expected {staged_launch_want(net, n)}")
                 same_lists(by_method(got, "both"), want[label],
                            f"1024^3 streaming {label} ({mode}):")
             mv = [mvox / t for t in times]
@@ -2786,6 +2952,8 @@ def train_main_path(port, card_str: str) -> dict:
                     f"{k} missing or not finite")
     want = {k: 0 for k in launches}
     want["parity_split_kernel"] = steps + TRAIN_EPOCHS * val_batches
+    # the validations run the inference engine (grad off), the steps not
+    want["stage_bias_relu"] = fused_convs(net) * TRAIN_EPOCHS * val_batches
     require(launches == want, f"train launched {launches}, expected {want}")
 
     vol_f = scaled(vol)  # the values the trainer fed the model
@@ -3582,6 +3750,7 @@ def check_roi_streaming(port, card_str: str) -> dict:
         nb = pipe.n_batches
         want_l = {k: 0 for k in launches}
         want_l["parity_split_kernel"] = len(rois) * nb
+        want_l["stage_bias_relu"] = fused_convs(net) * len(rois) * nb
         require(launches == want_l, f"stream_rois launched {launches}, "
                                     f"expected {want_l}")
         require(list(got) == [r.key for r in rois], "ROIs missing")
@@ -4130,9 +4299,9 @@ def check_fanout(port, card_str: str, vol: np.ndarray, refs: dict) -> dict:
                     mode = "staged" if staged else "streamed"
                     what = (f"{label} detect_large({mode}, {forward}, "
                             f"devices=[cuda:0] * {n})")
-                    require(got_counts == staged_launch_want(packed, nb),
+                    require(got_counts == staged_launch_want(net, nb),
                             f"{what}: launches {got_counts}, expected "
-                            f"{staged_launch_want(packed, nb)}")
+                            f"{staged_launch_want(net, nb)}")
                     for g, w, m in zip(got, want, ("nms", "components")):
                         same_list_bitwise(g, w, f"{what} {m} vs one device")
                     counts[(label, mode, forward, n)] = got_counts
@@ -4202,9 +4371,9 @@ def check_sharded(port, card_str: str, vol: np.ndarray) -> dict:
         torch.cuda.synchronize()
         k5 = launch_counts()
         nb = shard_tile_batches(prob, tile, batch)
-        require(k5 == staged_launch_want(True, nb),
+        require(k5 == staged_launch_want(net, nb),
                 f"sharded_infer {label}: launches {k5}, expected "
-                f"{staged_launch_want(True, nb)}")
+                f"{staged_launch_want(net, nb)}")
         require(np.array_equal(prob.gather(), host),
                 f"sharded_infer {label} at tile {tile} batch {batch} is not "
                 "TiledInference's map bit for bit")
@@ -4232,7 +4401,7 @@ def check_sharded(port, card_str: str, vol: np.ndarray) -> dict:
     prob = P.sharded_infer(spec, None, vol, mesh, axis=axes)
     torch.cuda.synchronize()
     k5 = launch_counts()
-    require(k5 == staged_launch_want(True, dims[0]),
+    require(k5 == staged_launch_want(net, dims[0]),
             f"whole-block sharded_infer: launches {k5}")
     whole = prob.gather()
     err = float(np.abs(logits(whole) - logits(host)).max())
@@ -4412,6 +4581,9 @@ def main(argv=None) -> int:
     # 4. K2 and K3 against their plain versions
     tails = check_tail_kernels(card_str)
 
+    # 4b. K2's stage kernel as the packed engines' conv + bias + ReLU
+    fused = check_fused_conv(card_str)
+
     # 5. K5 against its plain version
     k5 = check_split_kernel(card_str)
 
@@ -4487,11 +4659,16 @@ def main(argv=None) -> int:
                 and net.module.dtype == torch.bfloat16,
                 f"{name}: {net.infer_spec.name} is not the bf16 packed engine")
         r = run_main_path(net, vol)
-        require_launches(r, {"parity_split_kernel": r["n_batches"]},
+        n_fused = fused_convs(net)
+        require(n_fused == {"baseline": 2, "vgg_like": 3}[name],
+                f"packed {name}: {n_fused} convs on K2's stage kernel")
+        require_launches(r, {"parity_split_kernel": r["n_batches"],
+                             "stage_bias_relu": n_fused * r["n_batches"]},
                          f"packed {name}")
         print(f"packed {name} (tile in {net.tiled_inference(vol.shape).tile_in}"
               f"): {r['n_batches']} tile batches, launches {r['launches']} "
-              f"(K5 = 3 forwards x {r['n_batches']}); threshold "
+              f"(K5 = 3 forwards x {r['n_batches']}, K2's stage kernel "
+              f"{n_fused} x that); threshold "
               f"{r['threshold']:.9g} ({r['above_threshold']} voxels above); "
               f"nms {r['n_nms']} detections, components {r['n_cc']}; both "
               "equal the host reference", flush=True)
@@ -4522,6 +4699,13 @@ def main(argv=None) -> int:
                        "pallas": {"packed_tail": n, "packed_tail:wgmma": 2 * n},
                        "pallas2": {"packed_tail2": n,
                                    "packed_tail2:wgmma": 2 * n}}.get(engine, {})
+        # the convs outside the folds on K2's stage kernel: all 8 on the
+        # default engine, 7 beside a kernel tail, none on the plain one
+        n_fused = fused_convs(net)
+        require(n_fused == {"xla": 8, "plain": 0}.get(engine, 7),
+                f"unet {engine}: {n_fused} convs on K2's stage kernel")
+        if n_fused:
+            per_forward["stage_bias_relu"] = n_fused * n
         require_launches(r, per_forward, f"unet {engine}")
         print(f"unet {engine} ({net.infer_spec.name}, tile in "
               f"{net.tiled_inference(vol.shape).tile_in}): {n} tile batches, "
@@ -4679,6 +4863,47 @@ def main(argv=None) -> int:
                   "unfused_tail_ms the default engine's tail (cuDNN f32, "
                   "TF32 off), both on the same operands",
         })
+    kernels.append({
+        "name": "stage_bias_relu",
+        "route": "cuda",
+        "source": "flypylib_tpu_torch/csrc/packed_tail_wgmma.cu",
+        "replaces": "flypylib_tpu/ops/pallas_tail.py:221 (one stage)",
+        "launches": packed_runs["baseline"]["launches"]["stage_bias_relu"],
+        **fused["sums"],
+        "shapes": fused["shapes"],
+        "main_path_launches": {
+            **{f"packed {name} 256^3": r["launches"]["stage_bias_relu"]
+               for name, r in packed_runs.items()},
+            **{f"unet {engine} 256^3": r["launches"]["stage_bias_relu"]
+               for engine, r in unet_runs.items()},
+            **{f"unet f32 {engine} 256^3": r["launches"]["stage_bias_relu"]
+               for engine, r in unet32_runs.items()},
+            "packed baseline_bn 256^3": bn_runs["packed baseline_bn"][
+                "launches"]["stage_bias_relu"]},
+        "staged_launches": {
+            **{f"{lab} {fwd} {m} 256^3": staged["256"][(lab, fwd, m)][
+                "stage_bias_relu"]
+               for lab in ("packed baseline", "packed vgg_like")
+               for fwd in ("roi", "shared") for m in STAGED_METHODS},
+            f"north star {NORTH_STAR}^3 {staged['1k']['mode']} both":
+                staged["1k"]["launches"]["stage_bias_relu"],
+            **{f"north star {NORTH_STAR}^3 streaming {lab} ({r['mode']}) "
+               "both": r["launches"]["stage_bias_relu"]
+               for lab, r in stream["1k"].items()}},
+        "train_launches_per_step": per_step("stage_bias_relu"),
+        "train_main_path_launches": train["main"]["launches"][
+            "stage_bias_relu"],
+        "stream_rois_launches": bn["rois"]["launches"]["stage_bias_relu"],
+        "at": "K2's wgmma stage kernel as the packed engines' conv + bias + "
+              "ReLU at inference (ops/packed_conv.py::packed_conv_relu), "
+              "bf16, summed per model over the shapes of FUSED_SHAPES; "
+              "library_ms is cuDNN's conv and the two elementwise passes it "
+              "replaces; launches over infer + 2 detects of the packed "
+              "baseline at 256^3 (2 a tile batch), the other paths' beside "
+              "it (the U-Net's default engine 8 a tile batch, a kernel tail "
+              "7; none in f32, with BatchNorm or under grad; the training "
+              "run's are its validations')",
+    })
     kernels.append({
         "name": "wino_conv3d_bias_relu",
         "route": "cuda",

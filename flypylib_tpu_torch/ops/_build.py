@@ -45,6 +45,7 @@ _ENTRIES = {
     "fpl_tail_stage": [_P] * 6 + [_I] * 8 + [_P],
     "fpl_tail_stage_f32": [_P] * 5 + [_I] * 11 + [_P],
     "fpl_tail_stage_wgmma": [_P] * 8 + [_I] * 12 + [_P],
+    "fpl_stage_bias_relu_wgmma": [_P] * 5 + [_I] * 12 + [_P],
     "fpl_tail_logits": [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P],
     "fpl_parity_split": [_P, _P] + [_I] * 6 + [_P],
     "fpl_wino_conv": [_P] * 4 + [_I] * 9 + [_P],

@@ -30,6 +30,13 @@ the plain ConvStack's f32 logits, which the reference's docstring puts
 ~1e-6 relative from them, and which its ``forward_train`` uses) and
 ``stage_b="group"`` (measured and rejected there).
 
+At inference on the card, each dilation-1 conv + bias + ReLU on the packed
+lattice (:func:`packed_conv_relu`: stage A's convs, and the U-Net's but its
+folds) is one launch of K2's wgmma stage kernel
+(:func:`~flypylib_tpu_torch.ops.tail.stage_bias_relu`), whose epilogue
+rounds as :func:`_epilogue` does, in place of a cuDNN conv and two
+elementwise passes; :func:`fused_route` is the rule.
+
 A BatchNorm ``ConvStack`` runs packed at inference as in the reference:
 each BN is folded into the conv's epilogue from the running statistics
 (``BatchNorm.affine``: scale and shift in f32, cast to the model dtype; ``y
@@ -40,6 +47,7 @@ semantics, so ``forward_train`` refuses such a model, as the reference's.
 from __future__ import annotations
 
 import functools
+import weakref
 from itertools import product
 
 import numpy as np
@@ -49,6 +57,7 @@ from torch import nn
 
 from flypylib_tpu_torch.ops.conv import conv3d_f32, no_tf32
 from flypylib_tpu_torch.ops.split import parity_split_kernel
+from flypylib_tpu_torch.ops.tail import stage_bias_relu, stage_weights
 from flypylib_tpu_torch.utils.metrics import count
 
 _PARITY = list(product(range(2), repeat=3))  # (pz, py, px), px fastest
@@ -281,11 +290,57 @@ def _epilogue(y: torch.Tensor, conv, norm=None, tile: int = 1) -> torch.Tensor:
     return torch.relu(y)
 
 
+def fused_route(x: torch.Tensor, co: int, norm=None) -> bool:
+    """Whether :func:`packed_conv_relu` on a CUDA tensor ``x`` runs its conv
+    of ``co`` packed output channels as one launch of K2's wgmma stage
+    kernel: ``x`` bf16, grad off, no BatchNorm to fold (``norm`` None), Ci
+    and Co multiples of 8, ``x`` contiguous and on a 16-byte boundary (the
+    kernel's tensor-map rules).  Every other call (f32, training under
+    grad, a folded BatchNorm) keeps cuDNN and :func:`_epilogue`."""
+    return (x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+            and norm is None and x.dim() == 5 and x.shape[-1] % 8 == 0
+            and co % 8 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0)
+
+
+# conv -> {device: (weight ref, bias ref, version key, StageWeights)}; held
+# beside the module, not on it, so a deep copy of the module (a replica on
+# another device) neither carries nor pins the images of the original
+_STAGE_OPERANDS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _stage_operands(conv, device: torch.device):
+    """``conv``'s packed weight and its bias on all 8 parity groups as the
+    wgmma stage kernel reads them (:func:`~flypylib_tpu_torch.ops.tail.
+    stage_weights`), on ``device``: built once per version of the two
+    parameters and kept while ``conv`` lives, so a forward's launches do no
+    host work on them.  A version is the parameter object and its
+    ``_version`` (bumped by every in-place write), storage and dtype (which
+    a ``.data`` assignment or a ``Module.to`` changes without a bump)."""
+    w, b = conv.weight, conv.bias
+    key = tuple((t._version, t.data_ptr(), t.dtype) for t in (w, b))
+    held = _STAGE_OPERANDS.setdefault(conv, {})
+    got = held.get(device)
+    if (got is not None and got[0]() is w and got[1]() is b
+            and got[2] == key):
+        return got[3]
+    dt = torch.bfloat16
+    sw = stage_weights(pack_weight_d1(w.detach().to(device, dt)),
+                       b.detach().to(device, dt).repeat(8))
+    held[device] = (weakref.ref(w), weakref.ref(b), key, sw)
+    return sw
+
+
 def packed_conv_relu(x: torch.Tensor, conv, norm=None) -> torch.Tensor:
     """``conv``'s valid 3^3 conv (dilation 1) + bias (+ ``norm``'s folded
     BatchNorm) + ReLU on the packed lattice: the 2^3 conv against
     ``pack_weight_d1``, rounded to ``x.dtype``, then :func:`_epilogue` on
-    all 8 parity groups."""
+    all 8 parity groups.  On a CUDA tensor that :func:`fused_route` takes,
+    the same in one launch of K2's wgmma stage kernel (one count of the
+    tracer's ``packed_conv_fused``)."""
+    if x.device.type == "cuda" and fused_route(x, 8 * conv.weight.shape[-1],
+                                               norm):
+        count("packed_conv_fused", 1)
+        return stage_bias_relu(x, _stage_operands(conv, x.device))
     dt = x.dtype
     y = _conv(x, pack_weight_d1(conv.weight.to(dt)))
     return _epilogue(y, conv, norm, tile=8)

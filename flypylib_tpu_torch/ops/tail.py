@@ -28,6 +28,11 @@ and the logits of chains that do not end in a wgmma stage.
 ``packed_tail.routes`` / ``packed_tail2.routes`` count stage launches per
 route.
 
+The wgmma kernel also runs one stage alone for any Co, in output-channel
+slices of at most 192 (:func:`stage_bias_relu`, with its own ``launches``
+count): the packed engines' conv + bias + ReLU at inference
+(``ops/packed_conv.py::packed_conv_relu``), whose rounding is a stage's.
+
 Unlike the reference, every operand carries a batch axis:
 x is (B, D, H, W, C), as for K1.
 
@@ -43,12 +48,14 @@ f32, added in that order, in f32.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from flypylib_tpu_torch.ops.conv import (SIMT_SLICE, WGMMA_KC, conv3d_f32,
                                          matmul_f32, simt_plan, simt_weights,
                                          weight_images, wgmma_box,
-                                         wgmma_slices)
+                                         wgmma_chunks, wgmma_slices)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TAIL_ROUTES = ("wgmma", "wmma", "simt", "fma")
@@ -242,6 +249,49 @@ def tail_weights(wa: torch.Tensor, wb: torch.Tensor | None,
             torch.stack(w16, dim=1) if w16 else None)
 
 
+def stage_slices(co: int) -> tuple[int, int, int]:
+    """``(n, width, n_tile)``: the output-channel slices the wgmma kernel
+    runs a stage of ``co`` channels in, without logits: n = ceil(Co / 192)
+    slices of ``width`` channels (Co / n rounded up to a multiple of 8, the
+    last slice holding the rest; :func:`wgmma_chunks` at a widest block of
+    192), each on the smallest N tile that holds ``width``
+    (:func:`tail_tile`): 192 -> 1 x 192, 256 -> 2 x 128, 384 -> 2 x 192,
+    768 -> 4 x 192."""
+    chunks = wgmma_chunks(co, TAIL_N_TILES[-1])
+    width = chunks[0][1]
+    return len(chunks), width, tail_tile(width)
+
+
+class StageWeights(NamedTuple):
+    """A stage ``relu(round(round(conv2(x, w)) + b))`` as
+    :func:`stage_bias_relu` reads it (:func:`stage_weights`)."""
+    w: torch.Tensor  # (2, 2, 2, Ci, Co) bf16: the plain version's weight
+    b: torch.Tensor  # (Co,) bf16
+    w32: torch.Tensor | None  # (n, 8, n32, n_tile, 32): a slice's tail_weights
+    w16: torch.Tensor | None  # (n, 8, n16, n_tile, 16)
+    width: int  # output channels of a slice (the last may hold fewer)
+    n_tile: int
+
+
+def stage_weights(w: torch.Tensor, b: torch.Tensor) -> StageWeights:
+    """The operands of :func:`stage_bias_relu` for ``w`` (2, 2, 2, Ci, Co)
+    and ``b`` (Co,), both cast to bf16: the weight images of each slice of
+    :func:`stage_slices` (:func:`tail_weights` of its columns of ``w``),
+    stacked along a leading slice axis, on ``w``'s device."""
+    w = w.to(torch.bfloat16).contiguous()
+    b = b.to(torch.bfloat16).contiguous()
+    co = w.shape[4]
+    _, width, n_tile = stage_slices(co)
+    imgs = [tail_weights(w[..., c0:c0 + width], None, n_tile)
+            for c0 in range(0, co, width)]
+
+    def stacked(k):
+        return None if imgs[0][k] is None else torch.stack(
+            [img[k] for img in imgs])
+
+    return StageWeights(w, b, stacked(0), stacked(1), width, n_tile)
+
+
 # -- kernel launches ----------------------------------------------------------
 def _stage_wgmma(lib, stream, xa, xb, wa, wb, b, logits):
     """One launch of the wgmma stage kernel; with ``logits = (wl, bl)`` its
@@ -383,6 +433,71 @@ def _empty_result(x, n, c_last, logits):
 
 
 # -- public wrappers ----------------------------------------------------------
+def stage_bias_relu(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
+    """One stage ``relu(round(round(conv2(x, w)) + b))`` for any Co: the
+    valid 2^3 conv of ``x`` (B, D, H, W, Ci) with ``sw.w``, its 8 taps x Ci
+    products summed in f32 and rounded to bf16 once, the bf16 bias added
+    (the sum rounded to bf16), then ReLU; (B, D-1, H-1, W-1, Co) bf16.
+
+    A CPU tensor runs :func:`tail_reference` of the one stage.  A CUDA
+    tensor launches the wgmma kernel once over the slices of ``sw``, as the
+    operator ``fpl::stage_bias_relu`` (and adds one to
+    ``stage_bias_relu.launches``), or raises: ``x`` must be bf16,
+    contiguous and on a 16-byte boundary, with Ci a multiple of 8."""
+    _check_chain(tuple(x.shape), [sw.w], [sw.b], None)
+    if x.device.type == "cpu":
+        return tail_reference(x, [(sw.w, sw.b)])
+    if x.device.type != "cuda":
+        raise ValueError(f"no stage_bias_relu for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    _check_cuda([sw.w, sw.b], x)
+    ci, co = x.shape[4], sw.w.shape[4]
+    if ci % 8 or co % 8 or x.data_ptr() % 16:
+        raise ValueError("stage_bias_relu needs Ci and Co multiples of 8 and "
+                         "x on a 16-byte boundary")
+    if x.shape[0] == 0:  # a launch with an empty grid is refused
+        return x.new_empty((0, *(n - 1 for n in x.shape[1:4]), co))
+    out = torch.ops.fpl.stage_bias_relu(x, sw.w32, sw.w16, sw.b, sw.width,
+                                        sw.n_tile)
+    stage_bias_relu.launches += 1
+    return out
+
+
+def _stage_bias_relu_cuda(x, w32, w16, b, width: int, n_tile: int):
+    """``fpl::stage_bias_relu`` on the card: the wgmma kernel's launch over
+    ``-(-Co // width)`` slices (the checks are :func:`stage_bias_relu`'s)."""
+    from flypylib_tpu_torch.ops._build import load_library
+
+    B, D, H, W, ci = x.shape
+    co = b.shape[0]
+    out = torch.empty((B, D - 1, H - 1, W - 1, co), dtype=torch.bfloat16,
+                      device=x.device)
+    bz, by, bx = tail_box((D - 1, H - 1, W - 1))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = load_library().fpl_stage_bias_relu_wgmma(
+            x.data_ptr(), None if w32 is None else w32.data_ptr(),
+            None if w16 is None else w16.data_ptr(), b.data_ptr(),
+            out.data_ptr(), B, D, H, W, ci, co, width, -(-co // width),
+            n_tile, bz, by, bx, stream)
+    if err != 0:
+        raise RuntimeError("stage_bias_relu kernel launch failed: cudaError "
+                           f"{err}")
+    return out
+
+
+# The launch is an operator of its own: torch.profiler ties a kernel to the
+# operator whose call launched it, and through that operator to the ranges
+# open around the call (a module's forward, the tracer's spans).  A ctypes
+# launch made outside any operator is tied to none, and its device time is
+# missing from every range.
+_OPS = torch.library.Library("fpl", "FRAGMENT")
+_OPS.define("stage_bias_relu(Tensor x, Tensor? w32, Tensor? w16, Tensor b, "
+            "int width, int n_tile) -> Tensor")
+_OPS.impl("stage_bias_relu", _stage_bias_relu_cuda, "CUDA")
+
+
 def packed_tail(x: torch.Tensor, stages, logits=None) -> torch.Tensor:
     """Chain of valid 2^3 convs (+ReLU) with an optional final hi/lo logits
     dot — K2.
@@ -458,6 +573,7 @@ def packed_tail2(xa: torch.Tensor, xb: torch.Tensor, stage0, stages=(),
     return out
 
 
+stage_bias_relu.launches = 0
 packed_tail.launches = 0
 packed_tail2.launches = 0
 packed_tail.routes = dict.fromkeys(TAIL_ROUTES, 0)

@@ -68,6 +68,19 @@ plain and packed) on the card matches the CPU's to 1e-4, and
 ``TiledInference.infer(host_stream=True)`` gives the device sweep's map bit
 for bit (tile batch 1, many batches; f32 and uint8).
 
+The packed engines' conv + bias + ReLU at inference (``packed_conv_relu``
+on a bf16 card tensor without grad) is one launch of K2's wgmma stage
+kernel (``stage_bias_relu``), Co past 192 in output-channel slices: at the
+baseline's stage-A layers (batch 16) and the U-Net's eight widths it is
+within ``chip_smoke.tail_check``'s one-stage limit of the library path
+(cuDNN rounded to bf16, then ``_epilogue``) and exactly 0 where that
+path's pre-activation lies below a rounding; its output on sub-windows and
+on part of the batch is bit for bit the whole call's overlap; the tracer
+counts ``packed_conv_fused`` 8 a U-Net forward and 2 a baseline forward;
+``torch.profiler`` counts its kernel's and K5's device time in the ranges
+open around the call (their launches are the operators
+``fpl::stage_bias_relu`` and ``fpl::parity_split``).
+
 The packed engine's convs under grad (``PackedConv``): at the b32 step's
 three convs with an input gradient, that gradient (a forward conv) is
 within one bf16 rounding of an f32 ``conv3d_input``, and a profiled default
@@ -1027,3 +1040,174 @@ def test_detect_large_devices_on_cuda_slots(cuda, forward):
                 assert len(g) == len(w) > 0
                 np.testing.assert_array_equal(g.locs, w.locs)
                 np.testing.assert_array_equal(g.conf, w.conf)
+
+
+# -- the packed engines' conv + bias + ReLU on K2's wgmma stage kernel --------
+FUSED_CASES = {
+    # label: (batch, packed input extent, Ci, Co), both on the packed lattice
+    "baseline-L0": (16, 38, 8, 192),
+    "baseline-L1": (16, 37, 192, 256),
+    "unet-8-192": (1, 14, 8, 192),
+    "unet-192-192": (1, 13, 192, 192),
+    "unet-192-384": (1, 12, 192, 384),
+    "unet-384-384": (1, 11, 384, 384),
+    "unet-384-768": (1, 10, 384, 768),
+    "unet-768-768": (1, 9, 768, 768),
+}
+
+
+def _library_path(x, conv):
+    """The call the route replaces: cuDNN's conv rounded to bf16 (``pre``),
+    then ``_epilogue``; and the pre-activation ``pre + b`` in bf16."""
+    from flypylib_tpu_torch.ops.packed_conv import (_epilogue, _fprop,
+                                                    pack_weight_d1)
+
+    pre = _fprop(x, pack_weight_d1(conv.weight.to(torch.bfloat16)))
+    act = pre + conv.bias.to(torch.bfloat16).repeat(8)
+    return _epilogue(pre, conv, tile=8), pre, act
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_route_matches_the_library_path(cuda, case):
+    """``packed_conv_relu`` without grad takes the route (one launch, one
+    ``packed_conv_fused``), within one rounding at each of the stage's two
+    rounding points of cuDNN + ``_epilogue``, and exactly 0 wherever the
+    library's pre-activation lies below minus one rounding of its conv."""
+    from flypylib_tpu_torch.ops.packed_conv import (fused_route,
+                                                    packed_conv_relu)
+    from flypylib_tpu_torch.utils import metrics
+
+    batch, s, ci, co = FUSED_CASES[case]
+    x, conv = chip_smoke.fused_operands(batch, s, ci, co)
+    with torch.no_grad():
+        assert fused_route(x, co)
+        before = tail.stage_bias_relu.launches
+        metrics.enable()
+        try:
+            got = packed_conv_relu(x, conv)
+            torch.cuda.synchronize()
+        finally:
+            rec = metrics.disable()
+        assert tail.stage_bias_relu.launches == before + 1
+        assert sum(c.get("packed_conv_fused", 0)
+                   for c in rec["counters"].values()) == 1
+        ref, pre, act = _library_path(x, conv)
+    assert got.shape == ref.shape == (batch, *(s - 1,) * 3, co)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    err, ok = chip_smoke.tail_check(got, ref, torch.bfloat16, pre)
+    assert ok, f"max |err| {err}"
+    p = pre.float().abs()
+    margin = chip_smoke.bf16_ulp(
+        torch.clamp(p, min=chip_smoke.BF16_FLOOR * float(p.max())))
+    clipped = act.float() < -margin
+    assert 0.2 < float(clipped.float().mean()) < 0.8
+    assert not got[clipped].any()
+
+
+def test_fused_route_broken_weight_fails_the_check(cuda):
+    """A tap of the packed weight zeroed in the kept images fails the same
+    check: the test can see a wrong sum."""
+    from flypylib_tpu_torch.ops.packed_conv import (_stage_operands,
+                                                    packed_conv_relu)
+
+    x, conv = chip_smoke.fused_operands(1, 12, 192, 384)
+    with torch.no_grad():
+        ref, pre, _ = _library_path(x, conv)
+        sw = _stage_operands(conv, x.device)
+        sw.w32[:, 3].zero_()  # every slice's tap 3 (z = 0, y = 1, x = 1)
+        got = packed_conv_relu(x, conv)
+    assert not chip_smoke.tail_check(got, ref, torch.bfloat16, pre)[1]
+
+
+def test_fused_route_tiled_equals_monolithic_bitwise(cuda):
+    """The route's output on sub-windows of the input (other box grids,
+    every voxel at another place in its box) and on one batch entry is bit
+    for bit the whole call's overlap, at one slice and at four: what a
+    tiled map needs to equal the monolithic one."""
+    from flypylib_tpu_torch.ops.packed_conv import packed_conv_relu
+
+    for ci, co in ((8, 192), (384, 768)):
+        x, conv = chip_smoke.fused_operands(2, 15, ci, co, seed=1)
+        with torch.no_grad():
+            full = packed_conv_relu(x, conv)
+            assert torch.equal(packed_conv_relu(x, conv), full)
+            assert torch.equal(packed_conv_relu(x[1:].contiguous(), conv),
+                               full[1:])
+            for z, y, w in ((3, 5, 7), (1, 0, 9), (6, 2, 0)):
+                sub = x[:, z:, y:, w:].contiguous()
+                assert torch.equal(packed_conv_relu(sub, conv),
+                                   full[:, z:, y:, w:])
+
+
+def test_fused_route_counts_per_forward(cuda):
+    """One packed forward takes the route once per conv it covers: 8 in
+    the U-Net (four encoder convs, two bottleneck convs, each decoder
+    level's second conv), 2 in the baseline (stage A); under grad, none."""
+    from flypylib_tpu_torch.models.zoo import baseline_model, unet
+    from flypylib_tpu_torch.ops.packed_conv import packed_spec
+    from flypylib_tpu_torch.ops.packed_unet import packed_unet_spec
+    from flypylib_tpu_torch.utils import metrics
+
+    for spec, want in ((packed_unet_spec(unet()), 8),
+                       (packed_spec(baseline_model()), 2)):
+        module = spec.module.to(cuda)
+        s = spec.valid_size(spec.min_size + 4)
+        x = torch.rand((2, s, s, s, 1), device=cuda)
+        for grad in (False, True):
+            before = tail.stage_bias_relu.launches
+            metrics.enable()
+            try:
+                with torch.set_grad_enabled(grad):
+                    module(x)
+                torch.cuda.synchronize()
+            finally:
+                rec = metrics.disable()
+            n = sum(c.get("packed_conv_fused", 0)
+                    for c in rec["counters"].values())
+            assert n == (0 if grad else want), (spec.name, grad, n)
+            assert tail.stage_bias_relu.launches == before + n
+
+
+def test_fused_route_kernel_time_falls_in_its_ranges(cuda):
+    """The route's kernel and K5's are tied to the operators that launch
+    them (``fpl::stage_bias_relu``, ``fpl::parity_split``), so
+    ``torch.profiler`` counts their device time in every range open around
+    the call, as it counts a PyTorch kernel's: what a reader of a forward's
+    device time sees."""
+    from torch.autograd import DeviceType
+
+    from flypylib_tpu_torch.ops.packed_conv import packed_conv_relu
+    from flypylib_tpu_torch.ops.split import parity_split_kernel
+    from flypylib_tpu_torch.utils.metrics import span
+
+    x, conv = chip_smoke.fused_operands(2, 24, 192, 384)
+    rf = torch.autograd.profiler.record_function
+    with torch.no_grad():
+        y = packed_conv_relu(x, conv)
+        parity_split_kernel(y)
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            with rf("outer"):
+                packed_conv_relu(x, conv)  # right under the range
+                with span("inner", device=cuda):  # under a span inside it
+                    parity_split_kernel(packed_conv_relu(x, conv))
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and ("tail_wgmma_kernel" in e.name()
+                    or "parity_split_kernel" in e.name())]
+    assert len(kernels) == 3
+    assert all(e.linked_correlation_id() > 0 for e in kernels)
+    kernel_us = [e.duration_ns() / 1e3 for e in kernels]
+    ranges = {e.name: e.device_time_total for e in prof.events()
+              if e.device_type == DeviceType.CPU
+              and e.name in ("outer", "fpl.inner")}
+    assert ranges["outer"] >= 0.999 * sum(kernel_us), (ranges, kernel_us)
+    assert ranges["fpl.inner"] >= 0.999 * sum(kernel_us[1:]), (ranges,
+                                                               kernel_us)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert names.count("fpl::stage_bias_relu") == 2
+    assert names.count("fpl::parity_split") == 1

@@ -337,3 +337,119 @@ def test_packed_forward_without_grad_is_bitwise_unchanged(monkeypatch, name,
         want_train = module.forward_train(x)
     assert torch.equal(got, want)
     assert torch.equal(train.detach(), want_train.detach())
+
+
+# -- the inference route onto K2's wgmma stage kernel ------------------------
+def _bf16_view(c, off=0, shape=(2, 5, 6, 7)):
+    """A bf16 (*shape, c) tensor ``off`` elements past a 16-byte boundary."""
+    n = int(np.prod(shape)) * c
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+    view = flat[off:off + n].view(*shape, c)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2 * off
+    return view
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16", True),
+    ("f32", False),             # the f32 engine keeps cuDNN
+    ("grad", False),            # training under grad keeps autograd's path
+    ("batchnorm", False),       # a folded BatchNorm keeps _epilogue
+    ("ci_off_8", False),        # Ci off the multiples of 8
+    ("co_off_8", False),        # Co off the multiples of 8
+    ("unaligned", False),       # x 2 bytes past a 16-byte boundary
+    ("strided", False),         # x not contiguous
+    ("co_768", True),           # past the widest N tile: slices
+])
+def test_fused_route_rule(case, want):
+    """The rule :func:`fused_route` reads on a call of
+    ``packed_conv_relu`` (the device aside: a CPU tensor never takes it)."""
+    x, co, norm = _bf16_view(192), 256, None
+    grad = case == "grad"
+    if case == "f32":
+        x = x.float()
+    elif case == "batchnorm":
+        norm = tzoo.BatchNorm(32)
+    elif case == "ci_off_8":
+        x = _bf16_view(12)
+    elif case == "co_off_8":
+        co = 260
+    elif case == "unaligned":
+        x = _bf16_view(192, off=1)
+    elif case == "strided":
+        x = x.transpose(1, 2)
+    elif case == "co_768":
+        co = 768
+    with torch.set_grad_enabled(grad):
+        assert tpc.fused_route(x, co, norm) is want
+
+
+def test_cpu_packed_conv_relu_takes_the_library_path():
+    """On the CPU the route is never taken: the tracer counts no
+    ``packed_conv_fused`` and no launch is counted, and the output is bit
+    for bit the plain conv's followed by ``_epilogue``."""
+    from flypylib_tpu_torch.ops import tail
+    from flypylib_tpu_torch.utils import metrics
+
+    conv = tzoo.Conv3BiasReLU(3, 4, 1)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        conv.weight.normal_(generator=g)
+        conv.bias.normal_(generator=g)
+    x = torch.randn((1, 4, 5, 4, 24), generator=g).to(torch.bfloat16)
+    before = tail.stage_bias_relu.launches
+    metrics.enable()
+    try:
+        with torch.no_grad():
+            got = tpc.packed_conv_relu(x, conv)
+    finally:
+        rec = metrics.disable()
+    want = tpc._epilogue(tpc._fprop(x, tpc.pack_weight_d1(
+        conv.weight.to(torch.bfloat16))), conv, tile=8)
+    assert torch.equal(got, want)
+    assert not any("packed_conv_fused" in c for c in rec["counters"].values())
+    assert tail.stage_bias_relu.launches == before
+
+
+def test_stage_operands_are_built_once_per_weight_version():
+    """The packed weight and its images are kept per conv and device
+    and rebuilt only after an in-place write, a ``.data`` swap or a new
+    parameter, and hold the packed weight and the 8-fold bias."""
+    conv = tzoo.Conv3BiasReLU(2, 3, 1)
+    with torch.no_grad():
+        conv.weight.normal_()
+        conv.bias.normal_()
+    cpu = torch.device("cpu")
+    first = tpc._stage_operands(conv, cpu)
+    assert tpc._stage_operands(conv, cpu) is first
+    assert torch.equal(first.w, tpc.pack_weight_d1(
+        conv.weight.to(torch.bfloat16)))
+    assert torch.equal(first.b, conv.bias.to(torch.bfloat16).repeat(8))
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    second = tpc._stage_operands(conv, cpu)
+    assert second is not first and torch.equal(second.w, 2 * first.w)
+    conv.bias.data = conv.bias.data + 1
+    third = tpc._stage_operands(conv, cpu)
+    assert third is not second and torch.equal(third.b, (
+        conv.bias.to(torch.bfloat16)).repeat(8))
+    conv.weight = torch.nn.Parameter(conv.weight.detach().clone())
+    assert tpc._stage_operands(conv, cpu) is not third
+
+
+def test_stage_operands_stay_off_copies_of_the_module():
+    """A deep copy of a conv (a replica made for another device) carries
+    none of the original's images and builds its own, and the images go
+    with the conv that holds them."""
+    import copy
+
+    conv = tzoo.Conv3BiasReLU(2, 3, 1)
+    cpu = torch.device("cpu")
+    first = tpc._stage_operands(conv, cpu)
+    twin = copy.deepcopy(conv)
+    assert conv in tpc._STAGE_OPERANDS and twin not in tpc._STAGE_OPERANDS
+    assert "_stage_operands" not in vars(twin)
+    again = tpc._stage_operands(twin, cpu)
+    assert again is not first and torch.equal(again.w, first.w)
+    n = len(tpc._STAGE_OPERANDS)
+    del conv
+    assert len(tpc._STAGE_OPERANDS) == n - 1

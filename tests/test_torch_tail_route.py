@@ -278,3 +278,116 @@ def test_simt_weight_image_holds_wa_then_wb_and_zeros_past_co(ca, cb, co):
     assert torch.equal(back[:, :ca, :co], wa.reshape(8, ca, co))
     assert torch.equal(back[:, ca:, :co], wb.reshape(8, cb, co))
     assert not back[..., co:].any()
+
+
+# -- one stage for any Co: the packed engines' conv + bias + ReLU -----------
+@pytest.mark.parametrize("co,want", [
+    (192, (1, 192, 192)),   # the U-Net's level 0, the baseline's L0
+    (256, (2, 128, 128)),   # the baseline's stage-A L1
+    (384, (2, 192, 192)),   # the U-Net's level 1
+    (768, (4, 192, 192)),   # the U-Net's bottleneck
+    (8, (1, 8, 32)), (200, (2, 104, 128)), (776, (5, 160, 192)),
+])
+def test_stage_slice_plan(co, want):
+    """ceil(Co / 192) slices of Co / n rounded up to a multiple of 8, each
+    on the smallest N tile that holds it; the slices cover Co, the last
+    one holding the rest."""
+    n, width, n_tile = tail.stage_slices(co)
+    assert (n, width, n_tile) == want
+    assert n == -(-co // TAIL_N_TILES[-1]) and width % 8 == 0
+    assert n_tile == tail_tile(width) and (n - 1) * width < co <= n * width
+
+
+def _stage_operands(ci, co, seed=0):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(0, (8 * ci) ** -0.5, (2, 2, 2, ci, co))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32))
+    return w, b
+
+
+def _slice_weight(sw, s, ci):
+    """Slice ``s``'s (2, 2, 2, Ci, n_tile) weight, read back from its
+    images the way the kernel's K steps sum them (:func:`tail_slices`)."""
+    got = torch.zeros((8, ci + 32, sw.n_tile))
+    i32 = i16 = 0
+    for _, c0, n in tail_slices(ci):
+        if n == 32:
+            img, i32 = sw.w32[s, :, i32], i32 + 1
+        else:
+            img, i16 = sw.w16[s, :, i16], i16 + 1
+        got[:, c0:c0 + n] += img.float().transpose(1, 2)
+    return got[:, :ci].reshape(2, 2, 2, ci, sw.n_tile)
+
+
+@pytest.mark.parametrize("ci,co", [(8, 192), (192, 256), (192, 384),
+                                   (384, 768), (24, 200), (48, 776)])
+def test_each_slice_image_is_the_whole_images_rows(ci, co):
+    """The stacked images of :func:`stage_weights`: slice s's rows are the
+    whole weight's image rows of output channels s * width onwards (one
+    N tile that holds all of Co, :func:`tail_weights`' layout), zero past
+    the slice's channels; the bias is the bf16 bias."""
+    w, b = _stage_operands(ci, co)
+    sw = tail.stage_weights(w, b)
+    n, width, n_tile = tail.stage_slices(co)
+    whole = tail_weights(w, None, co)
+    for img, full in zip((sw.w32, sw.w16), whole):
+        assert (img is None) == (full is None)
+        if img is None:
+            continue
+        assert img.shape == (n, *full.shape[:2], n_tile, full.shape[3])
+        assert img.dtype == torch.bfloat16 and img.is_contiguous()
+        for s in range(n):
+            cs = min(width, co - s * width)
+            assert torch.equal(img[s, :, :, :cs],
+                               full[:, :, s * width:s * width + cs])
+            assert not img[s, :, :, cs:].any()
+    assert sw.b.dtype == torch.bfloat16 and torch.equal(sw.b,
+                                                        b.to(torch.bfloat16))
+    assert torch.equal(sw.w, w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("ci,co", [(8, 256), (192, 256), (16, 384),
+                                   (24, 200)])
+def test_sliced_stage_equals_the_unsliced_bit_for_bit(ci, co):
+    """Each slice as the kernel reads it (its images summed back into a
+    weight), run through :func:`tail_reference` with its part of the bias,
+    and the slices' outputs laid side by side: bit for bit the unsliced
+    stage, as is :func:`stage_bias_relu`'s plain version."""
+    w, b = _stage_operands(ci, co, seed=co)
+    x = torch.from_numpy(np.maximum(np.random.default_rng(ci).normal(
+        0, 1, (2, 4, 5, 3, ci)), 0).astype(np.float32)).to(torch.bfloat16)
+    sw = tail.stage_weights(w, b)
+    n, width, _ = tail.stage_slices(co)
+    whole = tail.tail_reference(x, [(w, b)])
+    parts = []
+    for s in range(n):
+        cs = min(width, co - s * width)
+        ws = _slice_weight(sw, s, ci)[..., :cs]
+        parts.append(tail.tail_reference(
+            x, [(ws, sw.b[s * width:s * width + cs])]))
+    assert torch.equal(torch.cat(parts, dim=-1), whole)
+    before = tail.stage_bias_relu.launches
+    assert torch.equal(tail.stage_bias_relu(x, sw), whole)
+    assert tail.stage_bias_relu.launches == before  # the CPU launches none
+
+
+def test_stage_bias_relu_checks_its_operands():
+    w, b = _stage_operands(16, 24)
+    sw = tail.stage_weights(w, b)
+    with pytest.raises(ValueError, match="channels"):
+        tail.stage_bias_relu(_x(8), sw)
+    with pytest.raises(ValueError, match="chain depth"):
+        tail.stage_bias_relu(_x(16, shape=(1, 1, 4, 4)), sw)
+
+
+def test_card_launches_are_operators():
+    """The card's launches of K2's stage kernel and of K5 are the operators
+    ``fpl::stage_bias_relu`` and ``fpl::parity_split``, so ``torch.profiler``
+    ties their kernels to the ranges around the call; each is registered
+    for CUDA alone (a CPU tensor runs the reference)."""
+    import flypylib_tpu_torch.ops.split  # noqa: F401  (fpl::parity_split)
+
+    has = torch._C._dispatch_has_kernel_for_dispatch_key
+    for op in ("fpl::stage_bias_relu", "fpl::parity_split"):
+        assert has(op, "CUDA") and not has(op, "CPU"), op
